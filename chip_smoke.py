@@ -7,9 +7,9 @@
 Phases (each prints its results; the script exits non-zero if any fails):
 
   0. header: the card's name and power limit, torch and CUDA versions;
-  1. build: compile ``src/repro_torch/csrc/paged_attention.cu`` with nvcc for
-     sm_90a and print the build seconds and ptxas' register/shared-memory
-     report;
+  1. build: compile the four sources of ``src/repro_torch/csrc/`` with nvcc
+     for sm_90a, one nvcc each, all started together, and print the build
+     seconds and ptxas' register/shared-memory report;
   2. kernel against its plain version: ``paged_attention`` on the card
      against ``paged_attention_ref`` on the same inputs, at the full width
      of llama3.2-1b (H=32, KV=8, D=64, the planned page) in the decode shape
@@ -24,6 +24,26 @@ Phases (each prints its results; the script exits non-zero if any fails):
      random weights, bf16) with paged batching and chunked prefill serves 8
      prompts of mixed length; every decode tick and prefill chunk of every
      layer must have launched the kernel.
+  5. the three kernels of the tuning path against their plain versions at
+     full width, bf16 and float32, at the planner's analytic blocks, plus
+     one ragged case each: ``matmul_cc`` at llama3.2-1b's MLP up-projection
+     for a 4096-token prefill (4096 x 2048 x 8192), orders cc and srrc
+     (bit-identical); ``flash_attention`` at llama3.2-1b's attention over
+     4096 tokens (1, 32, 4096, 64), causal; ``ssd_scan`` at zamba2-1.2b's
+     mixer over 4096 tokens (1, 4096, 64 heads, 64, state 64).  Then each
+     kernel's time beside its plain version's, a library call's where one
+     computes the same function, and its bound;
+  6. the tuning path at full width: the four sweeps on the card (phase 5's
+     shapes in bf16, and ``sweep_paged`` at llama3.2-1b decode: 8 slots,
+     4096 tokens, 8 KV heads, group 4, D 64), each candidate's shared
+     memory held to the kernel's own ``*_smem_bytes``, the winners written
+     under the card's fingerprint to a file under ``build/``, the planner
+     shown to return each of them, and ``python -m repro_torch.launch.tune
+     --quick`` run on the card.
+
+Phases 0-4 plan and serve without a tuning artifact (the port's tuning
+path points at a file that does not exist until phase 6 writes one), so
+their numbers compare with earlier runs'.
 
 Output, at the end: one JSON line describing the kernels, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -47,8 +67,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-#: Kernel against plain version, as in tests/test_kernels.py.
+#: Kernel against plain version, as in tests/test_kernels.py: float32 for
+#: blocked-vs-flat summation order, bf16 for the rounding of the output
+#: (and of attention's probabilities); relative and absolute alike.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+#: SSD, as in tests/test_kernels.py: the chunked form against the
+#: sequential recurrence.
+SSD_TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-4}
 #: 2-layer slice, card against CPU, float32 (TF32 off): the same products
 #: summed in another order over 2048-wide rows.
 SLICE_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -64,6 +89,13 @@ DECODE_LENS = (0, 1, 57, 300, 700, 1056, 1000, 64)
 LAYER_COPIES = 16       # one pool per layer, as the main path reads them
 REPS = 50
 PROFILE = "--profile" in sys.argv[1:]
+#: Phase 5/6 shapes: llama3.2-1b's MLP up-projection and attention over a
+#: 4096-token prefill, zamba2-1.2b's SSD mixer (d_inner 2 x 2048 = 64 heads
+#: of 64, state 64; configs/archs.py) over 4096 tokens.
+MM_SHAPE = (4096, 2048, 8192)
+FA_SHAPE = (1, 32, 4096, 64)
+SSD_SHAPE = (1, 4096, 64, 64, 64)
+BUILD = os.path.join(ROOT, "build", "repro_torch")
 
 
 def log(*args) -> None:
@@ -423,6 +455,271 @@ def profile_serve(engine, prompts, unprofiled_wall_s: float) -> None:
         f"{busy_us / (unprofiled_wall_s * 1e6):.3f}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the tuning path's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def held_to(out, ref, tol: float, what: str, rows=None) -> float:
+    """Max abs error of ``out`` against ``ref``; raises unless every element
+    is within ``tol * (1 + |ref|)`` (``rows``: a mask over dim 2, the query
+    rows that are defined)."""
+    diff = (out.float() - ref.float())
+    r = ref.float()
+    if rows is not None:
+        diff, r = diff[:, :, rows], r[:, :, rows]
+    err = diff.abs()
+    ok = bool((err <= tol * (1 + r.abs())).all())
+    assert bool(torch.isfinite(out.float()).all()), f"{what}: not finite"
+    log(f"  check {what}: max_abs_err={float(err.max()):.3e} (tol {tol:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{what}")
+    return float(err.max())
+
+
+def randn(gen, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=DEVICE)
+            * scale).to(dtype)
+
+
+def ssd_inputs(gen, b, s, h, p, n, dtype):
+    """x, B, C ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1)) / 2 and
+    A = -exp(0.3 N(0, 1)) in float32, as the reference's tests make them."""
+    x = randn(gen, (b, s, h, p), dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=DEVICE)) * 0.5
+    A = -torch.exp(torch.randn((h,), generator=gen, device=DEVICE) * 0.3)
+    return x, dt, A, randn(gen, (b, s, n), dtype), randn(gen, (b, s, n),
+                                                         dtype)
+
+
+def phase_tuning_kernels() -> dict:
+    """Each kernel against its plain version at full width in bf16 and
+    float32 plus a ragged case, then its times (bf16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.autotile import plan_attention, plan_matmul
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul_cc import matmul_cc
+    from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
+                                         ssd_ref)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.mamba2 import choose_chunk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    worst = {}
+    # matmul_cc: B scaled by 1/sqrt(K), as weights are initialised, so the
+    # products sum to O(1) values and float32's 1e-4 measures the kernel.
+    for dtype, (m, k, n) in ((torch.bfloat16, MM_SHAPE),
+                             (torch.float32, MM_SHAPE),
+                             (torch.bfloat16, (4000, 2000, 8000))):
+        a = randn(gen, (m, k), dtype)
+        b = randn(gen, (k, n), dtype, scale=k ** -0.5)
+        plan = plan_matmul(m, k, n, dtype_bytes=a.element_size())
+        cc = matmul_cc(a, b, plan=plan)
+        srrc = matmul_cc(a, b, plan=dataclasses.replace(plan, order="srrc"))
+        torch.cuda.synchronize()
+        assert torch.equal(cc, srrc), "cc and srrc differ"
+        what = f"matmul_cc {str(dtype)[6:]} {m}x{k}x{n} tile {plan.bm}x" \
+            f"{plan.bk}x{plan.bn} (cc == srrc bit for bit)"
+        err = held_to(cc, matmul_ref(a, b), TOL[dtype], what)
+        worst[("matmul_cc", dtype)] = max(
+            worst.get(("matmul_cc", dtype), 0.0), err)
+    # flash_attention, causal; the ragged case has Sq < Sk (every row sees
+    # a key) and lengths off every block.
+    b_, h_, s_, d_ = FA_SHAPE
+    for dtype, sq, sk in ((torch.bfloat16, s_, s_), (torch.float32, s_, s_),
+                          (torch.bfloat16, 1000, 4000)):
+        q = randn(gen, (b_, h_, sq, d_), dtype)
+        k = randn(gen, (b_, h_, sk, d_), dtype)
+        v = randn(gen, (b_, h_, sk, d_), dtype)
+        out, plan = flash_attention(q, k, v, causal=True, return_plan=True)
+        torch.cuda.synchronize()
+        what = (f"flash_attention {str(dtype)[6:]} ({b_},{h_},{sq},{sk},"
+                f"{d_}) blocks {plan.block_q}/{plan.block_kv}")
+        err = held_to(out, flash_attention_ref(q, k, v), TOL[dtype], what)
+        worst[("flash_attention", dtype)] = max(
+            worst.get(("flash_attention", dtype), 0.0), err)
+        del q, k, v, out
+    # ssd_scan at the planner's chunk; the ragged case ends mid-chunk.
+    bs, ss, hs, ps, ns = SSD_SHAPE
+    for dtype, s in ((torch.bfloat16, ss), (torch.float32, ss),
+                     (torch.bfloat16, 4000)):
+        chunk = choose_chunk(s, hs, ps, ns, dtype_bytes=dtype.itemsize)
+        args = ssd_inputs(gen, bs, s, hs, ps, ns, dtype)
+        y = ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        what = f"ssd_scan {str(dtype)[6:]} ({bs},{s},{hs},{ps},{ns}) " \
+            f"chunk {chunk}"
+        err = held_to(y, ssd_ref(*args), SSD_TOL[dtype], what)
+        worst[("ssd_scan", dtype)] = max(
+            worst.get(("ssd_scan", dtype), 0.0), err)
+
+    # Times, bf16, full width.
+    rows = {}
+    m, k, n = MM_SHAPE
+    a = randn(gen, (m, k), torch.bfloat16)
+    b = randn(gen, (k, n), torch.bfloat16, scale=k ** -0.5)
+    plan = plan_matmul(m, k, n, dtype_bytes=2)
+    rows["matmul_cc"] = dict(
+        ms=cuda_ms(lambda i: matmul_cc(a, b, plan=plan), reps=10),
+        plain_ms=cuda_ms(lambda i: matmul_ref(a, b), reps=10),
+        library_ms=cuda_ms(lambda i: torch.matmul(a, b), reps=10),
+        bytes=(m * k + k * n + m * n) * 2, ops=2 * m * n * k,
+        library="torch.matmul")
+    del a, b
+    q, k_, v = (randn(gen, FA_SHAPE, torch.bfloat16) for _ in range(3))
+    fa_plan = plan_attention(s_, s_, d_, dtype_bytes=2)
+    rows["flash_attention"] = dict(
+        ms=cuda_ms(lambda i: flash_attention(q, k_, v, plan=fa_plan),
+                   reps=10),
+        plain_ms=cuda_ms(lambda i: flash_attention_ref(q, k_, v), reps=3),
+        library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
+            q, k_, v, is_causal=True), reps=10),
+        bytes=4 * b_ * h_ * s_ * d_ * 2,
+        ops=4 * b_ * h_ * d_ * (s_ * (s_ + 1) // 2),   # the causal half
+        library="scaled_dot_product_attention(is_causal=True)")
+    del q, k_, v
+    chunk = choose_chunk(ss, hs, ps, ns, dtype_bytes=2)
+    args = ssd_inputs(gen, bs, ss, hs, ps, ns, torch.bfloat16)
+    nq = -(-ss // chunk)
+    tri = chunk * (chunk + 1) // 2
+    rows["ssd_scan"] = dict(
+        ms=cuda_ms(lambda i: ssd_scan(*args, chunk=chunk), reps=10),
+        plain_ms=cuda_ms(lambda i: ssd_ref(*args), reps=1),
+        library_ms=None,
+        # x and y (bf16), dt (float32), A, B and C, each once.
+        bytes=(2 * bs * ss * hs * ps * 2 + bs * ss * hs * 4 + hs * 4
+               + 2 * bs * ss * ns * 2),
+        # per chunk and head: C.B over the lower triangle, the intra- and
+        # inter-chunk terms of y, the state update.
+        ops=bs * hs * nq * (2 * tri * ns + 2 * tri * ps
+                            + 2 * chunk * ns * ps + 2 * chunk * ns * ps),
+        library="none: no single PyTorch call computes the SSD scan")
+    for name, row in rows.items():
+        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"],
+                                                    torch.bfloat16)
+        row["max_abs_err"] = worst[(name, torch.bfloat16)]
+        lib = ("null" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f}")
+        log(f"  time bf16 {name}: kernel_ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} library_ms={lib} "
+            f"({row['library']}) bound_ms={row['bound_ms']:.5f} "
+            f"({row['bound_by']}, {row['bytes']} B, {row['ops']} flop) "
+            f"share_of_bound={row['bound_ms'] / row['ms']:.4f}")
+    log("  phase 5 max_abs_err: " + json.dumps(
+        {f"{a}/{str(b)[6:]}": e for (a, b), e in worst.items()}))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the tuning path at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_tune(mods) -> dict:
+    from repro_torch.core.autotile import plan_attention
+    from repro_torch.core.plan import PlanPolicy, Workload, plan_run
+    from repro_torch.hw.h100 import h100_spec
+    from repro_torch.kernels import (flash_attention, matmul_cc,
+                                     paged_attention, ssd_scan)
+    from repro_torch.launch.tune import main as tune_main
+    from repro_torch.launch.tune import print_report
+    from repro_torch.models.mamba2 import choose_chunk
+    from repro_torch.serve.engine import plan_decode
+    from repro_torch.tune.cache import (TUNING_ENV, hw_fingerprint,
+                                        lookup_tuned, record_tuned)
+    from repro_torch.tune.sweep import (sweep_attention, sweep_matmul,
+                                        sweep_paged, sweep_ssd)
+
+    artifact = os.path.join(BUILD, "tuning_chip_smoke.json")
+    if os.path.exists(artifact):
+        os.remove(artifact)
+    os.environ[TUNING_ENV] = artifact
+    cfg = get_cfg()
+    bs, ss, hs, ps, ns = SSD_SHAPE
+    for mod in mods.values():
+        mod.LAUNCHES = 0                   # the main path's run starts here
+    t0 = time.perf_counter()
+    results = [
+        sweep_matmul(*MM_SHAPE, dtype_bytes=2),
+        sweep_attention(FA_SHAPE[2], FA_SHAPE[2], FA_SHAPE[3], dtype_bytes=2,
+                        heads=FA_SHAPE[1], batch=FA_SHAPE[0]),
+        sweep_paged(max_tokens=MAX_LEN, n_kv=cfg.n_kv_heads,
+                    group=cfg.n_heads // cfg.n_kv_heads,
+                    head_dim=cfg.head_dim, slots=MAX_SLOTS, dtype_bytes=2),
+        sweep_ssd(ss, hs, ps, ns, dtype_bytes=2, batch=bs),
+    ]
+    torch.cuda.synchronize()
+    launches = {name: mod.LAUNCHES for name, mod in mods.items()}  # ... ends
+    log(f"  sweeps: {time.perf_counter() - t0:.1f} s, launches "
+        f"{json.dumps(launches)}")
+    assert print_report(results), "a candidate breaks its budget"
+    for r in results:
+        assert r.candidates and r.center in [c.block for c in r.candidates], \
+            f"{r.kernel}: the analytic centre does not fit"
+        assert r.entry is not None, f"{r.kernel}: no winner"
+    # Every candidate's working-set estimate is the kernel's own.
+    g = cfg.n_heads // cfg.n_kv_heads
+    smem = {
+        "matmul_cc": lambda b: matmul_cc.kernel_smem_bytes(
+            b["bm"], b["bk"], b["bn"], torch.bfloat16),
+        "flash_attention": lambda b: flash_attention.kernel_smem_bytes(
+            b["block_kv"], FA_SHAPE[3], torch.bfloat16),
+        "paged_attention": lambda b: paged_attention.kernel_smem_bytes(
+            g, cfg.head_dim),
+        "ssd_scan": lambda b: ssd_scan.kernel_smem_bytes(b["chunk"], ps, ns),
+    }
+    for r in results:
+        for c in r.candidates:
+            got = smem[r.kernel](c.block)
+            assert c.est_vmem_bytes == got, (r.kernel, c.block,
+                                             c.est_vmem_bytes, got)
+    log(f"  estimates: all {sum(len(r.candidates) for r in results)} "
+        f"candidates' shared memory equals the kernels' *_smem_bytes")
+    path = record_tuned([r.entry for r in results])
+    fp = hw_fingerprint()
+    assert fp.startswith("cuda:") and all(
+        r.entry.fingerprint == fp for r in results)
+    with open(path) as f:
+        log(f"  wrote {path} ({len(json.load(f)['entries'])} entries, "
+            f"fingerprint {fp})")
+    win = {r.kernel: r.entry.block for r in results}
+    # The planner returns each winner as tuned.
+    fa = plan_attention(FA_SHAPE[2], FA_SHAPE[2], FA_SHAPE[3], dtype_bytes=2)
+    assert fa.source == "tuned" and {"block_q": fa.block_q,
+                                     "block_kv": fa.block_kv} == \
+        win["flash_attention"], fa
+    spec = h100_spec()
+    tile = plan_run(spec.hierarchy(), Workload(matmul=MM_SHAPE,
+                                               dtype_bytes=2),
+                    PlanPolicy(spec=spec)).tile_plan()
+    assert tile.source == "tuned" and {"bm": tile.bm, "bk": tile.bk,
+                                       "bn": tile.bn} == win["matmul_cc"]
+    chunk = choose_chunk(ss, hs, ps, ns, dtype_bytes=2)
+    assert lookup_tuned("ssd_scan", spec.name, results[3].bucket) \
+        and chunk == win["ssd_scan"]["chunk"]
+    page = plan_decode(cfg, max_len=MAX_LEN, batch=MAX_SLOTS,
+                       dtype_bytes=2).page_plan()
+    assert page["source"] == "tuned" and \
+        page["page_tokens"] == win["paged_attention"]["page_tokens"]
+    log(f"  planner returns the winners as tuned: attention "
+        f"{fa.block_q}/{fa.block_kv}, tile {tile.bm}x{tile.bk}x{tile.bn}, "
+        f"chunk {chunk}, page {page['page_tokens']}")
+    rc = tune_main(["--quick", "--out",
+                    os.path.join(BUILD, "tuning_quick.json")])
+    assert rc == 0, f"launch.tune --quick exited {rc}"
+    return {"launches": launches,
+            "sweeps": {r.kernel: {"center": r.center,
+                                  "winner": r.entry.block,
+                                  "analytic_us": r.entry.analytic_us,
+                                  "median_us": r.entry.median_us,
+                                  "speedup": r.entry.speedup}
+                       for r in results}}
+
+
 def get_cfg():
     from repro_torch.configs import get_model_config
 
@@ -436,9 +733,15 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (fails without the repository's src/)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import matmul_cc as mm_mod
     from repro_torch.kernels import paged_attention as pa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.serve.engine import plan_decode
+    from repro_torch.tune.cache import TUNING_ENV
 
+    # Phases 0-4 see no tuning artifact: the path names no file.
+    os.environ[TUNING_ENV] = os.path.join(BUILD, "no_tuning_artifact.json")
     # Float32 products in full float32 (the default for matmuls; stated).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -462,23 +765,27 @@ def main() -> int:
 
     def build():
         t0 = time.perf_counter()
-        path = _build.build("paged_attention")
-        for name, (secs, out) in _build.BUILD_LOG.items():
-            log(f"  built {name} in {secs:.1f} s -> {path}")
-            for line in out.splitlines():
-                if any(w in line for w in ("registers", "spill", "smem",
-                                           "error", "warning")):
-                    log(f"    {line.strip()}")
+        try:
+            paths = _build.build_all()
+        finally:
+            for name, (secs, out) in _build.BUILD_LOG.items():
+                log(f"  built {name} in {secs:.1f} s")
+                for line in out.splitlines():
+                    if any(w in line for w in ("Compiling entry", "registers",
+                                               "spill", "error", "warning")):
+                        log(f"    {line.strip()}")
+        log(f"  libraries: {[str(p) for p in paths.values()]}")
         return time.perf_counter() - t0
 
-    log("[1] build")
+    log("[1] build (one nvcc per source, all started together)")
     build_s = phase("phase 1 build", build)
     plan = plan_decode(get_cfg(), max_len=MAX_LEN, batch=MAX_SLOTS,
                        dtype_bytes=2)
     t = plan.page_plan()["page_tokens"]
     log(f"  planned page: {t} tokens ({plan.page_plan()['page_bytes']} B "
-        f"per layer page, SMEM budget {plan.level('SMEM').budget_bytes} B)")
-    kern = serve = None
+        f"per layer page, SMEM budget {plan.level('SMEM').budget_bytes} B, "
+        f"{plan.page_plan()['source']})")
+    kern = serve = tk = tune = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -486,7 +793,14 @@ def main() -> int:
         phase("phase 3 slice", phase_slice, t)
         log("[4] serving full-width llama3.2-1b, bf16")
         serve = phase("phase 4 serve", phase_serve, pa_mod)
-    if failed or kern is None or serve is None:
+        log("[5] the tuning path's kernels against their plain versions, "
+            "full width")
+        tk = phase("phase 5 kernels", phase_tuning_kernels)
+        log("[6] the tuning path at full width")
+        tune = phase("phase 6 tune", phase_tune, {
+            "matmul_cc": mm_mod, "flash_attention": fa_mod,
+            "paged_attention": pa_mod, "ssd_scan": ssd_mod})
+    if failed or None in (kern, serve, tk, tune):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -500,6 +814,23 @@ def main() -> int:
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
     }]
+    for name, line in (("matmul_cc", 33), ("flash_attention", 34),
+                       ("ssd_scan", 25)):
+        row = tk[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}.py:{line}",
+            "launches": tune["launches"][name],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing:
+        log(f"FAILED: the main path never launched {missing}")
+        return 1
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """Algorithm 1 (``validate_np``), the §2.1.1 search for the optimal number
-of partitions (``find_optimal_np``) and the mesh-level phi -- a copy of the
-part of ``repro.core.decompose`` the decode planner walks.
+of partitions (``find_optimal_np``), the mesh-level phi, and the SMEM-level
+phi the tile planner searches with (``make_phi_smem``, the counterpart of
+``repro.core.decompose.make_phi_tpu``) -- a copy of the part of
+``repro.core.decompose`` the port's planner walks.
 """
 
 from __future__ import annotations
@@ -25,6 +27,30 @@ def make_phi_mesh(granule_bytes: Optional[int] = None,
         return overhead * math.ceil(shard / g) * g
 
     return phi_mesh
+
+
+def make_phi_smem(vec_bytes: int = 16, buffering: int = 1) -> PhiFn:
+    """SMEM-level footprint estimator: the counterpart of ``make_phi_tpu``.
+
+    A partition staged in one block's shared memory occupies its
+    contiguous dim rounded up to whole ``vec_bytes`` vectors (a thread
+    loads 16 bytes at a time), times its other dims, with no pad of the
+    other dims (shared memory has no second-minor tile, unlike Mosaic's
+    (8, 128) layout).  ``buffering`` is the number of copies the kernel
+    keeps: the port's kernels stage each tile once (1), where Pallas
+    double-buffers every block (2).
+    """
+
+    def phi_smem(cache_line_size: int, dist: Distribution,
+                 np_: int) -> float:
+        del cache_line_size
+        first = max(1.0, dist.get_average_first_dim_size(np_))
+        other = dist.get_average_partition_size(np_) / first
+        row = math.ceil(first * dist.get_element_size() / vec_bytes) \
+            * vec_bytes
+        return float(buffering * row * math.ceil(other))
+
+    return phi_smem
 
 
 def validate_np(

@@ -1,6 +1,8 @@
-"""The paper's ``Distribution`` interface (Table 1) and the two
-distributions the decode planner uses (a copy of the matching part of
-``repro.core.distribution``).
+"""The paper's ``Distribution`` interface (Table 1), the two distributions
+the decode planner uses, and the row-block and square-block distributions
+and the Fig. 3 matmul domain the tile planner searches (a copy of the
+matching part of ``repro.core.distribution``; the ``partition`` methods
+and the stencil distribution wait for the host-cache engine).
 
 ``validate(np)`` follows the paper's tri-state contract:
   < 0  -- no solution exists for any value >= np
@@ -10,7 +12,9 @@ distributions the decode planner uses (a copy of the matching part of
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Sequence
 
 
 class Distribution:
@@ -70,3 +74,87 @@ class ReplicatedDistribution(Distribution):
 
     def get_average_partition_size(self, np_: int) -> float:
         return float(self.nbytes)
+
+
+@dataclass
+class RowBlockDistribution(Distribution):
+    """Horizontal slabs of whole rows of a 2-D row-major array (a K or V
+    sequence of ``rows`` tokens by ``cols`` head dims)."""
+
+    rows: int
+    cols: int
+    element_size: int
+
+    def validate(self, np_: int) -> int:
+        if np_ <= 0:
+            return 0
+        return 1 if np_ <= self.rows else -1
+
+    def get_element_size(self) -> int:
+        return self.element_size
+
+    def get_average_partition_size(self, np_: int) -> float:
+        return self.rows * self.cols / np_
+
+    def get_average_first_dim_size(self, np_: int) -> float:
+        return float(self.cols)
+
+
+@dataclass
+class Array2DBlockDistribution(Distribution):
+    """Square-grid block decomposition of a 2-D array (paper Listing 2):
+    ``validate`` admits only perfect squares, so the array splits into as
+    many blocks per column as per row."""
+
+    rows: int
+    cols: int
+    element_size: int
+
+    def validate(self, np_: int) -> int:
+        if np_ <= 0:
+            return 0
+        r = round(math.isqrt(np_))
+        if r * r != np_:
+            rnext = math.isqrt(np_) + 1
+            if rnext > min(self.rows, self.cols):
+                return -1
+            return 0
+        if r > min(self.rows, self.cols):
+            return -1
+        return 1
+
+    def get_element_size(self) -> int:
+        return self.element_size
+
+    def get_average_partition_size(self, np_: int) -> float:
+        r = round(math.sqrt(np_))
+        return (self.rows * self.cols) / float(r * r)
+
+    def get_average_first_dim_size(self, np_: int) -> float:
+        # Row-major: a block's contiguous dim is its column extent.
+        return self.cols / round(math.sqrt(np_))
+
+
+@dataclass
+class CompositeDomain:
+    """A domain built from sub-domains, each with its own distribution
+    (paper §2.1); one partition of it is one partition of each."""
+
+    dists: Sequence[Distribution]
+
+    def __iter__(self):
+        return iter(self.dists)
+
+    def __len__(self):
+        return len(self.dists)
+
+
+def matmul_domain(n: int, m: int, k: int,
+                  element_size: int) -> CompositeDomain:
+    """The paper's Fig. 3 decomposition of C[n,m] = A[n,k] @ B[k,m]: three
+    square-blocked sub-domains (A, B and C)."""
+    return CompositeDomain(dists=[
+        Array2DBlockDistribution(n, k, element_size),   # A
+        Array2DBlockDistribution(k, m, element_size),   # B
+        Array2DBlockDistribution(n, m, element_size),   # C
+    ])

@@ -1,4 +1,5 @@
-"""The decode walk of ``repro.core.plan`` against the H100's hierarchy.
+"""The decode and tile walks of ``repro.core.plan`` against the H100's
+hierarchy.
 
 ``plan_run`` walks a ``MemoryLevel`` tree outermost-in and runs the
 paper's Algorithm-1 / §2.1.1 search once per level with that level's phi:
@@ -8,16 +9,24 @@ paper's Algorithm-1 / §2.1.1 search once per level with that level's phi:
   ==========  =============  ========================================
   NVLINK      ``phi_mesh``   KV head sharding over the host's cards
                              against one card's HBM
-  SMEM        ``phi_page``   the KV page: one sequence's token range
-                             cut until a page fits, double-buffered
+  SMEM        ``phi_smem``   a matmul workload: the kernel's tile
+              (tile)         (``core.autotile``), against one block's
+                             shared memory and the REG level below
+  SMEM        ``phi_page``   a decode workload: the KV page, one
+              (page)         sequence's token range cut until a page
+                             fits, double-buffered
   ==========  =============  ========================================
 
 Levels are classified by name, as in the reference, but with the port's
-own tables: the reference's page levels are ``("VMEM", "L2")``, and
-Hopper's L2 would fit a page of hundreds of thousands of tokens.  On Hopper
-a paged-attention block stages its page in shared memory, so ``SMEM`` is
-the page level and ``NVLINK`` the mesh level.  The tile, host-cache and
-DCN paths of the reference wait for later slices.
+own tables: the reference's tile level is ``VMEM`` and its page levels are
+``("VMEM", "L2")``, and Hopper's L2 would fit a page of hundreds of
+thousands of tokens.  On Hopper a kernel block stages its tiles in shared
+memory, so ``SMEM`` is the tile level of a matmul workload and the page
+level of a decode workload (as ``VMEM`` is both in the reference), and
+``NVLINK`` the mesh level.  Both SMEM searches consult the port's tuning
+artifact (``tune.cache``) with precedence analytic < tuned.  The
+host-cache and DCN paths of the reference, ``to_json``/``describe`` and
+the ``strategy``/``max_np``/``tcl`` policy knobs wait for later slices.
 
 On Hopper the planned page is the pool's allocation granule and the
 prefill chunk, and nothing more: ``phi_page`` prices two buffered pages of
@@ -31,8 +40,10 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Mapping, Optional
+from functools import lru_cache
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
+from repro_torch.core.autotile import MatmulTilePlan
 from repro_torch.core.decompose import (
     NoValidDecomposition,
     find_optimal_np,
@@ -54,7 +65,9 @@ __all__ = [
     "HierarchicalPlan",
     "LevelPlan",
     "PlanPolicy",
+    "TILE_LEVEL_NAMES",
     "Workload",
+    "leaf_matmul_plan",
     "plan_run",
     "quantize_divisor",
 ]
@@ -65,6 +78,9 @@ MESH_LEVEL_NAMES = ("NVLINK",)
 
 #: The level a decode KV page is fit against: one block's shared memory.
 PAGE_LEVEL_NAMES = ("SMEM",)
+
+#: The level a matmul workload's kernel tile is fit against: the same.
+TILE_LEVEL_NAMES = ("SMEM",)
 
 #: Fallback sharding granule when no level below carries a line size.
 DEFAULT_GRANULE = 128
@@ -80,17 +96,20 @@ PAGE_BUFFERING = 2
 
 @dataclass(frozen=True)
 class Workload:
-    """The decode (serving) workload.
+    """What is decomposed: the decode (serving) workload or one matmul.
 
     ``state_bytes`` is the shardable resident KV, ``replicated_bytes`` the
-    per-card reserve (weights, activations).  ``kv_bytes_per_token`` is the
-    global per-token KV footprint (bytes x heads x layers), ``kv_layers``
-    and ``kv_heads`` its layer count and shardable head extent,
-    ``max_tokens`` one sequence's resident-token bound.
+    per-card reserve (weights, activations).  ``matmul`` is the local
+    ``C[m,n] = A[m,k] @ B[k,n]`` the SMEM level tiles.
+    ``kv_bytes_per_token`` is the global per-token KV footprint (bytes x
+    heads x layers), ``kv_layers`` and ``kv_heads`` its layer count and
+    shardable head extent, ``max_tokens`` one sequence's resident-token
+    bound.
     """
 
     state_bytes: int = 0
     replicated_bytes: int = 0
+    matmul: Optional[Tuple[int, int, int]] = None
     dtype_bytes: int = 2
     overhead: float = 1.0
     kv_bytes_per_token: int = 0
@@ -102,10 +121,16 @@ class Workload:
 @dataclass(frozen=True)
 class PlanPolicy:
     """How to search: ``n_workers`` seeds the outermost level,
-    ``quantize`` snaps mesh-level counts to realizable divisors."""
+    ``quantize`` snaps mesh-level counts to realizable divisors, ``order``
+    is the matmul traversal, ``spec`` the card whose granules align the
+    tile (default: an H100 SXM), and ``use_tuned`` consults the port's
+    tuning artifact (precedence analytic < tuned)."""
 
     n_workers: int = 1
     quantize: bool = True
+    order: str = "cc"
+    spec: Optional[Any] = None          # hw.h100.H100Spec
+    use_tuned: bool = True
 
 
 @dataclass(frozen=True)
@@ -115,7 +140,7 @@ class LevelPlan:
     count, ``detail`` a JSON-safe, kind-specific payload."""
 
     level: str
-    kind: str                    # mesh | page | container | leaf
+    kind: str                    # mesh | tile | page | container | leaf
     phi: str = ""
     budget_bytes: int = 0
     granule_bytes: int = 0
@@ -152,6 +177,13 @@ class HierarchicalPlan:
 
     def leaf(self) -> LevelPlan:
         return self.levels()[-1]
+
+    def tile_plan(self) -> Optional[MatmulTilePlan]:
+        """The SMEM level's ``MatmulTilePlan`` (None if no tile level)."""
+        for lp in self.levels():
+            if lp.kind == "tile":
+                return MatmulTilePlan(**lp.detail["tile"])
+        return None
 
     def page_plan(self) -> Optional[Mapping[str, Any]]:
         """The KV page record ``{"page_tokens", "page_bytes", "tok_bytes",
@@ -211,7 +243,10 @@ def _granule_below(level: MemoryLevel) -> int:
 def _classify(level: MemoryLevel, workload: Workload) -> str:
     if level.name in MESH_LEVEL_NAMES and level.child is not None:
         return "mesh"
-    if workload.kv_bytes_per_token > 0 and level.name in PAGE_LEVEL_NAMES:
+    if level.name in TILE_LEVEL_NAMES and workload.matmul is not None:
+        return "tile"
+    if (workload.kv_bytes_per_token > 0 and workload.matmul is None
+            and level.name in PAGE_LEVEL_NAMES):
         return "page"
     if level.child is None:
         return "leaf"
@@ -283,8 +318,50 @@ def _plan_mesh_level(level: MemoryLevel, workload: Workload,
     )
 
 
+def _plan_tile_level(level: MemoryLevel, workload: Workload,
+                     policy: PlanPolicy, n_workers: int) -> LevelPlan:
+    """The card-level tile search (``core.autotile``) as one plan level:
+    the SMEM level's budget for the staged tiles, the REG level below it
+    for the accumulator."""
+    from repro_torch.core import autotile
+
+    spec = policy.spec or _default_spec()
+    m, k, n = workload.matmul
+    budget = level.per_core_size()
+    reg_budget = (level.child.per_core_size() if level.child is not None
+                  else spec.regs_per_sm * 4)
+    tile = autotile._search_matmul_tiles(
+        m, k, n, workload.dtype_bytes, spec, policy.order, n_workers,
+        budget, reg_budget)
+    tuning = None
+    if policy.use_tuned:
+        tile, tuning = autotile.apply_tuned_matmul(
+            tile, workload.dtype_bytes, spec, budget, reg_budget)
+    detail: Dict[str, Any] = {"tile": {f: getattr(tile, f) for f in (
+        "m", "k", "n", "bm", "bk", "bn", "order", "np",
+        "est_vmem_bytes", "strategy", "source")}}
+    if tuning is not None:
+        detail["tuning"] = tuning
+    return LevelPlan(
+        level=level.name, kind="tile", phi="phi_smem",
+        budget_bytes=budget,
+        granule_bytes=level.cache_line_size or DEFAULT_GRANULE,
+        n_workers=max(1, n_workers), extent=max(1, tile.n_tasks),
+        np_raw=tile.np, np=tile.np,
+        partition_bytes=float(tile.est_vmem_bytes),
+        fits=tile.est_vmem_bytes <= budget,
+        detail=detail,
+    )
+
+
+def _default_spec():
+    from repro_torch.hw.h100 import h100_spec
+
+    return h100_spec()
+
+
 def _plan_page_level(level: MemoryLevel, workload: Workload,
-                     n_workers: int, kv_shard: int = 1,
+                     policy: PlanPolicy, n_workers: int, kv_shard: int = 1,
                      mesh_budget_bytes: int = 0) -> LevelPlan:
     """The decode KV page search: Algorithm 1 over one sequence's resident
     token range, one layer's KV slice (after head sharding) per token,
@@ -311,6 +388,13 @@ def _plan_page_level(level: MemoryLevel, workload: Workload,
         np_raw, fits = -(-tokens // PAGE_ALIGN), False
     per_partition = -(-tokens // np_raw)
     page_tokens = -(-per_partition // PAGE_ALIGN) * PAGE_ALIGN
+    source = "analytic"
+    tuning = None
+    if policy.use_tuned and fits:
+        tuned_pt, tuning = _tuned_page_tokens(policy, tok_bytes, tokens,
+                                              budget)
+        if tuned_pt is not None:
+            page_tokens, source = tuned_pt, "tuned"
     page_bytes = page_tokens * tok_bytes
     n_pages = -(-tokens // page_tokens)
     # One logical page costs ``page_tokens x kv_bytes_per_token`` global
@@ -335,12 +419,37 @@ def _plan_page_level(level: MemoryLevel, workload: Workload,
             "kv_shard": max(1, kv_shard),
             "align": PAGE_ALIGN,
             "buffering": PAGE_BUFFERING,
+            "source": source,
         }, "page_table": {
             "pages_per_slot": n_pages,
             "pages_total": int(pages_total),
             "slots_bound": int(pages_total // n_pages) if pages_total else 0,
-        }},
+        }, **({"tuning": tuning} if tuning is not None else {})},
     )
+
+
+def _tuned_page_tokens(policy: PlanPolicy, tok_bytes: int, tokens: int,
+                       budget: int) -> Tuple[Optional[int], Optional[dict]]:
+    """A measured ``page_tokens`` winner for this decode shape, re-checked
+    against the page level's own invariants (multiple of ``PAGE_ALIGN``,
+    two buffered pages within the level); ``(None, None)`` leaves the
+    analytic page standing."""
+    from repro_torch.core.autotile import _tuning_detail
+    from repro_torch.tune.cache import bucket_paged, lookup_tuned
+
+    spec = policy.spec or _default_spec()
+    entry = lookup_tuned("paged_attention", spec.name,
+                         bucket_paged(tok_bytes, tokens))
+    if entry is None:
+        return None, None
+    pt = entry.get("block", {}).get("page_tokens")
+    if not (isinstance(pt, int) and pt >= PAGE_ALIGN
+            and pt % PAGE_ALIGN == 0):
+        return None, None
+    pt = min(pt, -(-tokens // PAGE_ALIGN) * PAGE_ALIGN)
+    if PAGE_BUFFERING * pt * tok_bytes > budget:
+        return None, None
+    return pt, _tuning_detail(entry)
 
 
 def plan_run(hierarchy: MemoryLevel, workload: Workload,
@@ -374,9 +483,13 @@ def plan_run(hierarchy: MemoryLevel, workload: Workload,
                 nxt = nxt.child
             level = nxt
             continue
-        if kind == "page":
-            node = _plan_page_level(level, workload, np_thread, kv_shard,
-                                    mesh_budget_bytes=mesh_budget)
+        if kind == "tile":
+            node = _plan_tile_level(level, workload, policy, np_thread)
+            nodes.append(node)
+            np_thread = node.np
+        elif kind == "page":
+            node = _plan_page_level(level, workload, policy, np_thread,
+                                    kv_shard, mesh_budget_bytes=mesh_budget)
             nodes.append(node)
             np_thread = node.np_raw
         else:
@@ -387,3 +500,17 @@ def plan_run(hierarchy: MemoryLevel, workload: Workload,
     for node in reversed(nodes):
         hp = HierarchicalPlan(plan=node, child=hp)
     return hp
+
+
+@lru_cache(maxsize=512)
+def leaf_matmul_plan(m: int, k: int, n: int, dtype_bytes: int = 2,
+                     order: str = "cc", n_workers: int = 1
+                     ) -> MatmulTilePlan:
+    """Memoized SMEM-level tile plan for a local ``(m, k) @ (k, n)``: one
+    single-card ``plan_run`` per (shape, dtype), which ``kernels.matmul_cc``
+    pulls its plan from when the caller gives none."""
+    spec = _default_spec()
+    hp = plan_run(spec.hierarchy(),
+                  Workload(matmul=(m, k, n), dtype_bytes=dtype_bytes),
+                  PlanPolicy(order=order, n_workers=n_workers, spec=spec))
+    return hp.tile_plan()

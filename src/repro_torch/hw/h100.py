@@ -8,6 +8,24 @@ block may use, 65,536 registers per SM, 50 MB of L2, 80 GB of HBM3 at
 tensor cores.  They assume the full 700 W power limit.
 ``h100_spec(**overrides)`` replaces fields, e.g. a tiny ``smem_bytes`` so
 that tests see many small pages.
+
+Alignment granules, in place of the TPU's (``repro.hw.tpu``):
+
+  ``mma_rows`` (64)          replaces ``mxu`` (128): ``wgmma`` issues a
+                             64-row tile, so an M or N block extent larger
+                             than one tile is a whole number of them.
+  ``mma_depth(dtype_bytes)`` replaces ``sublane(dtype_bytes)`` (8/16/32
+                             rows): ``wgmma``'s depth is 32 bytes (16 bf16
+                             values, 8 float32), so a reduction extent (a
+                             matmul's K block, attention's KV block) is a
+                             whole number of steps.
+  ``vec_bytes`` (16)         replaces ``lane`` (128 elements) as the
+                             padding of a tile's contiguous dim: a thread
+                             loads 16 bytes at a time, so a staged row
+                             occupies whole 16-byte vectors.
+  ``smem_line_bytes`` (128)  the shared-memory line (32 banks of 4 B): the
+                             access granule of the SMEM level, the
+                             ``cache_line_size`` Algorithm 1 is given.
 """
 
 from __future__ import annotations
@@ -28,6 +46,14 @@ class H100Spec:
     smem_bytes: int = 232_448           # per block (opt-in maximum)
     num_sms: int = 132
     regs_per_sm: int = 65536            # 32-bit registers
+    mma_rows: int = 64                  # wgmma tile rows
+    mma_depth_bytes: int = 32           # wgmma depth: 16 bf16 values
+    vec_bytes: int = 16                 # fastest per-thread load
+    smem_line_bytes: int = 128          # 32 banks x 4 B
+
+    def mma_depth(self, dtype_bytes: int) -> int:
+        """Elements of one ``wgmma`` depth step: 16 bf16, 8 float32."""
+        return max(1, self.mma_depth_bytes // max(1, dtype_bytes))
 
     def hierarchy(self) -> MemoryLevel:
         """This card in the paper's §3.1 schema:
@@ -38,6 +64,7 @@ class H100Spec:
             l2_bytes=self.l2_bytes,
             n_sms=self.num_sms,
             reg_bytes=self.regs_per_sm * 4,
+            line_bytes=self.smem_line_bytes,
         )
 
 

@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface, is compiled by
 (at the root of the checkout, listed in ``.gitignore``) the first time it
 is needed, and is loaded with ``ctypes``.  The library's file name carries
 a hash of the source and the flags, so an edited source builds anew and an
-unchanged one is reused.  Nothing here runs at import time.
+unchanged one is reused.  ``build_all`` starts one ``nvcc`` per source at
+once, for a run that builds every kernel inside a time limit.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -23,6 +26,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: The port's CUDA sources, ``csrc/<name>.cu``.
+SOURCES = ("paged_attention", "matmul_cc", "flash_attention", "ssd_scan")
 
 #: name -> (seconds, compiler output) of the builds this process ran.
 BUILD_LOG: Dict[str, Tuple[float, str]] = {}
@@ -62,6 +68,14 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
     os.replace(tmp, out)    # atomic: concurrent builders agree
     return out
+
+
+def build_all() -> Dict[str, Path]:
+    """Build every source in ``SOURCES``, one ``nvcc`` each, all started
+    together; raises with the first failure's compiler output."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        paths = list(pool.map(build, SOURCES))
+    return dict(zip(SOURCES, paths))
 
 
 def load(name: str) -> ctypes.CDLL:

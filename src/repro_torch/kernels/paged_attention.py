@@ -25,14 +25,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.hw.h100 import h100_spec
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_attention_ref
 
 #: Kernel launches made by this process.
 LAUNCHES = 0
 
-#: Shared memory one block may use on Hopper (bytes).
-MAX_SMEM = 232_448
+#: Tokens of a page the kernel stages at a time (``kTileTokens``).
+TILE_TOKENS = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
@@ -52,6 +53,22 @@ def _kernel():
         smem.restype = ctypes.c_size_t
         _FN = (fn, smem)
     return _FN
+
+
+def smem_bytes(group: int, head_dim: int) -> int:
+    """Shared memory of one block, as the CUDA kernel lays it out (its
+    ``paged_attention_smem_bytes`` reports the same): float32 q and
+    accumulator (G x D each), one ``TILE_TOKENS`` tile of K (rows padded
+    by one float) and of V, the tile's logits (G x TILE_TOKENS) and the
+    softmax state (3 x G).  It does not depend on the page size."""
+    g, d, t = group, head_dim, TILE_TOKENS
+    return 4 * (2 * g * d + t * (d + 1) + t * d + g * t + 3 * g)
+
+
+def kernel_smem_bytes(group: int, head_dim: int) -> int:
+    """The shared memory the CUDA kernel reports for one block (builds the
+    kernel first)."""
+    return int(_kernel()[1](group, head_dim))
 
 
 def paged_attention(
@@ -110,12 +127,13 @@ def paged_attention(
     out = torch.empty_like(q)
     if s == 0:
         return out
-    fn, smem_bytes = _kernel()
-    smem = smem_bytes(h // n_kv, d)
-    if smem > MAX_SMEM:
+    fn, kernel_smem = _kernel()
+    smem = kernel_smem(h // n_kv, d)
+    limit = h100_spec().smem_bytes
+    if smem > limit:
         raise ValueError(f"{h // n_kv} query heads per KV head at head dim "
                          f"{d} need {smem} B of shared memory per block; "
-                         f"a block may use {MAX_SMEM}")
+                         f"a block may use {limit}")
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             s, h, n_kv, d, t, page_table.shape[1], int(window),

@@ -12,6 +12,13 @@ from repro_torch.hw import h100_spec
 from repro_torch.serve.engine import plan_decode
 
 
+
+@pytest.fixture(autouse=True)
+def _no_tuning_artifact(monkeypatch, tmp_path):
+    """Pages here are the analytic ones, whatever tuning artifact the
+    machine holds."""
+    monkeypatch.setenv("REPRO_TORCH_TUNING", str(tmp_path / "absent.json"))
+
 @pytest.mark.parametrize("arch,reduced", [("llama3.2-1b", True),
                                           ("llama3.2-1b", False),
                                           ("qwen2-0.5b", True),
