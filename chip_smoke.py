@@ -9,7 +9,10 @@ Phases (each prints its results; the script exits non-zero if any fails):
   0. header: the card's name and power limit, torch and CUDA versions;
   1. build: compile the four sources of ``src/repro_torch/csrc/`` with nvcc
      for sm_90a, one nvcc each, all started together, and print the build
-     seconds and ptxas' register/shared-memory report;
+     seconds and ptxas' register/shared-memory report; then count, with
+     ``cuobjdump -sass``, the HGMMA (wgmma) and UTMALDG (TMA load)
+     instructions of every kernel of ``matmul_cc`` and ``flash_attention``
+     (the phase fails if a wgmma kernel has none of either);
   2. kernel against its plain version: ``paged_attention`` on the card
      against ``paged_attention_ref`` on the same inputs, at the full width
      of llama3.2-1b (H=32, KV=8, D=64, the planned page) in the decode shape
@@ -30,9 +33,13 @@ Phases (each prints its results; the script exits non-zero if any fails):
      for a 4096-token prefill (4096 x 2048 x 8192), orders cc and srrc
      (bit-identical); ``flash_attention`` at llama3.2-1b's attention over
      4096 tokens (1, 32, 4096, 64), causal; ``ssd_scan`` at zamba2-1.2b's
-     mixer over 4096 tokens (1, 4096, 64 heads, 64, state 64).  Then each
-     kernel's time beside its plain version's, a library call's where one
-     computes the same function, and its bound;
+     mixer over 4096 tokens (1, 4096, 64 heads, 64, state 64).  Each check
+     names the body that ran (``wgmma`` or ``simt``, from the per-body
+     launch counters).  Then each kernel's time beside its plain
+     version's, a library call's where one computes the same function,
+     and its bound; for ``matmul_cc`` and ``flash_attention`` also the
+     time of the CUDA-core (simt) body at the same bf16 shape and its
+     planner's blocks (``ms_simt``);
   6. the tuning path at full width: the four sweeps on the card (phase 5's
      shapes in bf16, and ``sweep_paged`` at llama3.2-1b decode: 8 slots,
      4096 tokens, 8 KV heads, group 4, D 64), each candidate's shared
@@ -501,6 +508,8 @@ def phase_tuning_kernels() -> dict:
     import torch.nn.functional as F
 
     from repro_torch.core.autotile import plan_attention, plan_matmul
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import matmul_cc as mm_mod
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matmul_cc import matmul_cc
     from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
@@ -510,6 +519,20 @@ def phase_tuning_kernels() -> dict:
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     worst = {}
+    paths = {}
+
+    def body(mod, before, what):
+        """The body the calls since ``before`` ran, from the counters."""
+        moved = {p: getattr(mod, f"LAUNCHES_{p.upper()}") - before[p]
+                 for p in before}
+        ran = [p for p, n in moved.items() if n]
+        assert len(ran) == 1, f"{what}: launches by body {moved}"
+        return ran[0]
+
+    def counters(mod):
+        return {p: getattr(mod, f"LAUNCHES_{p.upper()}")
+                for p in ("wgmma", "simt")}
+
     # matmul_cc: B scaled by 1/sqrt(K), as weights are initialised, so the
     # products sum to O(1) values and float32's 1e-4 measures the kernel.
     for dtype, (m, k, n) in ((torch.bfloat16, MM_SHAPE),
@@ -518,12 +541,15 @@ def phase_tuning_kernels() -> dict:
         a = randn(gen, (m, k), dtype)
         b = randn(gen, (k, n), dtype, scale=k ** -0.5)
         plan = plan_matmul(m, k, n, dtype_bytes=a.element_size())
+        before = counters(mm_mod)
         cc = matmul_cc(a, b, plan=plan)
         srrc = matmul_cc(a, b, plan=dataclasses.replace(plan, order="srrc"))
         torch.cuda.synchronize()
+        path = body(mm_mod, before, "matmul_cc")
         assert torch.equal(cc, srrc), "cc and srrc differ"
         what = f"matmul_cc {str(dtype)[6:]} {m}x{k}x{n} tile {plan.bm}x" \
-            f"{plan.bk}x{plan.bn} (cc == srrc bit for bit)"
+            f"{plan.bk}x{plan.bn} {path} (cc == srrc bit for bit)"
+        paths[f"matmul_cc {str(dtype)[6:]} {m}x{k}x{n}"] = path
         err = held_to(cc, matmul_ref(a, b), TOL[dtype], what)
         worst[("matmul_cc", dtype)] = max(
             worst.get(("matmul_cc", dtype), 0.0), err)
@@ -535,10 +561,14 @@ def phase_tuning_kernels() -> dict:
         q = randn(gen, (b_, h_, sq, d_), dtype)
         k = randn(gen, (b_, h_, sk, d_), dtype)
         v = randn(gen, (b_, h_, sk, d_), dtype)
+        before = counters(fa_mod)
         out, plan = flash_attention(q, k, v, causal=True, return_plan=True)
         torch.cuda.synchronize()
+        path = body(fa_mod, before, "flash_attention")
+        paths[f"flash_attention {str(dtype)[6:]} ({b_},{h_},{sq},{sk},"
+              f"{d_})"] = path
         what = (f"flash_attention {str(dtype)[6:]} ({b_},{h_},{sq},{sk},"
-                f"{d_}) blocks {plan.block_q}/{plan.block_kv}")
+                f"{d_}) blocks {plan.block_q}/{plan.block_kv} {path}")
         err = held_to(out, flash_attention_ref(q, k, v), TOL[dtype], what)
         worst[("flash_attention", dtype)] = max(
             worst.get(("flash_attention", dtype), 0.0), err)
@@ -557,30 +587,50 @@ def phase_tuning_kernels() -> dict:
         worst[("ssd_scan", dtype)] = max(
             worst.get(("ssd_scan", dtype), 0.0), err)
 
-    # Times, bf16, full width.
+    # Times, bf16, full width: the routed (wgmma) body at the planner's
+    # blocks, and the simt body at its own planner's blocks, in turns.
     rows = {}
     m, k, n = MM_SHAPE
     a = randn(gen, (m, k), torch.bfloat16)
     b = randn(gen, (k, n), torch.bfloat16, scale=k ** -0.5)
     plan = plan_matmul(m, k, n, dtype_bytes=2)
+    simt_plan = plan_matmul(m, k, n, dtype_bytes=2, path="simt")
+    before = counters(mm_mod)
+    ms = cuda_ms(lambda i: matmul_cc(a, b, plan=plan), reps=20)
+    path = body(mm_mod, before, "matmul_cc timing")
     rows["matmul_cc"] = dict(
-        ms=cuda_ms(lambda i: matmul_cc(a, b, plan=plan), reps=10),
+        ms=ms, path=path,
+        ms_simt=cuda_ms(lambda i: matmul_cc(a, b, plan=simt_plan,
+                                            path="simt"), reps=5),
+        blocks=f"{plan.bm}x{plan.bk}x{plan.bn}",
+        blocks_simt=f"{simt_plan.bm}x{simt_plan.bk}x{simt_plan.bn}",
         plain_ms=cuda_ms(lambda i: matmul_ref(a, b), reps=10),
-        library_ms=cuda_ms(lambda i: torch.matmul(a, b), reps=10),
+        library_ms=cuda_ms(lambda i: torch.matmul(a, b), reps=20),
         bytes=(m * k + k * n + m * n) * 2, ops=2 * m * n * k,
         library="torch.matmul")
+    rows["matmul_cc"]["ms_again"] = cuda_ms(
+        lambda i: matmul_cc(a, b, plan=plan), reps=20)
     del a, b
     q, k_, v = (randn(gen, FA_SHAPE, torch.bfloat16) for _ in range(3))
     fa_plan = plan_attention(s_, s_, d_, dtype_bytes=2)
+    fa_simt = plan_attention(s_, s_, d_, dtype_bytes=2, path="simt")
+    before = counters(fa_mod)
+    ms = cuda_ms(lambda i: flash_attention(q, k_, v, plan=fa_plan), reps=20)
+    path = body(fa_mod, before, "flash_attention timing")
     rows["flash_attention"] = dict(
-        ms=cuda_ms(lambda i: flash_attention(q, k_, v, plan=fa_plan),
-                   reps=10),
+        ms=ms, path=path,
+        ms_simt=cuda_ms(lambda i: flash_attention(q, k_, v, plan=fa_simt,
+                                                  path="simt"), reps=5),
+        blocks=f"{fa_plan.block_q}/{fa_plan.block_kv}",
+        blocks_simt=f"{fa_simt.block_q}/{fa_simt.block_kv}",
         plain_ms=cuda_ms(lambda i: flash_attention_ref(q, k_, v), reps=3),
         library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
-            q, k_, v, is_causal=True), reps=10),
+            q, k_, v, is_causal=True), reps=20),
         bytes=4 * b_ * h_ * s_ * d_ * 2,
         ops=4 * b_ * h_ * d_ * (s_ * (s_ + 1) // 2),   # the causal half
         library="scaled_dot_product_attention(is_causal=True)")
+    rows["flash_attention"]["ms_again"] = cuda_ms(
+        lambda i: flash_attention(q, k_, v, plan=fa_plan), reps=20)
     del q, k_, v
     chunk = choose_chunk(ss, hs, ps, ns, dtype_bytes=2)
     args = ssd_inputs(gen, bs, ss, hs, ps, ns, torch.bfloat16)
@@ -597,20 +647,37 @@ def phase_tuning_kernels() -> dict:
         # inter-chunk terms of y, the state update.
         ops=bs * hs * nq * (2 * tri * ns + 2 * tri * ps
                             + 2 * chunk * ns * ps + 2 * chunk * ns * ps),
-        library="none: no single PyTorch call computes the SSD scan")
+        library="none: no single PyTorch call computes the SSD scan",
+        path="simt")
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"],
                                                     torch.bfloat16)
         row["max_abs_err"] = worst[(name, torch.bfloat16)]
         lib = ("null" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
-        log(f"  time bf16 {name}: kernel_ms={row['ms']:.4f} "
+        log(f"  time bf16 {name} ({row['path']}): kernel_ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} library_ms={lib} "
             f"({row['library']}) bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}, {row['bytes']} B, {row['ops']} flop) "
             f"share_of_bound={row['bound_ms'] / row['ms']:.4f}")
+        if "ms_simt" in row:
+            lib_ratio = row["ms"] / row["library_ms"]
+            log(f"    {name}: {row['path']} {row['ms']:.4f} ms (again "
+                f"{row['ms_again']:.4f}) at {row['blocks']}, simt "
+                f"{row['ms_simt']:.4f} ms at {row['blocks_simt']}: "
+                f"{row['ms_simt'] / row['ms']:.1f}x faster; "
+                f"{lib_ratio:.2f}x the library call, "
+                f"{row['ops'] / row['ms'] / 1e9:.1f} TFLOP/s")
+    log("  phase 5 bodies: " + json.dumps(paths))
     log("  phase 5 max_abs_err: " + json.dumps(
         {f"{a}/{str(b)[6:]}": e for (a, b), e in worst.items()}))
+    for name in ("matmul_cc", "flash_attention"):
+        assert rows[name]["path"] == "wgmma", (name, rows[name]["path"])
+        assert rows[name]["ms"] < rows[name]["ms_simt"], name
+    assert [p for c, p in paths.items() if "bfloat16" in c] == \
+        ["wgmma"] * 4, paths
+    assert [p for c, p in paths.items() if "float32" in c] == \
+        ["simt"] * 2, paths
     return rows
 
 
@@ -642,6 +709,8 @@ def phase_tune(mods) -> dict:
     bs, ss, hs, ps, ns = SSD_SHAPE
     for mod in mods.values():
         mod.LAUNCHES = 0                   # the main path's run starts here
+        if hasattr(mod, "LAUNCHES_WGMMA"):
+            mod.LAUNCHES_WGMMA = mod.LAUNCHES_SIMT = 0
     t0 = time.perf_counter()
     results = [
         sweep_matmul(*MM_SHAPE, dtype_bytes=2),
@@ -654,8 +723,13 @@ def phase_tune(mods) -> dict:
     ]
     torch.cuda.synchronize()
     launches = {name: mod.LAUNCHES for name, mod in mods.items()}  # ... ends
+    by_body = {name: {p: getattr(mods[name], f"LAUNCHES_{p.upper()}")
+                      for p in ("wgmma", "simt")}
+               for name in ("matmul_cc", "flash_attention")}
     log(f"  sweeps: {time.perf_counter() - t0:.1f} s, launches "
-        f"{json.dumps(launches)}")
+        f"{json.dumps(launches)}, by body {json.dumps(by_body)}")
+    assert all(b["wgmma"] == launches[n] for n, b in by_body.items()), \
+        "a full-width bf16 sweep left the wgmma body"
     assert print_report(results), "a candidate breaks its budget"
     for r in results:
         assert r.candidates and r.center in [c.block for c in r.candidates], \
@@ -663,11 +737,15 @@ def phase_tune(mods) -> dict:
         assert r.entry is not None, f"{r.kernel}: no winner"
     # Every candidate's working-set estimate is the kernel's own.
     g = cfg.n_heads // cfg.n_kv_heads
+    mm_path = matmul_cc.matmul_path(*MM_SHAPE, torch.bfloat16)
+    fa_path = flash_attention.attention_path(FA_SHAPE[2], FA_SHAPE[2],
+                                             FA_SHAPE[3], torch.bfloat16)
     smem = {
         "matmul_cc": lambda b: matmul_cc.kernel_smem_bytes(
-            b["bm"], b["bk"], b["bn"], torch.bfloat16),
+            b["bm"], b["bk"], b["bn"], torch.bfloat16, mm_path),
         "flash_attention": lambda b: flash_attention.kernel_smem_bytes(
-            b["block_kv"], FA_SHAPE[3], torch.bfloat16),
+            b["block_q"], b["block_kv"], FA_SHAPE[3], torch.bfloat16,
+            fa_path),
         "paged_attention": lambda b: paged_attention.kernel_smem_bytes(
             g, cfg.head_dim),
         "ssd_scan": lambda b: ssd_scan.kernel_smem_bytes(b["chunk"], ps, ns),
@@ -678,7 +756,8 @@ def phase_tune(mods) -> dict:
             assert c.est_vmem_bytes == got, (r.kernel, c.block,
                                              c.est_vmem_bytes, got)
     log(f"  estimates: all {sum(len(r.candidates) for r in results)} "
-        f"candidates' shared memory equals the kernels' *_smem_bytes")
+        f"candidates' shared memory equals the kernels' *_smem_bytes "
+        f"(matmul_cc {mm_path}, flash_attention {fa_path})")
     path = record_tuned([r.entry for r in results])
     fp = hw_fingerprint()
     assert fp.startswith("cuda:") and all(
@@ -763,6 +842,8 @@ def main() -> int:
             failed.append(name)
             return None
 
+    sass = {}
+
     def build():
         t0 = time.perf_counter()
         try:
@@ -775,6 +856,19 @@ def main() -> int:
                                                "spill", "error", "warning")):
                         log(f"    {line.strip()}")
         log(f"  libraries: {[str(p) for p in paths.values()]}")
+        # The tensor-core kernels really hold wgmma and TMA instructions.
+        for name in ("matmul_cc", "flash_attention"):
+            counts = _build.sass_counts(name, ("HGMMA", "UTMALDG"))
+            total = {"HGMMA": 0, "UTMALDG": 0}
+            for fn, c in counts.items():
+                log(f"  sass {fn}: HGMMA {c['HGMMA']}, UTMALDG "
+                    f"{c['UTMALDG']}")
+                if "wgmma_kernel" in fn:
+                    assert c["HGMMA"] > 0 and c["UTMALDG"] > 0, (fn, c)
+                    for op in total:
+                        total[op] += c[op]
+            assert total["HGMMA"] > 0, f"{name}: no wgmma kernel"
+            sass[name] = total
         return time.perf_counter() - t0
 
     log("[1] build (one nvcc per source, all started together)")
@@ -812,7 +906,7 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"],
+        "library_ms": dec["library_ms"], "path": "simt",
     }]
     for name, line in (("matmul_cc", 33), ("flash_attention", 34),
                        ("ssd_scan", 25)):
@@ -825,8 +919,10 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
+            "library_ms": row["library_ms"], "path": row["path"],
         })
+        if "ms_simt" in row:
+            kernels[-1].update(ms_simt=row["ms_simt"], sass=sass[name])
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         log(f"FAILED: the main path never launched {missing}")

@@ -9,6 +9,11 @@ tensors, plus a plain-integer launch counter ``LAUNCHES``:
   * ``flash_attention`` -- streaming-softmax attention, SMEM-sized KV blocks
   * ``ssd_scan``        -- Mamba2/SSD chunked scan, state kept on chip
 
+``matmul_cc`` and ``flash_attention`` have two bodies each (tensor-core
+``wgmma`` and CUDA-core ``simt``, chosen by ``matmul_path`` /
+``attention_path``) and also count by body: ``LAUNCHES_WGMMA``,
+``LAUNCHES_SIMT``.
+
 ``ops`` holds the public ``matmul``/``attention``/``ssd`` entry points,
 exported here.  The wrappers are reached through their modules (the
 package does not rebind the module names to functions, so

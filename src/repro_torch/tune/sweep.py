@@ -2,9 +2,11 @@
 (the counterpart of ``repro.tune.sweep``).
 
 For each kernel the analytic block is the centre of a small neighbourhood
--- half and double each extent, re-aligned -- every candidate is filtered
-through the working-set model the planner uses, which counts what the
-port's kernel puts in one block's shared memory (``core.autotile``'s
+-- half and double each extent, re-aligned to the granules of the body
+the shape takes (``matmul_path``/``attention_path``), matmul's doubled
+extent capped at the wgmma body's largest -- every candidate is filtered
+through the working-set model the planner uses, which counts what that
+body puts in one block's shared memory (``core.autotile``'s
 ``_matmul_smem_bytes``/``_attn_smem_bytes``, with the REG-level check of
 what it keeps in registers; ``models.mamba2.ssd_workset_bytes``; the paged
 kernel's fixed staging, ``kernels.paged_attention.smem_bytes``, beside the
@@ -31,18 +33,24 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.autotile import (
-    MIN_BLOCK,
+    WG_MAX_CONSUMERS,
+    WG_MAX_N,
+    WG_ROWS,
     _align_block,
     _attn_fits,
+    _attn_granule,
     _attn_smem_bytes,
     _budgets,
     _matmul_fits,
     _matmul_smem_bytes,
+    _mm_granules,
     _mm_unit,
     _round_down,
     _round_up,
     _search_matmul_tiles,
+    attention_path,
     clamp_attention_plan,
+    matmul_path,
     plan_attention,
 )
 from repro_torch.hw.h100 import H100Spec, h100_spec
@@ -209,12 +217,16 @@ def _randn(gen: torch.Generator, shape, dtype, dev) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _extent_options(center: int, dim: int, granule: int) -> List[int]:
+def _extent_options(center: int, dim: int, granule: int, path: str,
+                    cap: Optional[int] = None) -> List[int]:
     """Half and double one block extent, re-aligned to the granule the
-    analytic search uses, clamped to the rounded-up problem dim."""
-    unit = _mm_unit(dim, granule)
+    analytic search uses on ``path``, clamped to the rounded-up problem
+    dim and to ``cap``, the body's largest extent (so a centre between
+    half the cap and the cap still tries the cap)."""
+    unit = _mm_unit(dim, granule, path)
+    double = _align_block(center * 2, dim, granule, path)
     opts = {center, _round_down(center // 2, unit),
-            _align_block(center * 2, dim, granule)}
+            double if cap is None else max(center, min(double, cap))}
     return sorted(o for o in opts if o >= 1)
 
 
@@ -226,16 +238,20 @@ def sweep_matmul(m: int, k: int, n: int, dtype_bytes: int = 2,
     budget, regs = _budgets(spec)
     center = _search_matmul_tiles(m, k, n, dtype_bytes, spec, order, 1,
                                   budget, regs)
-    mn_g, k_g = spec.mma_rows, spec.mma_depth(dtype_bytes)
+    path = matmul_path(m, k, n, dtype_bytes)
+    mn_g, k_g = _mm_granules(path, dtype_bytes, spec)
+    caps = (WG_MAX_CONSUMERS * WG_ROWS, WG_MAX_N, WG_MAX_N) \
+        if path == "wgmma" else (None, None, None)
     raw = [{"bm": bm, "bk": bk, "bn": bn}
-           for bm in _extent_options(center.bm, m, mn_g)
-           for bk in _extent_options(center.bk, k, k_g)
-           for bn in _extent_options(center.bn, n, mn_g)]
+           for bm in _extent_options(center.bm, m, mn_g, path, caps[0])
+           for bk in _extent_options(center.bk, k, k_g, path, caps[1])
+           for bn in _extent_options(center.bn, n, mn_g, path, caps[2])]
     fitting, rejected = _dedup_fitting(
         raw,
-        lambda b: _matmul_smem_bytes(b["bm"], b["bk"], b["bn"], dtype_bytes),
+        lambda b: _matmul_smem_bytes(b["bm"], b["bk"], b["bn"], dtype_bytes,
+                                     path),
         lambda b: _matmul_fits(b["bm"], b["bk"], b["bn"], dtype_bytes,
-                               budget, regs))
+                               budget, regs, path))
     result = SweepResult(
         kernel="matmul_cc",
         bucket=bucket_matmul(m, k, n, dtype_bytes),
@@ -281,30 +297,31 @@ def sweep_attention(q_len: int, kv_len: int, head_dim: int,
                               dtype_bytes=dtype_bytes, spec=spec,
                               use_tuned=False)
     # Sweep the blocks the kernel runs (the wrapper clamps a block larger
-    # than the sequence), re-aligned to 8: candidates must be multiples of
-    # 8 to be admissible as tuned entries.
+    # than the sequence), re-aligned to the body's granule: candidates
+    # must be admissible as tuned entries.
+    path = attention_path(q_len, kv_len, head_dim, dtype_bytes)
+    g = _attn_granule(path)
     clamped = clamp_attention_plan(analytic, q_len, kv_len,
                                    dtype_bytes=dtype_bytes)
     center = dataclasses.replace(
         clamped,
-        block_q=min(_round_up(clamped.block_q, MIN_BLOCK),
-                    _round_up(q_len, MIN_BLOCK)),
-        block_kv=min(_round_up(clamped.block_kv, MIN_BLOCK),
-                     _round_up(kv_len, MIN_BLOCK)))
+        block_q=min(_round_up(clamped.block_q, g), _round_up(q_len, g)),
+        block_kv=min(_round_up(clamped.block_kv, g), _round_up(kv_len, g)))
 
     def opts(c: int, length: int) -> List[int]:
-        o = {c, max(MIN_BLOCK, _round_down(c // 2, MIN_BLOCK)),
-             min(_round_up(c * 2, MIN_BLOCK), _round_up(length, MIN_BLOCK))}
-        return sorted(x for x in o if x >= MIN_BLOCK)
+        o = {c, max(g, _round_down(c // 2, g)),
+             min(_round_up(c * 2, g), _round_up(length, g))}
+        return sorted(x for x in o if x >= g)
 
     raw = [{"block_q": bq, "block_kv": bkv}
            for bq in opts(center.block_q, q_len)
            for bkv in opts(center.block_kv, kv_len)]
     fitting, rejected = _dedup_fitting(
         raw,
-        lambda b: _attn_smem_bytes(b["block_kv"], head_dim, dtype_bytes),
+        lambda b: _attn_smem_bytes(b["block_q"], b["block_kv"], head_dim,
+                                   dtype_bytes, path),
         lambda b: _attn_fits(b["block_q"], b["block_kv"], head_dim,
-                             dtype_bytes, budget, regs))
+                             dtype_bytes, budget, regs, path))
     result = SweepResult(
         kernel="flash_attention",
         bucket=bucket_attention(q_len, kv_len, head_dim, dtype_bytes),

@@ -10,8 +10,11 @@ decode page plan is unchanged (56 tokens, 74 pages a slot).
 """
 
 import math
+import re
+from pathlib import Path
 
 import pytest
+import torch
 
 from repro.core.decompose import find_optimal_np as jax_find_np
 from repro.core.decompose import make_phi_tpu
@@ -20,14 +23,23 @@ from repro.core.distribution import matmul_domain as jax_matmul_domain
 from repro.hw.tpu import chip_spec
 from repro_torch.configs import get_model_config
 from repro_torch.core.autotile import (
+    FA_STAGES,
+    FA_WGMMA_BLOCKS,
     MAX_THREADS,
     MIN_BLOCK,
     MM_MICRO,
+    MM_STAGES,
+    SMEM_OVERHEAD,
+    WG_FRAGMENT_REGS,
+    _attn_fragment_regs,
     _attn_reg_bytes,
     _attn_smem_bytes,
     _attn_threads,
     _matmul_reg_bytes,
     _matmul_smem_bytes,
+    attention_path,
+    matmul_path,
+    matmul_tile_ok,
     plan_attention,
     plan_matmul,
     plan_matmul_horizontal,
@@ -109,15 +121,23 @@ MM_SHAPES = [MM_FULL, (512, 512, 512), (8, 512, 8), (72, 130, 50),
 @pytest.mark.parametrize("el", [2, 4])
 def test_tile_plan_fits_and_covers(m, k, n, el):
     t = plan_matmul(m, k, n, dtype_bytes=el)
+    path = matmul_path(m, k, n, el)
     assert t.source == "analytic" and t.strategy == "cache_conscious"
-    assert t.est_vmem_bytes == _matmul_smem_bytes(t.bm, t.bk, t.bn, el)
+    assert t.est_vmem_bytes == _matmul_smem_bytes(t.bm, t.bk, t.bn, el, path)
     assert t.est_vmem_bytes <= SMEM
-    assert 2 * _matmul_reg_bytes(t.bm, t.bn) <= REG
-    assert (t.bm // MM_MICRO) * (t.bn // MM_MICRO) <= MAX_THREADS
-    for blk, dim, g in ((t.bm, m, SPEC.mma_rows), (t.bn, n, SPEC.mma_rows),
-                        (t.bk, k, SPEC.mma_depth(el))):
-        assert blk % MIN_BLOCK == 0
-        assert blk % g == 0 or dim <= g
+    assert matmul_tile_ok(t.bm, t.bk, t.bn, path)
+    if path == "wgmma":
+        # bn/2 f32 accumulators a consumer thread (m64nN), whole 64s.
+        assert t.bn // 2 <= WG_FRAGMENT_REGS
+        assert t.bm % 64 == t.bk % 64 == t.bn % 64 == 0
+    else:
+        assert 2 * _matmul_reg_bytes(t.bm, t.bn) <= REG
+        assert (t.bm // MM_MICRO) * (t.bn // MM_MICRO) <= MAX_THREADS
+        for blk, dim, g in ((t.bm, m, SPEC.mma_rows),
+                            (t.bn, n, SPEC.mma_rows),
+                            (t.bk, k, SPEC.mma_depth(el))):
+            assert blk % MIN_BLOCK == 0
+            assert blk % g == 0 or dim <= g
     gi, gj, gk = t.grid
     assert gi * t.bm >= m and gj * t.bn >= n and gk * t.bk >= k
     assert (gi - 1) * t.bm < m and (gj - 1) * t.bn < n
@@ -156,11 +176,18 @@ def test_horizontal_plan_is_one_slab_per_worker():
 @pytest.mark.parametrize("el", [2, 4])
 def test_attention_plan_fits(q_len, kv_len, d, el):
     p = plan_attention(q_len, kv_len, d, dtype_bytes=el)
-    assert p.est_vmem_bytes == _attn_smem_bytes(p.block_kv, d, el) <= SMEM
-    assert 2 * _attn_reg_bytes(p.block_q, d) <= REG
-    assert _attn_threads(p.block_q, d) <= MAX_THREADS
+    path = attention_path(q_len, kv_len, d, el)
+    assert p.est_vmem_bytes == _attn_smem_bytes(p.block_q, p.block_kv, d, el,
+                                                path) <= SMEM
+    if path == "wgmma":
+        assert _attn_fragment_regs(p.block_kv, d) <= WG_FRAGMENT_REGS
+        assert p.block_q in FA_WGMMA_BLOCKS and p.block_kv in FA_WGMMA_BLOCKS
+        assert p.block_q <= -(-q_len // 64) * 64
+    else:
+        assert 2 * _attn_reg_bytes(p.block_q, d) <= REG
+        assert _attn_threads(p.block_q, d) <= MAX_THREADS
+        assert p.block_q <= -(-q_len // 8) * 8
     assert p.block_q % MIN_BLOCK == 0 and p.block_kv % MIN_BLOCK == 0
-    assert p.block_q <= -(-q_len // 8) * 8
     gq, gkv = p.grid
     assert gq * p.block_q >= q_len and gkv * p.block_kv >= kv_len
 
@@ -187,7 +214,8 @@ def test_full_width_sweeps_keep_the_analytic_centre():
 def test_tpu_working_set_model_rejects_what_hopper_keeps():
     """The three failures of copying the TPU model with Hopper's 232,448 B:
     matmul_cc's 8 candidates, ssd_scan's 3 (the working set multiplied by
-    all 64 heads) and the attention centre's resident f32 scores."""
+    all 64 heads) and the attention centre's resident f32 scores; and what
+    the port's own models hold instead."""
     from repro.core.autotile import _attn_vmem_bytes
     from repro.models.mamba2 import ssd_workset_bytes as jax_ssd_ws
     from repro.tune.sweep import sweep_matmul as jax_sweep_matmul
@@ -202,9 +230,12 @@ def test_tpu_working_set_model_rejects_what_hopper_keeps():
     assert jax_ssd_ws(64, 64, 64, 64, 2) == 6_291_456
     assert jax_ssd_ws(64, 1, 64, 64, 2) == 98_304
     assert _attn_vmem_bytes(128, 128, 64, 2) == 230_400
-    # The port's models of the same blocks.
+    # The port's models of the same blocks: one K and one V tile on the
+    # simt body; on the wgmma body the Q tile, two stages of K and V, and
+    # 1,152 B of alignment slack and barriers.
     assert ssd_workset_bytes(128, 64, 64) == 181_760 <= SMEM
-    assert _attn_smem_bytes(128, 64, 2) == 32_768
+    assert _attn_smem_bytes(128, 128, 64, 2) == 32_768
+    assert _attn_smem_bytes(128, 128, 64, 2, "wgmma") == 83_072 <= SMEM
 
 
 @pytest.mark.parametrize("seq,h,p,n", [SSD_FULL, (64, 2, 16, 16),
@@ -218,3 +249,122 @@ def test_chunk_fits_one_block(seq, h, p, n):
         assert ssd_workset_bytes(2 * c, p, n) > SMEM
     assert math.isclose(ssd_workset_bytes(c, p, n) / 4,
                         c * p + c * (n + 1) + c * n + 2 * c + c * c + n * p)
+
+
+# ---------------------------------------------------------------------------
+# The two bodies of matmul_cc and flash_attention: routing, working sets
+# ---------------------------------------------------------------------------
+
+MM_RAGGED = (4000, 2000, 8000)         # phase 5's ragged matmul
+FA_RAGGED = (1000, 4000, 64)           # phase 5's ragged attention
+
+
+@pytest.mark.parametrize("m,k,n,dtype,path", [
+    (*MM_FULL, torch.bfloat16, "wgmma"),
+    (*MM_RAGGED, torch.bfloat16, "wgmma"),
+    (*MM_FULL, torch.float32, "simt"),       # no full-f32 wgmma
+    (72, 130, 50, torch.bfloat16, "simt"),   # K, N not multiples of 8
+    (200, 136, 264, torch.bfloat16, "wgmma"),
+    (64, 130, 64, torch.bfloat16, "simt"),   # K: rows not 16-byte strides
+    (64, 64, 50, torch.bfloat16, "simt"),    # N likewise
+    (64, 0, 64, torch.bfloat16, "simt"),     # no K: nothing for TMA
+    (*MM_FULL, 2, "wgmma"),                  # an element size works too
+    (*MM_FULL, 4, "simt"),
+])
+def test_matmul_path_routes(m, k, n, dtype, path):
+    assert matmul_path(m, k, n, dtype) == path
+
+
+@pytest.mark.parametrize("q_len,kv_len,d,dtype,path", [
+    (*FA_FULL, torch.bfloat16, "wgmma"),
+    (*FA_RAGGED, torch.bfloat16, "wgmma"),
+    (100, 300, 128, torch.bfloat16, "wgmma"),
+    (*FA_FULL, torch.float32, "simt"),
+    (40, 24, 16, torch.bfloat16, "simt"),    # head dims the body lacks
+    (64, 256, 32, torch.bfloat16, "simt"),
+    (128, 128, 256, torch.bfloat16, "simt"),
+    (8, 0, 64, torch.bfloat16, "simt"),      # no keys
+])
+def test_attention_path_routes(q_len, kv_len, d, dtype, path):
+    assert attention_path(q_len, kv_len, d, dtype) == path
+
+
+def _kernel_constant(source: str, name: str) -> int:
+    text = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+            / "csrc" / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("source,stages", [("matmul_cc.cu", MM_STAGES),
+                                           ("flash_attention.cu",
+                                            FA_STAGES)])
+def test_wgmma_model_constants_are_the_kernels(source, stages):
+    """The planner's stages and overhead are the CUDA sources' own."""
+    assert _kernel_constant(source, "kStages") == stages
+    assert (_kernel_constant(source, "kAlignSlack")
+            + _kernel_constant(source, "kBarrierBytes")) == SMEM_OVERHEAD
+
+
+@pytest.mark.parametrize("bm,bk,bn", [(64, 64, 64), (128, 64, 192),
+                                      (128, 64, 256), (64, 192, 64)])
+def test_wgmma_matmul_smem_is_the_kernels_formula(bm, bk, bn):
+    """``wgmma_smem_bytes`` of csrc/matmul_cc.cu: four stages of the bf16
+    A and B tiles, 1,024 B of alignment slack, 128 B of barriers."""
+    assert _matmul_smem_bytes(bm, bk, bn, 2, "wgmma") == \
+        4 * (bm * bk + bk * bn) * 2 + 1024 + 128
+    assert _matmul_smem_bytes(bm, bk, bn, 2) == (bm * bk + bk * bn) * 2
+
+
+@pytest.mark.parametrize("bq,bkv,d", [(64, 64, 64), (128, 128, 64),
+                                      (128, 128, 128), (64, 128, 128)])
+def test_wgmma_attention_smem_is_the_kernels_formula(bq, bkv, d):
+    """``wgmma_smem_bytes`` of csrc/flash_attention.cu: the bf16 Q tile,
+    two stages of K and V, 1,024 B of alignment slack, 128 B of
+    barriers; registers: scores, output and packed P per thread."""
+    assert _attn_smem_bytes(bq, bkv, d, 2, "wgmma") == \
+        bq * d * 2 + 2 * 2 * bkv * d * 2 + 1024 + 128
+    assert _attn_fragment_regs(bkv, d) == bkv // 2 + d // 2 + bkv // 4
+
+
+@pytest.mark.parametrize("shape", [MM_FULL, MM_RAGGED])
+def test_full_width_matmul_plan_takes_the_wgmma_path(shape):
+    t = plan_matmul(*shape, dtype_bytes=2)
+    assert matmul_path(*shape, 2) == "wgmma"
+    assert t.bm % 64 == 0 and t.bn % 8 == 0 and t.bn <= 256
+    assert t.bk % 64 == 0
+    assert matmul_tile_ok(t.bm, t.bk, t.bn, "wgmma")
+    assert t.est_vmem_bytes == _matmul_smem_bytes(t.bm, t.bk, t.bn, 2,
+                                                  "wgmma") <= SMEM
+
+
+@pytest.mark.parametrize("shape", [FA_FULL, FA_RAGGED])
+def test_full_width_attention_plan_takes_the_wgmma_path(shape):
+    p = plan_attention(*shape, dtype_bytes=2)
+    assert attention_path(*shape, 2) == "wgmma"
+    assert p.block_q in FA_WGMMA_BLOCKS and p.block_kv <= 256
+    assert p.block_kv in FA_WGMMA_BLOCKS
+    assert p.est_vmem_bytes == _attn_smem_bytes(p.block_q, p.block_kv,
+                                                shape[2], 2, "wgmma")
+
+
+@pytest.mark.parametrize("kernel", ["matmul_cc", "flash_attention"])
+def test_full_width_sweep_candidates_obey_the_wgmma_rules(kernel):
+    """Every candidate of phase 6's bf16 sweeps is a block the wgmma body
+    takes, with the kernel's own shared memory."""
+    if kernel == "matmul_cc":
+        r = sweep_matmul(*MM_FULL, dtype_bytes=2, dry=True)
+        for c in r.candidates:
+            b = c.block
+            assert matmul_tile_ok(b["bm"], b["bk"], b["bn"], "wgmma")
+            assert c.est_vmem_bytes == _matmul_smem_bytes(
+                b["bm"], b["bk"], b["bn"], 2, "wgmma")
+    else:
+        r = sweep_attention(*FA_FULL, dtype_bytes=2, heads=32, dry=True)
+        for c in r.candidates:
+            b = c.block
+            assert b["block_q"] in FA_WGMMA_BLOCKS
+            assert b["block_kv"] in FA_WGMMA_BLOCKS
+            assert c.est_vmem_bytes == _attn_smem_bytes(
+                b["block_q"], b["block_kv"], FA_FULL[2], 2, "wgmma")
+    assert len(r.candidates) >= 2 and r.center in [c.block
+                                                   for c in r.candidates]

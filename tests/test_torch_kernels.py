@@ -336,6 +336,47 @@ def test_off_cpu_tensors_never_fall_back():
     assert (mm_mod.LAUNCHES, fa_mod.LAUNCHES, ssd_mod.LAUNCHES) == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_body_that_cannot_take_the_shape_raises(dtype):
+    """``path="wgmma"`` on a shape the tensor-core body does not take
+    (float32; bf16 with K = 130; attention at D = 32) raises, whatever the
+    device, and moves no counter; ``path="simt"`` is always allowed."""
+    before = (mm_mod.LAUNCHES, fa_mod.LAUNCHES)
+    a, b = torch.zeros(16, 130, dtype=dtype), torch.zeros(130, 16,
+                                                           dtype=dtype)
+    with pytest.raises(ValueError, match="wgmma body cannot take"):
+        matmul_cc(a, b, path="wgmma")
+    q = torch.zeros(1, 1, 16, 32, dtype=dtype)
+    with pytest.raises(ValueError, match="wgmma body cannot take"):
+        flash_attention(q, q, q, path="wgmma")
+    assert matmul_cc(a, b, path="simt").shape == (16, 16)
+    assert (mm_mod.LAUNCHES, fa_mod.LAUNCHES) == before
+
+
+def test_library_name_follows_included_headers(monkeypatch, tmp_path):
+    """A built library's name hashes its source and every ``csrc`` header
+    it includes (headers of headers too), so an edited header rebuilds
+    the kernels that include it and no others."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "inner.cuh").write_text("// inner v1\n")
+    (tmp_path / "outer.cuh").write_text('#include "inner.cuh"\n')
+    (tmp_path / "a.cu").write_text('#include "outer.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n) for n in ("a", "b")}
+    assert _build._headers((tmp_path / "a.cu").read_bytes()) == (
+        tmp_path / "inner.cuh", tmp_path / "outer.cuh")
+    (tmp_path / "inner.cuh").write_text("// inner v2\n")
+    after = {n: _build.library_path(n) for n in ("a", "b")}
+    assert after["a"] != before["a"] and after["b"] == before["b"]
+    # The real sources: the two tensor-core kernels include hopper.cuh.
+    monkeypatch.undo()
+    for name in ("matmul_cc", "flash_attention"):
+        src = (_build.CSRC / f"{name}.cu").read_bytes()
+        assert _build.CSRC / "hopper.cuh" in _build._headers(src)
+
+
 # ---------------------------------------------------------------------------
 # On a card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -388,6 +429,77 @@ def test_cuda_flash_attention_matches_plain_version(dtype, b, h, sq, sk, d,
     tol = MM_TOL[str(dtype).split(".")[-1]]
     torch.testing.assert_close(out[:, :, seen].float(),
                                ref[:, :, seen].float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["cc", "srrc"])
+@pytest.mark.parametrize("m,k,n,tile", [
+    (200, 136, 264, None),            # ragged in M, K and N, multiples of 8
+    (200, 136, 264, (64, 64, 64)),
+    (200, 136, 264, (64, 64, 192)),
+    (72, 8, 520, (128, 128, 64)),     # one K step, boxes past every edge
+    (512, 384, 640, (128, 64, 256)),
+])
+def test_cuda_matmul_wgmma_path(order, m, k, n, tile):
+    """bf16 shapes with K and N multiples of 8 take the tensor-core body:
+    its counter moves, the simt one does not, cc and srrc agree bit for
+    bit and the result is the plain version's."""
+    _cuda_or_skip()
+    gen = torch.Generator().manual_seed(m * n + k)
+    a = torch.randn(m, k, generator=gen).to("cuda", torch.bfloat16)
+    b = (torch.randn(k, n, generator=gen) / k ** 0.5).to("cuda",
+                                                         torch.bfloat16)
+    assert mm_mod.matmul_path(m, k, n, a.dtype) == "wgmma"
+    plan = mm_mod.leaf_matmul_plan(m, k, n, dtype_bytes=2)
+    if tile is not None:
+        plan = dataclasses.replace(plan, bm=tile[0], bk=tile[1], bn=tile[2])
+    plan = dataclasses.replace(plan, order=order)
+    before = (mm_mod.LAUNCHES_WGMMA, mm_mod.LAUNCHES_SIMT, mm_mod.LAUNCHES)
+    out = matmul_cc(a, b, plan=plan)
+    cc = matmul_cc(a, b, plan=dataclasses.replace(plan, order="cc"))
+    torch.cuda.synchronize()
+    assert (mm_mod.LAUNCHES_WGMMA, mm_mod.LAUNCHES_SIMT, mm_mod.LAUNCHES) \
+        == (before[0] + 2, before[1], before[2] + 2)
+    assert torch.equal(out, cc)
+    torch.testing.assert_close(out.float(), matmul_ref(a, b).float(),
+                               **MM_TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h,sq,sk,blocks", [
+    (1, 3, 100, 300, None),           # Sq < Sk, both off every block
+    (2, 2, 300, 130, None),           # Sq > Sk: causal rows without keys
+    (1, 2, 200, 200, (64, 128)),
+    (1, 2, 190, 333, (128, 64)),
+])
+def test_cuda_flash_attention_wgmma_path(causal, d, b, h, sq, sk, blocks):
+    """bf16 at D 64 and 128 takes the tensor-core body: its counter moves,
+    the simt one does not, and the rows that see a key agree with the
+    plain version."""
+    _cuda_or_skip()
+    gen = torch.Generator().manual_seed(sq * sk + d)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+               for s in (sq, sk, sk))
+    assert fa_mod.attention_path(sq, sk, d, q.dtype) == "wgmma"
+    plan = None
+    if blocks is not None:
+        plan = dataclasses.replace(
+            fa_mod.plan_attention(sq, sk, d, dtype_bytes=2),
+            block_q=blocks[0], block_kv=blocks[1])
+    before = (fa_mod.LAUNCHES_WGMMA, fa_mod.LAUNCHES_SIMT, fa_mod.LAUNCHES)
+    out = flash_attention(q, k, v, causal=causal, plan=plan)
+    torch.cuda.synchronize()
+    assert (fa_mod.LAUNCHES_WGMMA, fa_mod.LAUNCHES_SIMT, fa_mod.LAUNCHES) \
+        == (before[0] + 1, before[1], before[2] + 1)
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    seen = (torch.arange(sq, device="cuda") + sk - sq >= 0) if causal \
+        else torch.ones(sq, dtype=torch.bool, device="cuda")
+    torch.testing.assert_close(out[:, :, seen].float(),
+                               ref[:, :, seen].float(),
+                               **MM_TOL["bfloat16"])
 
 
 @pytest.mark.gpu

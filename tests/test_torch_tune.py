@@ -16,7 +16,8 @@ import pytest
 from repro.tune.cache import TuningEntry as JaxTuningEntry
 from repro.tune.cache import record_tuned as jax_record_tuned
 from repro_torch.core.autotile import (_attn_smem_bytes, _matmul_smem_bytes,
-                                       plan_attention, plan_matmul)
+                                       matmul_path, plan_attention,
+                                       plan_matmul)
 from repro_torch.core.plan import PAGE_BUFFERING, PlanPolicy, Workload, \
     plan_run
 from repro_torch.hw import h100_spec
@@ -146,7 +147,8 @@ class TestPlannerConsultsTuned:
         p = plan_attention(128, 128, 64, dtype_bytes=4)
         assert p.source == "tuned"
         assert p.block_q == tuned_block["block_q"]
-        assert p.est_vmem_bytes == _attn_smem_bytes(p.block_kv, 64, 4)
+        assert p.est_vmem_bytes == _attn_smem_bytes(p.block_q, p.block_kv,
+                                                    64, 4)
 
     def test_matmul_tile_level_returns_tuned_with_provenance(self,
                                                              tune_path):
@@ -171,14 +173,28 @@ class TestPlannerConsultsTuned:
 
     def test_tuned_block_clamped_to_smaller_problem(self, tune_path):
         # Bucket m1024... covers m=513..1024: a winner measured at 1024
-        # clamps to the smaller problem's rounded-up dims.
+        # clamps to the smaller problem's rounded-up dims.  K = 601 keeps
+        # the bf16 shape on the simt body (its rows are no 16-byte
+        # strides), whose K granule is 16 values.
         _write(tune_path, _entry(
             "matmul_cc", bucket_matmul(600, 600, 600, 2),
             {"bm": 64, "bk": 1024, "bn": 64}, {}))
-        p = plan_matmul(600, 600, 600, dtype_bytes=2)
+        p = plan_matmul(600, 601, 600, dtype_bytes=2)
         assert p.source == "tuned"
-        assert p.bk == 608                 # 600 in whole 16-value steps
+        assert p.bk == 608                 # 601 in whole 16-value steps
         assert _matmul_smem_bytes(p.bm, p.bk, p.bn, 2) <= SMEM
+
+    def test_tuned_block_clamped_on_the_wgmma_path(self, tune_path):
+        # Bucket m256... covers 129..256: bk = 256 measured at 256 clamps
+        # to 136 in whole 64-value swizzle atoms, which the body takes.
+        _write(tune_path, _entry(
+            "matmul_cc", bucket_matmul(136, 136, 136, 2),
+            {"bm": 64, "bk": 256, "bn": 64}, {}))
+        p = plan_matmul(136, 136, 136, dtype_bytes=2)
+        assert p.source == "tuned"
+        assert (p.bm, p.bk, p.bn) == (64, 192, 64)
+        assert p.est_vmem_bytes == _matmul_smem_bytes(64, 192, 64, 2,
+                                                      "wgmma") <= SMEM
 
     def test_page_level_returns_tuned_page(self, tune_path):
         tok_bytes = 2 * 2 * 16 * 4          # K+V x n_kv x d x f32, 1 layer
@@ -277,7 +293,8 @@ class TestSweepFilter:
         for c in r.candidates:
             assert c.est_vmem_bytes <= r.budget_bytes
             assert c.est_vmem_bytes == _matmul_smem_bytes(
-                c.block["bm"], c.block["bk"], c.block["bn"], db)
+                c.block["bm"], c.block["bk"], c.block["bn"], db,
+                matmul_path(m, k, n, db))
 
     @pytest.mark.parametrize("q,kv,d", [(8, 8, 64), (16384, 16384, 256),
                                         (100, 5000, 128), (4096, 4096, 64)])
