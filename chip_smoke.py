@@ -10,23 +10,30 @@ Phases (each prints its results; the script exits non-zero if any fails):
   1. build: compile the four sources of ``src/repro_torch/csrc/`` with nvcc
      for sm_90a, one nvcc each, all started together, and print the build
      seconds and ptxas' register/shared-memory report; then count, with
-     ``cuobjdump -sass``, the HGMMA (wgmma) and UTMALDG (TMA load)
-     instructions of every kernel of ``matmul_cc`` and ``flash_attention``
-     (the phase fails if a wgmma kernel has none of either);
+     ``cuobjdump -sass``, the tensor-core (HGMMA, HMMA) and async-copy
+     (UTMALDG for TMA, LDGSTS for cp.async) instructions of the
+     tensor-core bodies: ``matmul_cc`` and ``flash_attention`` (wgmma),
+     ``paged_attention`` (split) and ``ssd_scan`` (tc); the phase fails if
+     one of them has none of either;
   2. kernel against its plain version: ``paged_attention`` on the card
      against ``paged_attention_ref`` on the same inputs, at the full width
      of llama3.2-1b (H=32, KV=8, D=64, the planned page) in the decode shape
-     (8 rows) and the chunked-prefill shape (one page of rows over one
-     table), bf16 and float32, windows 0 and 256; then the times of the
-     kernel, the plain version and a library yardstick (gather + SDPA)
-     beside the least time the card could take (``bound_ms``);
+     (8 rows), the chunked-prefill shape (one page of rows over one table)
+     and a decode shape whose rows end on split boundaries, bf16 (the
+     ``split`` body) and float32 (``simt``), windows 0 and 256, each check
+     naming the body that ran, and two bf16 runs bit-identical; then, for
+     the decode and prefill shapes, the times of the split body, of the
+     simt body (``ms_simt``), of the plain version and of a library
+     yardstick (gather + SDPA) beside the least time the card could take
+     (``bound_ms``), the device time of each CUDA kernel
+     (``torch.profiler``) and the time at other split sizes;
   3. the slice against its plain path: full-width llama3.2-1b cut to 2
      layers, float32, one prefill chunk per slot and one paged decode step
      on the card and on the CPU with the same weights;
   4. serving: ``ServeEngine`` on full-width llama3.2-1b (16 layers, seeded
      random weights, bf16) with paged batching and chunked prefill serves 8
      prompts of mixed length; every decode tick and prefill chunk of every
-     layer must have launched the kernel.
+     layer must have launched the kernel's split body.
   5. the three kernels of the tuning path against their plain versions at
      full width, bf16 and float32, at the planner's analytic blocks, plus
      one ragged case each: ``matmul_cc`` at llama3.2-1b's MLP up-projection
@@ -34,16 +41,18 @@ Phases (each prints its results; the script exits non-zero if any fails):
      (bit-identical); ``flash_attention`` at llama3.2-1b's attention over
      4096 tokens (1, 32, 4096, 64), causal; ``ssd_scan`` at zamba2-1.2b's
      mixer over 4096 tokens (1, 4096, 64 heads, 64, state 64).  Each check
-     names the body that ran (``wgmma`` or ``simt``, from the per-body
-     launch counters).  Then each kernel's time beside its plain
+     names the body that ran (``wgmma``, ``tc`` or ``simt``, from the
+     per-body launch counters).  Then each kernel's time beside its plain
      version's, a library call's where one computes the same function,
-     and its bound; for ``matmul_cc`` and ``flash_attention`` also the
-     time of the CUDA-core (simt) body at the same bf16 shape and its
-     planner's blocks (``ms_simt``);
+     and its bound, and the time of the CUDA-core (simt) body at the same
+     bf16 shape (``ms_simt``; matmul and attention at their planner's simt
+     blocks, the SSD scan at the same chunk), and the device time of each
+     of the SSD tc body's three CUDA kernels;
   6. the tuning path at full width: the four sweeps on the card (phase 5's
      shapes in bf16, and ``sweep_paged`` at llama3.2-1b decode: 8 slots,
      4096 tokens, 8 KV heads, group 4, D 64), each candidate's shared
-     memory held to the kernel's own ``*_smem_bytes``, the winners written
+     memory held to the kernel's own ``*_smem_bytes`` for its block and
+     the body it runs on (the paged page, the SSD chunk), the winners written
      under the card's fingerprint to a file under ``build/``, the planner
      shown to return each of them, and ``python -m repro_torch.launch.tune
      --quick`` run on the card.
@@ -119,17 +128,52 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
-    """Mean milliseconds of ``fn(i)`` over ``reps`` calls, CUDA events."""
+    """Mean device milliseconds of ``fn(i)`` over ``reps`` calls, CUDA
+    events.  The card first sleeps (``torch.cuda._sleep``) while the host
+    queues all the calls, so the events time the card's work and not the
+    host's: a wrapper's Python, allocation and launch cost can exceed a
+    small kernel's time.  If queueing outlasted the sleep, the time may
+    hold host gaps, and a line says so."""
     fn(0)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(0)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_s = 2 * reps * host_s + 1e-3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_s * 2e9))      # cycles at <= 2 GHz
     start.record()
+    t0 = time.perf_counter()
     for i in range(reps):
         fn(i + 1)
     end.record()
+    queued_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    if queued_s > sleep_s:
+        log(f"    (queueing {reps} calls took {queued_s * 1e3:.1f} ms, more "
+            f"than the {sleep_s * 1e3:.1f} ms sleep: host gaps may count)")
     return start.elapsed_time(end) / reps
+
+
+def kernel_us(fn, reps: int = 10) -> dict:
+    """Device microseconds per call of each CUDA kernel ``fn()`` launches,
+    from ``torch.profiler`` (mean over ``reps`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: round(e.self_device_time_total / reps, 3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
 # ---------------------------------------------------------------------------
@@ -235,17 +279,38 @@ def bound_ms(nbytes: int, ops: int, dtype) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def counters(mod, bodies) -> dict:
+    return {p: getattr(mod, f"LAUNCHES_{p.upper()}") for p in bodies}
+
+
+def body(mod, before, what) -> str:
+    """The one body the calls since ``before`` (``counters``) ran."""
+    moved = {p: getattr(mod, f"LAUNCHES_{p.upper()}") - before[p]
+             for p in before}
+    ran = [p for p, n in moved.items() if n]
+    assert len(ran) == 1, f"{what}: launches by body {moved}"
+    return ran[0]
+
+
 def phase_kernel(t: int) -> dict:
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels import paged_attention as pa_mod
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     split_plan)
     from repro_torch.kernels.ref import paged_attention_ref
 
     prefill_pos0 = 8 * t
+    np_ = -(-MAX_LEN // t)
+    _, pages = split_plan(len(DECODE_LENS), get_cfg().n_kv_heads, np_, t)
+    span = pages * t
     shapes = {
         "decode": (DECODE_LENS, False),
         "prefill": (tuple(range(prefill_pos0 + 1, prefill_pos0 + t + 1)),
                     True),
+        # rows whose last key ends a split (and one that ends just before)
+        "boundary": ((span, 2 * span, 9 * span, 1, 3 * span - 1, 0,
+                      5 * span, span + 1), False),
     }
-    worst = {}
+    worst, bodies = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, (lens, shared) in shapes.items():
             case = make_case(dtype, lens, t, shared, copies=1)
@@ -253,25 +318,35 @@ def phase_kernel(t: int) -> dict:
             for window in (0, 256):
                 args = (case["q"], case["k"][0], case["v"][0],
                         case["table"], case["lengths"])
+                before = counters(pa_mod, ("split", "simt"))
                 out = paged_attention(*args, window=window, page_tokens=t)
+                again = paged_attention(*args, window=window, page_tokens=t)
                 torch.cuda.synchronize()
+                ran = body(pa_mod, before, f"paged {name}")
                 ref = paged_attention_ref(*args, window=window)
                 err = (out.float() - ref.float())[live].abs()
                 bound = TOL[dtype] * (1 + ref.float()[live].abs())
                 ok = bool((err <= bound).all())
+                same = torch.equal(out, again)
                 key = (str(dtype).split(".")[-1], name)
                 worst[key] = max(worst.get(key, 0.0), float(err.max()))
-                log(f"  check {key[0]:8s} {name:7s} window={window:3d}: "
-                    f"max_abs_err={float(err.max()):.3e} "
-                    f"(tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+                bodies[f"{key[0]}/{name}"] = ran
+                log(f"  check {key[0]:8s} {name:8s} window={window:3d} "
+                    f"{ran:5s}: max_abs_err={float(err.max()):.3e} "
+                    f"(tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}, "
+                    f"repeat {'bit-identical' if same else 'DIFFERS'}")
                 if not ok:
                     raise AssertionError(
                         f"kernel disagrees with its plain version: {key}, "
                         f"window {window}")
+                assert same, f"two runs differ: {key}, window {window}"
                 assert not out[~live].float().abs().any(), "empty row not 0"
+    assert all(b == ("split" if k.startswith("bfloat16") else "simt")
+               for k, b in bodies.items()), bodies
 
     timings = {}
-    for name, (lens, shared) in shapes.items():
+    for name in ("decode", "prefill"):
+        lens, shared = shapes[name]
         case = make_case(torch.bfloat16, lens, t, shared, LAYER_COPIES)
         q, kp, vp = case["q"], case["k"], case["v"]
         table, lengths = case["table"], case["lengths"]
@@ -279,9 +354,10 @@ def phase_kernel(t: int) -> dict:
         def layer(i):
             return kp[i % LAYER_COPIES], vp[i % LAYER_COPIES]
 
-        def run_kernel(i):
+        def run_kernel(i, path=None, split_pages=None):
             kl, vl = layer(i)
-            paged_attention(q, kl, vl, table, lengths, page_tokens=t)
+            paged_attention(q, kl, vl, table, lengths, page_tokens=t,
+                            path=path, split_pages=split_pages)
 
         def run_ref(i):
             kl, vl = layer(i)
@@ -293,21 +369,40 @@ def phase_kernel(t: int) -> dict:
 
         nbytes, ops = live_work(case, 0)
         bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
+        splits, pages = split_plan(len(lens), kp.shape[3], table.shape[1], t)
+        before = counters(pa_mod, ("split", "simt"))
+        ms = cuda_ms(run_kernel)
         row = {
-            "ms": cuda_ms(run_kernel),
+            "ms": ms, "path": body(pa_mod, before, f"paged {name} timing"),
+            "ms_simt": cuda_ms(lambda i: run_kernel(i, path="simt")),
+            "ms_again": cuda_ms(run_kernel),
             "plain_ms": cuda_ms(run_ref, reps=10),
             "library_ms": cuda_ms(run_lib, reps=10),
             "bound_ms": bound, "bound_by": bound_by,
             "bytes": nbytes, "ops": ops, "rows": len(lens),
+            "splits": splits, "split_pages": pages,
         }
+        row["kernels_us"] = kernel_us(lambda: run_kernel(0))
+        log(f"    {name} kernels (torch.profiler, us per call): "
+            + json.dumps(row["kernels_us"]))
+        row["ms_by_split_pages"] = {
+            sp: cuda_ms(lambda i, sp=sp: run_kernel(i, split_pages=sp))
+            for sp in (1, 2, 3, 4, 8)}
         timings[name] = row
-        log(f"  time bf16 {name:7s} rows={len(lens)}: kernel_ms="
-            f"{row['ms']:.4f} ref_ms={row['plain_ms']:.4f} library_ms="
+        log(f"  time bf16 {name:7s} rows={len(lens)} ({row['path']}, "
+            f"{splits} splits of {pages} pages): kernel_ms={row['ms']:.4f} "
+            f"(again {row['ms_again']:.4f}) ms_simt={row['ms_simt']:.4f} "
+            f"ref_ms={row['plain_ms']:.4f} library_ms="
             f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}, {nbytes} B, {ops} flop) "
             f"share_of_bound={row['bound_ms'] / row['ms']:.3f}")
+        log(f"    {name} ms by pages per split: " + json.dumps(
+            {k: round(v, 5) for k, v in row["ms_by_split_pages"].items()}))
+    log("  phase 2 bodies: " + json.dumps(bodies))
     log("  phase 2 max_abs_err: " + json.dumps(
         {f"{a}/{b}": e for (a, b), e in worst.items()}))
+    assert timings["prefill"]["ms"] <= timings["prefill"]["ms_simt"], \
+        "the split body is slower than simt at the prefill shape"
     return {"timings": timings,
             "max_abs_err": worst[("bfloat16", "decode")]}
 
@@ -387,12 +482,14 @@ def phase_serve(pa_mod) -> dict:
     engine = ServeEngine(cfg, policy, dtype=torch.bfloat16,
                          params=warm.params, device=DEVICE)
     torch.cuda.synchronize()
-    pa_mod.LAUNCHES = 0                    # the main path's run starts here
+    # the main path's run starts here
+    pa_mod.LAUNCHES = pa_mod.LAUNCHES_SPLIT = pa_mod.LAUNCHES_SIMT = 0
     t0 = time.perf_counter()
     outs = engine.generate(prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pa_mod.LAUNCHES             # ... and ends here
+    split = pa_mod.LAUNCHES_SPLIT
     m = engine.metrics
     steps, chunks = int(m["decode_steps"]), int(m["prefill_chunks"])
     events = engine.tracer.export_events()
@@ -420,6 +517,7 @@ def phase_serve(pa_mod) -> dict:
         "pages_allocated": int(m["pages_allocated"]),
         "pages_released": int(m["pages_released"]),
         "backfills": int(m["backfills"]), "LAUNCHES": launches,
+        "LAUNCHES_SPLIT": split,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("  serve: " + json.dumps(row))
@@ -427,8 +525,8 @@ def phase_serve(pa_mod) -> dict:
         [len(o) for o in outs]
     assert all(0 <= tok < cfg.vocab_size for o in outs for tok in o)
     assert launches > 0, "the main path never launched the kernel"
-    assert launches == cfg.n_layers * (steps + chunks), \
-        (launches, cfg.n_layers, steps, chunks)
+    assert launches == split == cfg.n_layers * (steps + chunks), \
+        (launches, split, cfg.n_layers, steps, chunks)
     assert row["pages_allocated"] == row["pages_released"]
     if PROFILE:
         profile_serve(engine, prompts, wall)
@@ -517,21 +615,12 @@ def phase_tuning_kernels() -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models.mamba2 import choose_chunk
 
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     worst = {}
     paths = {}
-
-    def body(mod, before, what):
-        """The body the calls since ``before`` ran, from the counters."""
-        moved = {p: getattr(mod, f"LAUNCHES_{p.upper()}") - before[p]
-                 for p in before}
-        ran = [p for p, n in moved.items() if n]
-        assert len(ran) == 1, f"{what}: launches by body {moved}"
-        return ran[0]
-
-    def counters(mod):
-        return {p: getattr(mod, f"LAUNCHES_{p.upper()}")
-                for p in ("wgmma", "simt")}
+    wg = ("wgmma", "simt")
 
     # matmul_cc: B scaled by 1/sqrt(K), as weights are initialised, so the
     # products sum to O(1) values and float32's 1e-4 measures the kernel.
@@ -541,7 +630,7 @@ def phase_tuning_kernels() -> dict:
         a = randn(gen, (m, k), dtype)
         b = randn(gen, (k, n), dtype, scale=k ** -0.5)
         plan = plan_matmul(m, k, n, dtype_bytes=a.element_size())
-        before = counters(mm_mod)
+        before = counters(mm_mod, wg)
         cc = matmul_cc(a, b, plan=plan)
         srrc = matmul_cc(a, b, plan=dataclasses.replace(plan, order="srrc"))
         torch.cuda.synchronize()
@@ -561,7 +650,7 @@ def phase_tuning_kernels() -> dict:
         q = randn(gen, (b_, h_, sq, d_), dtype)
         k = randn(gen, (b_, h_, sk, d_), dtype)
         v = randn(gen, (b_, h_, sk, d_), dtype)
-        before = counters(fa_mod)
+        before = counters(fa_mod, wg)
         out, plan = flash_attention(q, k, v, causal=True, return_plan=True)
         torch.cuda.synchronize()
         path = body(fa_mod, before, "flash_attention")
@@ -579,10 +668,15 @@ def phase_tuning_kernels() -> dict:
                      (torch.bfloat16, 4000)):
         chunk = choose_chunk(s, hs, ps, ns, dtype_bytes=dtype.itemsize)
         args = ssd_inputs(gen, bs, s, hs, ps, ns, dtype)
+        before = counters(ssd_mod, ("tc", "simt"))
         y = ssd_scan(*args, chunk=chunk)
+        again = ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
+        path = body(ssd_mod, before, "ssd_scan")
+        assert torch.equal(y, again), "ssd_scan: two runs differ"
+        paths[f"ssd_scan {str(dtype)[6:]} ({bs},{s},{hs},{ps},{ns})"] = path
         what = f"ssd_scan {str(dtype)[6:]} ({bs},{s},{hs},{ps},{ns}) " \
-            f"chunk {chunk}"
+            f"chunk {chunk} {path} (repeat bit-identical)"
         err = held_to(y, ssd_ref(*args), SSD_TOL[dtype], what)
         worst[("ssd_scan", dtype)] = max(
             worst.get(("ssd_scan", dtype), 0.0), err)
@@ -595,7 +689,7 @@ def phase_tuning_kernels() -> dict:
     b = randn(gen, (k, n), torch.bfloat16, scale=k ** -0.5)
     plan = plan_matmul(m, k, n, dtype_bytes=2)
     simt_plan = plan_matmul(m, k, n, dtype_bytes=2, path="simt")
-    before = counters(mm_mod)
+    before = counters(mm_mod, wg)
     ms = cuda_ms(lambda i: matmul_cc(a, b, plan=plan), reps=20)
     path = body(mm_mod, before, "matmul_cc timing")
     rows["matmul_cc"] = dict(
@@ -614,7 +708,7 @@ def phase_tuning_kernels() -> dict:
     q, k_, v = (randn(gen, FA_SHAPE, torch.bfloat16) for _ in range(3))
     fa_plan = plan_attention(s_, s_, d_, dtype_bytes=2)
     fa_simt = plan_attention(s_, s_, d_, dtype_bytes=2, path="simt")
-    before = counters(fa_mod)
+    before = counters(fa_mod, wg)
     ms = cuda_ms(lambda i: flash_attention(q, k_, v, plan=fa_plan), reps=20)
     path = body(fa_mod, before, "flash_attention timing")
     rows["flash_attention"] = dict(
@@ -636,8 +730,17 @@ def phase_tuning_kernels() -> dict:
     args = ssd_inputs(gen, bs, ss, hs, ps, ns, torch.bfloat16)
     nq = -(-ss // chunk)
     tri = chunk * (chunk + 1) // 2
+    before = counters(ssd_mod, ("tc", "simt"))
+    ms = cuda_ms(lambda i: ssd_scan(*args, chunk=chunk), reps=20)
+    path = body(ssd_mod, before, "ssd_scan timing")
     rows["ssd_scan"] = dict(
-        ms=cuda_ms(lambda i: ssd_scan(*args, chunk=chunk), reps=10),
+        ms=ms, path=path,
+        ms_simt=cuda_ms(lambda i: ssd_scan(*args, chunk=chunk,
+                                           path="simt"), reps=5),
+        blocks=f"chunk {chunk}", blocks_simt=f"chunk {chunk}",
+        # the tc body's float32 chunk states (B, nc, H, N, P): written by
+        # pass 1, read and rewritten by pass 2, read by pass 3
+        workspace_bytes=bs * nq * hs * ns * ps * 4,
         plain_ms=cuda_ms(lambda i: ssd_ref(*args), reps=1),
         library_ms=None,
         # x and y (bf16), dt (float32), A, B and C, each once.
@@ -647,8 +750,17 @@ def phase_tuning_kernels() -> dict:
         # inter-chunk terms of y, the state update.
         ops=bs * hs * nq * (2 * tri * ns + 2 * tri * ps
                             + 2 * chunk * ns * ps + 2 * chunk * ns * ps),
-        library="none: no single PyTorch call computes the SSD scan",
-        path="simt")
+        library="none: no single PyTorch call computes the SSD scan")
+    rows["ssd_scan"]["ms_again"] = cuda_ms(
+        lambda i: ssd_scan(*args, chunk=chunk), reps=20)
+    rows["ssd_scan"]["kernels_us"] = kernel_us(
+        lambda: ssd_scan(*args, chunk=chunk))
+    log("    ssd_scan tc kernels (torch.profiler, us per call): "
+        + json.dumps(rows["ssd_scan"]["kernels_us"]))
+
+    log(f"  ssd_scan tc workspace: {rows['ssd_scan']['workspace_bytes']} B "
+        f"of float32 chunk states at chunk {chunk} (x4 with its reads and "
+        f"rewrites: {4 * rows['ssd_scan']['workspace_bytes']} B of traffic)")
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"],
                                                     torch.bfloat16)
@@ -660,24 +772,24 @@ def phase_tuning_kernels() -> dict:
             f"({row['library']}) bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}, {row['bytes']} B, {row['ops']} flop) "
             f"share_of_bound={row['bound_ms'] / row['ms']:.4f}")
-        if "ms_simt" in row:
-            lib_ratio = row["ms"] / row["library_ms"]
-            log(f"    {name}: {row['path']} {row['ms']:.4f} ms (again "
-                f"{row['ms_again']:.4f}) at {row['blocks']}, simt "
-                f"{row['ms_simt']:.4f} ms at {row['blocks_simt']}: "
-                f"{row['ms_simt'] / row['ms']:.1f}x faster; "
-                f"{lib_ratio:.2f}x the library call, "
-                f"{row['ops'] / row['ms'] / 1e9:.1f} TFLOP/s")
+        lib_ratio = ("no library call" if row["library_ms"] is None else
+                     f"{row['ms'] / row['library_ms']:.2f}x the library call")
+        log(f"    {name}: {row['path']} {row['ms']:.4f} ms (again "
+            f"{row['ms_again']:.4f}) at {row['blocks']}, simt "
+            f"{row['ms_simt']:.4f} ms at {row['blocks_simt']}: "
+            f"{row['ms_simt'] / row['ms']:.1f}x faster; {lib_ratio}, "
+            f"{row['ops'] / row['ms'] / 1e9:.1f} TFLOP/s")
     log("  phase 5 bodies: " + json.dumps(paths))
     log("  phase 5 max_abs_err: " + json.dumps(
         {f"{a}/{str(b)[6:]}": e for (a, b), e in worst.items()}))
-    for name in ("matmul_cc", "flash_attention"):
-        assert rows[name]["path"] == "wgmma", (name, rows[name]["path"])
+    for name, want in (("matmul_cc", "wgmma"), ("flash_attention", "wgmma"),
+                       ("ssd_scan", "tc")):
+        assert rows[name]["path"] == want, (name, rows[name]["path"])
         assert rows[name]["ms"] < rows[name]["ms_simt"], name
     assert [p for c, p in paths.items() if "bfloat16" in c] == \
-        ["wgmma"] * 4, paths
+        ["wgmma"] * 4 + ["tc"] * 2, paths
     assert [p for c, p in paths.items() if "float32" in c] == \
-        ["simt"] * 2, paths
+        ["simt"] * 3, paths
     return rows
 
 
@@ -707,10 +819,11 @@ def phase_tune(mods) -> dict:
     os.environ[TUNING_ENV] = artifact
     cfg = get_cfg()
     bs, ss, hs, ps, ns = SSD_SHAPE
-    for mod in mods.values():
-        mod.LAUNCHES = 0                   # the main path's run starts here
-        if hasattr(mod, "LAUNCHES_WGMMA"):
-            mod.LAUNCHES_WGMMA = mod.LAUNCHES_SIMT = 0
+    for mod in mods.values():              # the main path's run starts here
+        for name in ("LAUNCHES", "LAUNCHES_WGMMA", "LAUNCHES_SPLIT",
+                     "LAUNCHES_TC", "LAUNCHES_SIMT"):
+            if hasattr(mod, name):
+                setattr(mod, name, 0)
     t0 = time.perf_counter()
     results = [
         sweep_matmul(*MM_SHAPE, dtype_bytes=2),
@@ -723,13 +836,14 @@ def phase_tune(mods) -> dict:
     ]
     torch.cuda.synchronize()
     launches = {name: mod.LAUNCHES for name, mod in mods.items()}  # ... ends
-    by_body = {name: {p: getattr(mods[name], f"LAUNCHES_{p.upper()}")
-                      for p in ("wgmma", "simt")}
-               for name in ("matmul_cc", "flash_attention")}
+    fast = {"matmul_cc": "wgmma", "flash_attention": "wgmma",
+            "paged_attention": "split", "ssd_scan": "tc"}
+    by_body = {name: counters(mods[name], (fast[name], "simt"))
+               for name in fast}
     log(f"  sweeps: {time.perf_counter() - t0:.1f} s, launches "
         f"{json.dumps(launches)}, by body {json.dumps(by_body)}")
-    assert all(b["wgmma"] == launches[n] for n, b in by_body.items()), \
-        "a full-width bf16 sweep left the wgmma body"
+    assert all(by_body[n][fast[n]] == launches[n] for n in fast), \
+        "a full-width bf16 sweep left its tensor-core body"
     assert print_report(results), "a candidate breaks its budget"
     for r in results:
         assert r.candidates and r.center in [c.block for c in r.candidates], \
@@ -747,8 +861,12 @@ def phase_tune(mods) -> dict:
             b["block_q"], b["block_kv"], FA_SHAPE[3], torch.bfloat16,
             fa_path),
         "paged_attention": lambda b: paged_attention.kernel_smem_bytes(
-            g, cfg.head_dim),
-        "ssd_scan": lambda b: ssd_scan.kernel_smem_bytes(b["chunk"], ps, ns),
+            g, cfg.head_dim, b["page_tokens"],
+            paged_attention.paged_path(torch.bfloat16, cfg.head_dim,
+                                       b["page_tokens"], g)),
+        "ssd_scan": lambda b: ssd_scan.kernel_smem_bytes(
+            b["chunk"], ps, ns,
+            ssd_scan.ssd_path(torch.bfloat16, b["chunk"], ps, ns)),
     }
     for r in results:
         for c in r.candidates:
@@ -757,7 +875,9 @@ def phase_tune(mods) -> dict:
                                              c.est_vmem_bytes, got)
     log(f"  estimates: all {sum(len(r.candidates) for r in results)} "
         f"candidates' shared memory equals the kernels' *_smem_bytes "
-        f"(matmul_cc {mm_path}, flash_attention {fa_path})")
+        f"(matmul_cc {mm_path}, flash_attention {fa_path}): " + json.dumps(
+            {r.kernel: {json.dumps(c.block): c.est_vmem_bytes
+                        for c in r.candidates} for r in results}))
     path = record_tuned([r.entry for r in results])
     fp = hw_fingerprint()
     assert fp.startswith("cuda:") and all(
@@ -856,19 +976,29 @@ def main() -> int:
                                                "spill", "error", "warning")):
                         log(f"    {line.strip()}")
         log(f"  libraries: {[str(p) for p in paths.values()]}")
-        # The tensor-core kernels really hold wgmma and TMA instructions.
-        for name in ("matmul_cc", "flash_attention"):
-            counts = _build.sass_counts(name, ("HGMMA", "UTMALDG"))
-            total = {"HGMMA": 0, "UTMALDG": 0}
+        # The tensor-core bodies really hold tensor-core instructions
+        # (HGMMA: wgmma, HMMA: mma.sync) and async copies (UTMALDG: TMA,
+        # LDGSTS: cp.async); the combine and state-passing kernels of the
+        # split and tc bodies are elementwise and hold neither.
+        ops = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
+        bodies = {"matmul_cc": ("wgmma_kernel",),
+                  "flash_attention": ("wgmma_kernel",),
+                  "paged_attention": ("paged_split_kernel",),
+                  "ssd_scan": ("ssd_states_kernel", "ssd_out_kernel")}
+        for name, marks in bodies.items():
+            counts = _build.sass_counts(name, ops)
+            total = dict.fromkeys(ops, 0)
             for fn, c in counts.items():
-                log(f"  sass {fn}: HGMMA {c['HGMMA']}, UTMALDG "
-                    f"{c['UTMALDG']}")
-                if "wgmma_kernel" in fn:
-                    assert c["HGMMA"] > 0 and c["UTMALDG"] > 0, (fn, c)
+                log(f"  sass {fn}: " + ", ".join(f"{op} {c[op]}"
+                                                  for op in ops))
+                if any(m in fn for m in marks):
+                    assert c["HGMMA"] + c["HMMA"] > 0, (fn, c)
+                    assert c["UTMALDG"] + c["LDGSTS"] > 0, (fn, c)
                     for op in total:
                         total[op] += c[op]
-            assert total["HGMMA"] > 0, f"{name}: no wgmma kernel"
-            sass[name] = total
+            assert total["HGMMA"] + total["HMMA"] > 0, \
+                f"{name}: no tensor-core kernel"
+            sass[name] = {op: n for op, n in total.items() if n}
         return time.perf_counter() - t0
 
     log("[1] build (one nvcc per source, all started together)")
@@ -898,6 +1028,7 @@ def main() -> int:
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
+    pre = kern["timings"]["prefill"]
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -906,7 +1037,11 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"], "path": "simt",
+        "library_ms": dec["library_ms"], "path": dec["path"],
+        "ms_simt": dec["ms_simt"], "sass": sass["paged_attention"],
+        "prefill": {k: pre[k] for k in ("ms", "ms_simt", "plain_ms",
+                                        "library_ms", "bound_ms",
+                                        "bound_by", "path")},
     }]
     for name, line in (("matmul_cc", 33), ("flash_attention", 34),
                        ("ssd_scan", 25)):
@@ -921,8 +1056,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "path": row["path"],
         })
-        if "ms_simt" in row:
-            kernels[-1].update(ms_simt=row["ms_simt"], sass=sass[name])
+        kernels[-1].update(ms_simt=row["ms_simt"], sass=sass[name])
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         log(f"FAILED: the main path never launched {missing}")

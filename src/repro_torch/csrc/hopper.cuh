@@ -1,6 +1,8 @@
 // PTX wrappers for Hopper (sm_90a) shared by the port's tensor-core
-// kernels (matmul_cc.cu, flash_attention.cu): mbarriers, TMA tensor loads,
-// wgmma descriptors and instructions, and setmaxnreg; plus, on the host,
+// kernels: mbarriers, TMA tensor loads, wgmma descriptors and instructions
+// and setmaxnreg (matmul_cc.cu, flash_attention.cu, and TMA in
+// paged_attention.cu); ldmatrix, mma.sync and cp.async for products too
+// small for wgmma (paged_attention.cu, ssd_scan.cu); plus, on the host,
 // the construction of a TMA descriptor (CUtensorMap).
 //
 // Inline PTX rather than CuTe, so that a source builds in seconds.
@@ -350,6 +352,77 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level tensor cores: ldmatrix and mma.sync.m16n8k16 (bf16 in, f32
+// accumulate), for products too small for wgmma's 64 rows.  Fragments, with
+// g = lane / 4 and t = lane % 4 (PTX ISA, "mma.m16n8k16"):
+//   A (16 x 16, row-major), 4 x bf16x2: a0 (g, 2t..2t+1), a1 (g+8, 2t..),
+//     a2 (g, 2t+8..), a3 (g+8, 2t+8..);
+//   B (16 x 8, k x n), 2 x bf16x2: b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
+//   C/D (16 x 8) f32: c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1).
+// ldmatrix.x4 loads four 8 x 8 bf16 matrices; lane i gives the address of
+// row i % 8 of matrix i / 8 (16-byte aligned).  Plain, register r holds
+// matrix r's (row g, cols 2t..2t+1); with .trans, its (rows 2t..2t+1, col
+// g).  So a tile stored with the reduction dim contiguous (K as [token][d])
+// is read plainly as B, and one stored with the output dim contiguous (V as
+// [token][d]) is read with .trans as B.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row_addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row_addr)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row_addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row_addr)));
+}
+
+// d (16 x 8, f32) += a (16 x 16) * b (16 x 8).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The two bf16 halves of a register as floats (lo is the lower address).
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  return __bfloat1622float2(h);
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: 16-byte copies from global to shared memory that run while the
+// thread goes on; commit_group closes a group, wait_group<N> waits until at
+// most N groups are still in flight.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------

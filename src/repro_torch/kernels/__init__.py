@@ -9,10 +9,12 @@ tensors, plus a plain-integer launch counter ``LAUNCHES``:
   * ``flash_attention`` -- streaming-softmax attention, SMEM-sized KV blocks
   * ``ssd_scan``        -- Mamba2/SSD chunked scan, state kept on chip
 
-``matmul_cc`` and ``flash_attention`` have two bodies each (tensor-core
-``wgmma`` and CUDA-core ``simt``, chosen by ``matmul_path`` /
-``attention_path``) and also count by body: ``LAUNCHES_WGMMA``,
-``LAUNCHES_SIMT``.
+Each kernel has two bodies, a tensor-core one for bf16 and a CUDA-core
+``simt`` one for float32 and the shapes the other does not take, chosen by
+a pure function of the shape (``matmul_path``, ``attention_path``,
+``paged_path``, ``ssd_path``), and counts launches by body:
+``LAUNCHES_WGMMA`` (matmul, attention), ``LAUNCHES_SPLIT`` (paged),
+``LAUNCHES_TC`` (SSD) and ``LAUNCHES_SIMT``.
 
 ``ops`` holds the public ``matmul``/``attention``/``ssd`` entry points,
 exported here.  The wrappers are reached through their modules (the

@@ -7,16 +7,24 @@ slice).  The chunk is the planner's partition of the time axis
 (``models.mamba2.choose_chunk``); see the CUDA source's header for the
 design and what bounds it.
 
-Routing, with no fallback between the two:
+Routing, with no fallback between any two:
   * CPU tensors -> ``kernels.ref.ssd_ref``, the plain version;
-  * CUDA tensors -> the hand-written kernel, or an exception.
+  * CUDA tensors -> the kernel's body that ``ssd_path`` names (``"tc"``:
+    bf16 with P in 16/32/64/128, N a multiple of 16 up to 128 and the
+    chunk a multiple of 16 up to 256 -- three launches, chunk states,
+    state passing and outputs, on the tensor cores, with a float32 state
+    workspace the wrapper allocates; ``"simt"``: the rest, on the CUDA
+    cores), or an exception.
 
-``LAUNCHES`` counts kernel launches (never CPU calls).
+``LAUNCHES_TC`` and ``LAUNCHES_SIMT`` count kernel launches by body (one
+per call, however many CUDA kernels the body runs; never CPU calls);
+``LAUNCHES`` is their sum.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -24,10 +32,25 @@ from repro_torch.hw.h100 import h100_spec
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_ref
 
-#: Kernel launches made by this process.
+#: Kernel launches made by this process, by body, and in all.
+LAUNCHES_TC = 0
+LAUNCHES_SIMT = 0
 LAUNCHES = 0
 
+#: What the tc body takes: head dims (one template each), the largest
+#: state dim, the largest chunk; P, N and the chunk are whole 16s (mma).
+TC_HEAD_DIMS = (16, 32, 64, 128)
+TC_MAX_STATE = 128
+TC_MAX_CHUNK = 256
+#: The tc body's pass-3 blocks: rows of a panel (one 16-row tile per
+#: warp), padding of a staged bf16 row; the most heads one block of
+#: passes 1 and 3 holds (the largest divisor of H up to it).
+TC_PANEL = 128
+TC_PAD = 8
+TC_MAX_HEADS_PER_BLOCK = 8
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATHS = {"simt": 0, "tc": 1}
 _FN = None
 
 
@@ -36,20 +59,44 @@ def _kernel():
     if _FN is None:
         lib = _build.load("ssd_scan")
         fn = lib.ssd_scan_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         smem = lib.ssd_scan_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 3
+        smem.argtypes = [ctypes.c_int] * 4
         smem.restype = ctypes.c_size_t
         _FN = (fn, smem)
     return _FN
 
 
-def kernel_smem_bytes(chunk: int, head_dim: int, state_dim: int) -> int:
-    """The shared memory the CUDA kernel reports for one block (builds the
+def ssd_path(dtype: torch.dtype, chunk: int, head_dim: int,
+             state_dim: int) -> str:
+    """The body a shape takes on the card at the (clamped) ``chunk``:
+    ``"tc"`` for bf16 with P in ``TC_HEAD_DIMS``, N a multiple of 16 up to
+    ``TC_MAX_STATE`` and the chunk a multiple of 16 up to ``TC_MAX_CHUNK``;
+    ``"simt"`` otherwise."""
+    if (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+            and state_dim % 16 == 0 and 16 <= state_dim <= TC_MAX_STATE
+            and chunk % 16 == 0 and 16 <= chunk <= TC_MAX_CHUNK):
+        return "tc"
+    return "simt"
+
+
+def kernel_smem_bytes(chunk: int, head_dim: int, state_dim: int,
+                      path: str = "tc") -> int:
+    """The shared memory the CUDA kernel's ``path`` body reports for one
+    block -- for tc the largest block of its three passes (builds the
     kernel first)."""
-    return int(_kernel()[1](chunk, head_dim, state_dim))
+    return int(_kernel()[1](chunk, head_dim, state_dim, _PATHS[path]))
+
+
+def _count(path: str) -> None:
+    global LAUNCHES, LAUNCHES_SIMT, LAUNCHES_TC
+    if path == "tc":
+        LAUNCHES_TC += 1
+    else:
+        LAUNCHES_SIMT += 1
+    LAUNCHES += 1
 
 
 def ssd_scan(
@@ -59,9 +106,12 @@ def ssd_scan(
     Bm: torch.Tensor,       # (B, S, N)
     Cm: torch.Tensor,       # (B, S, N)
     chunk: int = 64,
+    path: Optional[str] = None,
 ) -> torch.Tensor:
     """Returns y (B, S, H, P) in x's dtype.  The chunk is clamped to
-    ``max(8, min(chunk, S))``; a ragged final chunk is masked."""
+    ``max(8, min(chunk, S))``; a ragged final chunk is masked.
+    ``path="simt"`` runs the CUDA-core body where ``ssd_path`` would pick
+    tc (to compare the two); a body that cannot take the shape raises."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P); got {tuple(x.shape)}")
     b, s, h, p = x.shape
@@ -73,6 +123,11 @@ def ssd_scan(
             f"{tuple(A.shape)}, B {tuple(Bm.shape)}, C {tuple(Cm.shape)}")
     n = Bm.shape[-1]
     q = max(8, min(chunk, s))
+    routed = ssd_path(x.dtype, q, p, n)
+    if path not in (None, "simt", routed):
+        raise ValueError(f"ssd_scan: the {path} body cannot take {x.dtype} "
+                         f"at P={p}, N={n}, chunk {q}")
+    path = path or routed
     tensors = (x, dt, A, Bm, Cm)
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_ref(x, dt, A, Bm, Cm)
@@ -91,17 +146,31 @@ def ssd_scan(
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
+    if path == "tc" and any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
+        raise ValueError("the tc body copies x, B and C 16 bytes at a time: "
+                         "they must be 16-byte aligned")
     fn, smem_bytes = _kernel()
-    smem = smem_bytes(q, p, n)
+    smem = smem_bytes(q, p, n, _PATHS[path])
     limit = h100_spec().smem_bytes
     if smem > limit:
         raise ValueError(f"chunk {q} at P={p}, N={n} needs {smem} B of "
-                         f"shared memory per block; a block may use {limit}")
+                         f"shared memory per block on the {path} path; a "
+                         f"block may use {limit}")
+    states = totals = None
+    if path == "tc":
+        nc = -(-s // q)
+        states = torch.empty((b, nc, h, n, p), dtype=torch.float32,
+                             device=x.device)
+        totals = torch.empty((b, nc, h), dtype=torch.float32,
+                             device=x.device)
     rc = fn(x.data_ptr(), dt32.data_ptr(), a32.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), b, s, h, p, n, q, _DTYPES[x.dtype],
+            Cm.data_ptr(), y.data_ptr(),
+            0 if states is None else states.data_ptr(),
+            0 if totals is None else totals.data_ptr(),
+            b, s, h, p, n, q, _DTYPES[x.dtype], _PATHS[path],
             x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
-    global LAUNCHES
-    LAUNCHES += 1
+        raise RuntimeError(f"ssd_scan kernel launch failed ({path} body): "
+                           f"CUDA error {rc}")
+    _count(path)
     return y

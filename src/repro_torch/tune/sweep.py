@@ -8,9 +8,10 @@ extent capped at the wgmma body's largest -- every candidate is filtered
 through the working-set model the planner uses, which counts what that
 body puts in one block's shared memory (``core.autotile``'s
 ``_matmul_smem_bytes``/``_attn_smem_bytes``, with the REG-level check of
-what it keeps in registers; ``models.mamba2.ssd_workset_bytes``; the paged
-kernel's fixed staging, ``kernels.paged_attention.smem_bytes``, beside the
-page level's own two-buffered-pages rule), the survivors are timed, and
+what it keeps in registers; ``models.mamba2.ssd_workset_bytes`` of the
+body each chunk runs on; the paged kernel's staging at each page,
+``kernels.paged_attention.smem_bytes``, beside the page level's own
+two-buffered-pages rule), the survivors are timed, and
 the winner is persisted to the port's tuning artifact (``tune.cache``) for
 the planner to consult.
 
@@ -368,11 +369,13 @@ def sweep_paged(max_tokens: int = 256, n_kv: int = 2, group: int = 2,
     """Sweep the decode page size: the candidates perturb the plan's
     ``page_tokens`` and each re-lays the pool at that granule.  A candidate
     is admitted by the page level's own rule (two buffered pages within
-    the level, as ``_tuned_page_tokens`` re-checks); its shared memory is
-    the kernel's, which stages fixed tiles whatever the page."""
+    the level, as ``_tuned_page_tokens`` re-checks) and by the kernel's
+    shared memory at that page, for the body the page runs on (the split
+    body stages two pages of one KV head, so its staging follows the
+    page)."""
     from repro_torch.core.plan import (PAGE_ALIGN, PAGE_BUFFERING,
                                        PlanPolicy, Workload, plan_run)
-    from repro_torch.kernels.paged_attention import smem_bytes
+    from repro_torch.kernels.paged_attention import paged_path, smem_bytes
 
     spec = spec or h100_spec()
     budget, _ = _budgets(spec)
@@ -387,12 +390,18 @@ def sweep_paged(max_tokens: int = 256, n_kv: int = 2, group: int = 2,
     raw_pts = {center_pt,
                max(PAGE_ALIGN, _round_down(center_pt // 2, PAGE_ALIGN)),
                min(cap, _round_up(center_pt * 2, PAGE_ALIGN))}
-    staged = smem_bytes(group, head_dim)
+    dt = _dtype_of(dtype_bytes)
+
+    def staged(b):
+        pt = b["page_tokens"]
+        return smem_bytes(group, head_dim, pt,
+                          paged_path(dt, head_dim, pt, group))
+
     fitting, rejected = _dedup_fitting(
         [{"page_tokens": pt} for pt in sorted(raw_pts)],
-        lambda b: staged,
+        staged,
         lambda b: (PAGE_BUFFERING * b["page_tokens"] * tok_bytes <= budget
-                   and staged <= budget))
+                   and staged(b) <= budget))
     result = SweepResult(
         kernel="paged_attention",
         bucket=bucket_paged(tok_bytes, max_tokens),
@@ -409,7 +418,6 @@ def sweep_paged(max_tokens: int = 256, n_kv: int = 2, group: int = 2,
     from repro_torch.kernels.paged_attention import paged_attention
 
     dev = resolve_device(device)
-    dt = _dtype_of(dtype_bytes)
     h = n_kv * group
     gen = torch.Generator(device=dev).manual_seed(0)
     q = _randn(gen, (slots, h, head_dim), dt, dev)
@@ -442,7 +450,8 @@ def sweep_ssd(seq_len: int = 256, n_heads: int = 2, head_dim: int = 32,
               spec: Optional[H100Spec] = None, warmup: int = 1,
               iters: int = 5, dry: bool = False,
               device=None) -> SweepResult:
-    from repro_torch.models.mamba2 import choose_chunk, ssd_workset_bytes
+    from repro_torch.models.mamba2 import (choose_chunk, chunk_path,
+                                           ssd_workset_bytes)
 
     spec = spec or h100_spec()
     budget, _ = _budgets(spec)                # choose_chunk's own budget
@@ -454,7 +463,10 @@ def sweep_ssd(seq_len: int = 256, n_heads: int = 2, head_dim: int = 32,
               min(cap, _round_up(center_c * 2, 8))}
 
     def est(b):
-        return ssd_workset_bytes(b["chunk"], head_dim, state_dim)
+        c = b["chunk"]
+        return ssd_workset_bytes(
+            c, head_dim, state_dim,
+            chunk_path(dtype_bytes, c, head_dim, state_dim))
 
     fitting, rejected = _dedup_fitting(
         [{"chunk": c} for c in sorted(raw_cs)], est,

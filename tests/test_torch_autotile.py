@@ -49,7 +49,8 @@ from repro_torch.core.decompose import NoValidDecomposition, \
 from repro_torch.core.distribution import RowBlockDistribution, matmul_domain
 from repro_torch.core.plan import PlanPolicy, Workload, plan_run
 from repro_torch.hw import h100_spec
-from repro_torch.models.mamba2 import choose_chunk, ssd_workset_bytes
+from repro_torch.models.mamba2 import (TC_CHUNKS, choose_chunk, chunk_path,
+                                      ssd_workset_bytes)
 from repro_torch.serve.engine import plan_decode
 from repro_torch.tune.sweep import (sweep_attention, sweep_matmul,
                                     sweep_paged, sweep_ssd)
@@ -230,10 +231,13 @@ def test_tpu_working_set_model_rejects_what_hopper_keeps():
     assert jax_ssd_ws(64, 64, 64, 64, 2) == 6_291_456
     assert jax_ssd_ws(64, 1, 64, 64, 2) == 98_304
     assert _attn_vmem_bytes(128, 128, 64, 2) == 230_400
-    # The port's models of the same blocks: one K and one V tile on the
-    # simt body; on the wgmma body the Q tile, two stages of K and V, and
-    # 1,152 B of alignment slack and barriers.
-    assert ssd_workset_bytes(128, 64, 64) == 181_760 <= SMEM
+    # The port's models of the same blocks: SSD's one (batch, head) block
+    # on the simt body, and the largest pass block of the tc body; one K
+    # and one V tile on attention's simt body; on the wgmma body the Q
+    # tile, two stages of K and V, and 1,152 B of alignment slack and
+    # barriers.
+    assert ssd_workset_bytes(128, 64, 64, "simt") == 181_760 <= SMEM
+    assert ssd_workset_bytes(128, 64, 64, "tc") == 149_504 <= SMEM
     assert _attn_smem_bytes(128, 128, 64, 2) == 32_768
     assert _attn_smem_bytes(128, 128, 64, 2, "wgmma") == 83_072 <= SMEM
 
@@ -242,12 +246,22 @@ def test_tpu_working_set_model_rejects_what_hopper_keeps():
                                        (100, 2, 16, 8), (1 << 16, 8, 128,
                                                           128)])
 def test_chunk_fits_one_block(seq, h, p, n):
+    """bf16: the tc body's chunk is the largest of 64/128/256 whose largest
+    pass block fits the SMEM level; shapes the tc body does not take keep
+    the simt rule, the largest power of two whose one block fits."""
     c = choose_chunk(seq, h, p, n, dtype_bytes=2)
     assert c >= 64 and c & (c - 1) == 0
-    assert ssd_workset_bytes(c, p, n) <= SMEM or c == 64
+    path = chunk_path(2, c, p, n)
+    if path == "tc":
+        assert c in TC_CHUNKS
+        assert ssd_workset_bytes(c, p, n) <= SMEM or c == 64
+        if 2 * c in TC_CHUNKS and 2 * c <= max(64, seq):
+            assert ssd_workset_bytes(2 * c, p, n) > SMEM
+        return
+    assert ssd_workset_bytes(c, p, n, "simt") <= SMEM or c == 64
     if c * 2 <= min(seq, 1024):
-        assert ssd_workset_bytes(2 * c, p, n) > SMEM
-    assert math.isclose(ssd_workset_bytes(c, p, n) / 4,
+        assert ssd_workset_bytes(2 * c, p, n, "simt") > SMEM
+    assert math.isclose(ssd_workset_bytes(c, p, n, "simt") / 4,
                         c * p + c * (n + 1) + c * n + 2 * c + c * c + n * p)
 
 

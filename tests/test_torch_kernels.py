@@ -314,6 +314,71 @@ def test_ssd_chunk_invariance_and_ops():
             rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+def test_ssd_passes_ref_matches_pallas_and_chunked(chunk):
+    """The tc body's three passes (``ssd_passes_ref``) against the Pallas
+    kernel (interpret mode) and ``repro.models.mamba2.ssd_chunked``, with a
+    ragged last chunk (100 steps); the state after pass 2's last chunk is
+    ``ssd_chunked``'s final state (its layout is (B, H, P, N))."""
+    _need_jax()
+    from repro.models.mamba2 import ssd_chunked
+
+    from repro_torch.kernels.ref import ssd_passes_ref
+
+    mine_in, jax_in = _ssd_case(chunk, 2, 100, 3, 16, 16, "float32")
+    y, states, prev, total = ssd_passes_ref(*mine_in, chunk=chunk,
+                                            return_states=True)
+    nc = -(-100 // chunk)
+    assert states.shape == prev.shape == (2, nc, 3, 16, 16)
+    assert total.shape == (2, nc, 3) and not prev[:, 0].any()
+    pallas = jax_ssd(*jax_in, chunk=chunk, interpret=True)
+    y_ch, final = ssd_chunked(*jax_in, chunk=chunk)
+    np.testing.assert_allclose(_np(y), _np(pallas), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(_np(y), _np(y_ch), rtol=2e-4, atol=2e-4)
+    last = torch.exp(total[:, -1])[..., None, None] * prev[:, -1] \
+        + states[:, -1]
+    np.testing.assert_allclose(_np(last.transpose(-1, -2)), _np(final),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,chunk,p,n,body", [
+    (torch.bfloat16, 128, 64, 64, "tc"),
+    (torch.bfloat16, 256, 128, 128, "tc"),
+    (torch.bfloat16, 16, 16, 16, "tc"),
+    (torch.float32, 128, 64, 64, "simt"),
+    (torch.bfloat16, 100, 64, 64, "simt"),       # chunk not a whole 16
+    (torch.bfloat16, 512, 64, 64, "simt"),
+    (torch.bfloat16, 128, 48, 64, "simt"),
+    (torch.bfloat16, 128, 64, 8, "simt"),
+])
+def test_ssd_body_selection(dtype, chunk, p, n, body):
+    assert ssd_mod.ssd_path(dtype, chunk, p, n) == body
+
+
+def test_ssd_tc_grid_and_workset():
+    """At zamba2-1.2b's mixer over 4096 tokens (64 heads of 64, state 64)
+    the tc body's chunk-state and output launches give the card at least
+    132 blocks at batch 1 (8 heads a block); its working set is the pass-3
+    block the source lays out (one 128-row chunk, 8 warps), and the
+    planner's analytic chunk is 128: at 256 the block outgrows shared
+    memory."""
+    from repro_torch.models.mamba2 import choose_chunk, ssd_workset_bytes
+
+    # Blocks of passes 1 and 3: chunks x head groups (x panels of 128).
+    heads = max(d for d in range(1, 9) if 64 % d == 0)
+    chunks, groups = 4096 // 128, 64 // heads
+    assert heads == 8 and chunks * groups == 256 >= 132
+    q, p, n, r = 128, 64, 64, 128
+    pass3 = 2 * (q * (n + 8) + r * (n + 8) + q * (p + 8)
+                 + 2 * n * (p + 8)) + 4 * r * (q + 4) + 4 * 2 * 8 * q
+    assert ssd_workset_bytes(q, p, n) == pass3 == 149_504
+    assert pass3 <= 232_448 < ssd_workset_bytes(256, p, n)
+    assert choose_chunk(4096, 64, 64, 64, dtype_bytes=2, use_tuned=False) \
+        == 128
+    # The state workspace at chunk 128: (B, nc, H, N, P) float32.
+    assert 32 * 64 * 64 * 64 * 4 == 33_554_432
+
+
 # ---------------------------------------------------------------------------
 # Routing: CPU -> plain version, anything else -> kernel or raise
 # ---------------------------------------------------------------------------
@@ -522,3 +587,43 @@ def test_cuda_ssd_scan_matches_plain_version(dtype, b, s, h, p, n, chunk):
     ref = ssd_ref(x, dt, A, Bm, Cm)
     tol = SSD_TOL[str(dtype).split(".")[-1]]
     torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("b,s,h,p,n", [(1, 300, 3, 64, 64),
+                                       (2, 1000, 8, 32, 16),
+                                       (1, 517, 2, 128, 128),
+                                       (1, 520, 16, 16, 32)])
+def test_cuda_ssd_tc_body(b, s, h, p, n, chunk):
+    """The tc body on the card against the plain version and against the
+    simt body on the same inputs, chunks 64, 128 and 256 with ragged ends;
+    where the chunk's block outgrows shared memory (P = N = 128 at 256) the
+    wrapper raises instead."""
+    _cuda_or_skip()
+    gen = torch.Generator().manual_seed(s + chunk)
+    x = torch.randn(b, s, h, p, generator=gen).to("cuda", torch.bfloat16)
+    dt = (torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen))
+          * 0.5).to("cuda")
+    A = (-torch.exp(torch.randn(h, generator=gen) * 0.3)).to("cuda")
+    Bm = torch.randn(b, s, n, generator=gen).to("cuda", torch.bfloat16)
+    Cm = torch.randn(b, s, n, generator=gen).to("cuda", torch.bfloat16)
+    assert ssd_mod.ssd_path(torch.bfloat16, chunk, p, n) == "tc"
+    if ssd_mod.kernel_smem_bytes(chunk, p, n) > 232_448:
+        with pytest.raises(ValueError, match="shared memory"):
+            ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        return
+    before = (ssd_mod.LAUNCHES_TC, ssd_mod.LAUNCHES)
+    out = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    again = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    simt = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, path="simt") \
+        if ssd_mod.kernel_smem_bytes(chunk, p, n, "simt") <= 232_448 else None
+    torch.cuda.synchronize()
+    assert ssd_mod.LAUNCHES_TC == before[0] + 2
+    assert torch.equal(out, again)
+    ref = ssd_ref(x, dt, A, Bm, Cm).float()
+    err = (out.float() - ref).abs()
+    assert bool((err <= 5e-2 * (1 + ref.abs())).all()), float(err.max())
+    if simt is not None:
+        err = (out.float() - simt.float()).abs()
+        assert bool((err <= 5e-2 * (1 + ref.abs())).all()), float(err.max())

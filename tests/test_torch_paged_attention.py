@@ -182,3 +182,209 @@ def test_cuda_kernel_matches_plain_version(dtype, window, d):
     assert pa_mod.LAUNCHES == before + 1
     ref = paged_attention_ref(q, k, v, table, lengths, window=window)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# The split body's decomposition (``paged_attention_split_ref``), routing,
+# split count and shared memory
+# ---------------------------------------------------------------------------
+
+
+def _split_case(seed, s, h, kv, d, t, n_logical, lengths):
+    """A table far wider than the rows' streams (so most splits hold no
+    live key), every row with its own scrambled pages."""
+    rng = np.random.default_rng(seed)
+    p_total = 1 + s * n_logical
+    q = rng.standard_normal((s, h, d)).astype(np.float32)
+    k = rng.standard_normal((p_total, t, kv, d)).astype(np.float32)
+    v = rng.standard_normal((p_total, t, kv, d)).astype(np.float32)
+    table = (1 + rng.permutation(s * n_logical)).reshape(
+        s, n_logical).astype(np.int32)
+    return q, k, v, table, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("split_pages", [1, 2, 5])
+@pytest.mark.parametrize("window", [0, 6, 21])
+def test_split_ref_matches_pallas_kernel_and_oracle(split_pages, window):
+    """Splits of 1, 2 and 5 pages of 8 tokens over a 12-page table: rows
+    empty, of one token, ending exactly on a split boundary (16, 40 and 80
+    tokens are whole 1-, 2- and 5-page splits), and long; windows of 6 and
+    21 start inside a split.  Against the Pallas kernel (interpret mode)
+    and the jnp oracle."""
+    _need_jax()
+    from repro_torch.kernels.ref import paged_attention_split_ref
+
+    t = 8
+    case = _split_case(split_pages * 7 + window, 6, 8, 2, 16, t, 12,
+                       [0, 1, 16, 40, 80, 93])
+    mine = paged_attention_split_ref(*(torch.from_numpy(a) for a in case),
+                                     window=window, split_pages=split_pages)
+    pallas = jax_paged(*(jnp.asarray(a) for a in case), window=window,
+                       page_tokens=t)
+    oracle = jax_ref(*(jnp.asarray(a) for a in case), window=window)
+    live = case[4] > 0
+    np.testing.assert_allclose(mine.numpy(), np.asarray(pallas), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(mine.numpy()[live], np.asarray(oracle)[live],
+                               rtol=1e-4, atol=1e-4)
+    assert (mine.numpy()[~live] == 0).all()
+
+
+@pytest.mark.parametrize("split_pages", [1, 2, 5])
+def test_split_partials_of_splits_without_a_live_key(split_pages):
+    """A split past the row's last key, or wholly before its window, is the
+    empty partial (m = -inf, l = 0, acc = 0); the others hold a finite max
+    and a positive sum."""
+    from repro_torch.kernels.ref import paged_attention_split_ref
+
+    t, window = 8, 10
+    lengths = [0, 30, 57]
+    case = _split_case(3, 3, 4, 2, 16, t, 12, lengths)
+    out, m, l, acc = paged_attention_split_ref(
+        *(torch.from_numpy(a) for a in case), window=window,
+        split_pages=split_pages, return_partials=True)
+    splits = -(-12 // split_pages)
+    assert m.shape == (3, 2, splits, 2) and acc.shape == (3, 2, splits, 2, 16)
+    span = split_pages * t
+    for r, n in enumerate(lengths):
+        lo, hi = max(0, n - window), n - 1
+        for c in range(splits):
+            live = n > 0 and c * span <= hi and (c + 1) * span - 1 >= lo
+            if live:
+                assert torch.isfinite(m[r, :, c]).all() and (l[r, :, c] > 0
+                                                             ).all()
+            else:
+                assert torch.isinf(m[r, :, c]).all() and (m[r, :, c] < 0
+                                                          ).all()
+                assert (l[r, :, c] == 0).all() and (acc[r, :, c] == 0).all()
+    ref = paged_attention_ref(*(torch.from_numpy(a) for a in case),
+                              window=window)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,d,t,group,body", [
+    (torch.bfloat16, 64, 56, 4, "split"),
+    (torch.bfloat16, 128, 216, 16, "split"),
+    (torch.bfloat16, 128, 232, 16, "simt"),      # two pages do not fit
+    (torch.bfloat16, 64, 8, 1, "split"),
+    (torch.float32, 64, 56, 4, "simt"),
+    (torch.bfloat16, 32, 56, 4, "simt"),
+    (torch.bfloat16, 64, 60, 4, "simt"),
+    (torch.bfloat16, 64, 264, 4, "simt"),
+    (torch.bfloat16, 64, 56, 32, "simt"),
+])
+def test_body_selection(dtype, d, t, group, body):
+    assert pa_mod.paged_path(dtype, d, t, group) == body
+
+
+def test_a_body_that_cannot_take_the_shape_raises():
+    """``path="split"`` on float32 raises, whatever the device, and moves
+    no counter; ``path="simt"`` is always allowed."""
+    case = _case(1, 2, 4, 2, 64, 8, 5, 2, 16)
+    before = (pa_mod.LAUNCHES, pa_mod.LAUNCHES_SPLIT, pa_mod.LAUNCHES_SIMT)
+    args = [torch.from_numpy(a) for a in case]
+    with pytest.raises(ValueError, match="split body cannot take"):
+        paged_attention(*args, page_tokens=8, path="split")
+    with pytest.raises(ValueError, match="split_pages"):
+        paged_attention(*args, page_tokens=8, split_pages=0)
+    assert paged_attention(*args, page_tokens=8, path="simt").shape == \
+        (2, 4, 64)
+    assert (pa_mod.LAUNCHES, pa_mod.LAUNCHES_SPLIT,
+            pa_mod.LAUNCHES_SIMT) == before
+
+
+def test_split_count_from_shapes_alone():
+    """The split comes from rows, KV heads, table width and page size: it
+    takes no ``lengths`` (reading them would sync the stream).  At
+    llama3.2-1b decode (8 rows x 8 KV heads, 74 pages of 56 tokens) a
+    split is 2 pages, 37 splits; one 56-token prefill chunk gets 8 pages,
+    10 splits.  Every split plan covers the table, with no split left
+    empty by construction, at most ``MAX_SPLIT_PAGES`` pages and at least
+    64 tokens a split where the table has them."""
+    import inspect
+
+    assert list(inspect.signature(pa_mod.split_plan).parameters) == \
+        ["rows", "n_kv", "table_width", "page_tokens", "spec"]
+    assert pa_mod.split_plan(8, 8, 74, 56) == (37, 2)
+    assert pa_mod.split_plan(56, 8, 74, 56) == (10, 8)
+    for rows in (1, 3, 8, 56, 500):
+        for n_kv in (1, 2, 8):
+            for width in (1, 5, 74, 512):
+                for t in (8, 16, 56, 256):
+                    splits, pages = pa_mod.split_plan(rows, n_kv, width, t)
+                    assert 1 <= pages <= pa_mod.MAX_SPLIT_PAGES
+                    assert (splits - 1) * pages < width <= splits * pages
+                    assert pages * t >= 64 or pages == width \
+                        or pages == pa_mod.MAX_SPLIT_PAGES
+    assert pa_mod.split_workspace(8, 8, 37, 4, 64) == (
+        (8, 8, 37, 4, 64), (8, 8, 37, 4, 2))
+
+
+def test_smem_bytes_follow_the_sources_layout():
+    """``smem_bytes(group, head_dim, page_tokens)``: the split body stages
+    two bf16 pages of one KV head -- at llama3.2-1b's planned page (56
+    tokens, D 64, 8 KV heads) exactly the 1/KV share of the two buffered
+    pages of all KV heads that the page level prices -- plus 1,024 B of
+    alignment slack, two mbarriers and 16 table entries; where the warps'
+    float32 states outgrow the ring, the ring grows to them.  The simt body
+    stages fixed tiles whatever the page."""
+    from repro_torch.core.plan import PAGE_BUFFERING
+
+    tok_bytes_all_heads = 2 * 8 * 64 * 2          # K + V, 8 KV heads, bf16
+    ring = PAGE_BUFFERING * 56 * tok_bytes_all_heads // 8
+    assert ring == 28_672
+    assert pa_mod.smem_bytes(4, 64, 56) == 1024 + ring + 2 * 8 + 16 * 4 \
+        == 29_776
+    assert pa_mod.smem_bytes(4, 128, 216) == 1024 + 2 * 2 * 216 * 128 * 2 \
+        + 80 <= 232_448 < pa_mod.smem_bytes(4, 128, 232)
+    merge = 4 * (16 * 128 + 2 * 16) * 4
+    assert pa_mod.smem_bytes(16, 128, 8) == 1024 + merge + 80
+    for t in (8, 56, 112):
+        assert pa_mod.smem_bytes(4, 64, t, "simt") == 36_144
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("t", [8, 56, 64, 256])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_split_body(d, t, group, window):
+    """The split body on the card against the plain version: ragged
+    lengths (empty, one token, ending on a page and on a split boundary,
+    long), splits of the planned size and of 1 and 3 pages, and two runs on
+    the same inputs bit-identical.  At D 128 two 256-token pages outgrow a
+    block, and that shape runs (and is checked) on the simt body."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kv, n_logical = 4, 24
+    h = kv * group
+    lengths = [0, 1, t, 2 * t, 3 * t + 5, 7 * t - 1, n_logical * t]
+    s = len(lengths)
+    gen = torch.Generator().manual_seed(d + t + group + window)
+    p_total = 1 + s * n_logical
+    q = torch.randn(s, h, d, generator=gen).to("cuda", torch.bfloat16)
+    k = torch.randn(p_total, t, kv, d, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+    v = torch.randn(p_total, t, kv, d, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+    table = (1 + torch.randperm(s * n_logical, generator=gen)).reshape(
+        s, n_logical).to("cuda", torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    ref = paged_attention_ref(q, k, v, table, lens, window=window).float()
+    body = pa_mod.paged_path(torch.bfloat16, d, t, group)
+    assert body == ("simt" if (d, t) == (128, 256) else "split")
+    counter = "LAUNCHES_" + body.upper()
+    for split_pages in (None, 1, 3):
+        before = (getattr(pa_mod, counter), pa_mod.LAUNCHES)
+        out = paged_attention(q, k, v, table, lens, window=window,
+                              page_tokens=t, split_pages=split_pages)
+        again = paged_attention(q, k, v, table, lens, window=window,
+                                page_tokens=t, split_pages=split_pages)
+        torch.cuda.synchronize()
+        assert (getattr(pa_mod, counter), pa_mod.LAUNCHES) == \
+            (before[0] + 2, before[1] + 2)
+        assert torch.equal(out, again)
+        err = (out.float() - ref).abs()
+        assert bool((err <= 2e-2 * (1 + ref.abs())).all()), \
+            (split_pages, float(err.max()))
+        assert not out[0].float().abs().any()
