@@ -55,11 +55,28 @@ Phases (each prints its results; the script exits non-zero if any fails):
      the body it runs on (the paged page, the SSD chunk), the winners written
      under the card's fingerprint to a file under ``build/``, the planner
      shown to return each of them, and ``python -m repro_torch.launch.tune
-     --quick`` run on the card.
+     --quick`` run on the card;
+  7. zamba2-1.2b's kernel shapes (the hybrid_ssm family): ``paged_attention``
+     at its shared attention block (32 query heads over 32 KV heads, group
+     1, D 64, the planned 8-token page) in the decode shape (8 rows) and
+     the prefill shape (one 8-row chunk), bf16 (split) and float32 (simt),
+     two bf16 runs bit-identical; ``ssd_scan`` with a random initial state
+     at its mixer (1, S, 64 heads, 64, state 64) for S = 8 (one planned
+     prefill chunk: bf16 tc on a 16-row chunk, float32 simt) and S = 1000
+     (ragged), y and final state against the plain version, and 125
+     chained 8-token calls against one 1000-token call; then the times of
+     both kernels at these shapes beside simt, plain, library and bound;
+  8. zamba2-1.2b at full width cut to 2 Mamba2 layers and one application
+     of the shared block, float32: prefill in planned chunks and one paged
+     decode step on the card and on the CPU with the same weights; logits,
+     pool and Mamba state agree;
+  9. serving: ``ServeEngine`` on full-width zamba2-1.2b (38 layers, seeded
+     random bf16 weights) serving phase 4's trace; every paged launch must
+     be ``split`` and every SSD launch ``tc``.
 
-Phases 0-4 plan and serve without a tuning artifact (the port's tuning
-path points at a file that does not exist until phase 6 writes one), so
-their numbers compare with earlier runs'.
+Phases 0-4 and 7-9 plan and serve without a tuning artifact (the port's
+tuning path points at a file that does not exist until phase 6 writes
+one), so their numbers compare with earlier runs'.
 
 Output, at the end: one JSON line describing the kernels, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -95,6 +112,7 @@ SSD_TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-4}
 SLICE_TOL = dict(rtol=1e-3, atol=1e-3)
 
 ARCH = "llama3.2-1b"
+ZAMBA = "zamba2-1.2b"
 DEVICE = "cuda"
 MAX_SLOTS = 8
 MAX_LEN = 4096
@@ -181,14 +199,16 @@ def kernel_us(fn, reps: int = 10) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def make_case(dtype, lens, t, rows_share_table: bool, copies: int, seed=0):
-    """Inputs at llama3.2-1b's attention width on the card.
+def make_case(dtype, lens, t, rows_share_table: bool, copies: int, seed=0,
+              cfg=None):
+    """Inputs at the attention width of ``cfg`` (default llama3.2-1b) on
+    the card.
 
     Decode: one row per slot, each slot with its own pages.  Prefill: the
     rows are one chunk's tokens over ONE table row (``lens`` = positions
     + 1).  ``copies`` pools stand for the model's layers.
     """
-    cfg = get_cfg()
+    cfg = cfg or get_cfg()
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     np_ = -(-MAX_LEN // t)                       # the engine's table width
     need = [-(-n // t) for n in lens]
@@ -292,30 +312,85 @@ def body(mod, before, what) -> str:
     return ran[0]
 
 
-def phase_kernel(t: int) -> dict:
-    from repro_torch.kernels import paged_attention as pa_mod
+def paged_timing(pa_mod, name, lens, shared, t, cfg,
+                 split_sizes=()) -> dict:
+    """Times of ``paged_attention`` at one shape of ``cfg``, bf16: the
+    routed body, the simt body (``ms_simt``), the plain version, gather +
+    SDPA, the bound, the device time of each CUDA kernel and, for
+    ``split_sizes``, the time at other pages per split."""
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      split_plan)
     from repro_torch.kernels.ref import paged_attention_ref
 
-    prefill_pos0 = 8 * t
-    np_ = -(-MAX_LEN // t)
-    _, pages = split_plan(len(DECODE_LENS), get_cfg().n_kv_heads, np_, t)
-    span = pages * t
-    shapes = {
-        "decode": (DECODE_LENS, False),
-        "prefill": (tuple(range(prefill_pos0 + 1, prefill_pos0 + t + 1)),
-                    True),
-        # rows whose last key ends a split (and one that ends just before)
-        "boundary": ((span, 2 * span, 9 * span, 1, 3 * span - 1, 0,
-                      5 * span, span + 1), False),
+    case = make_case(torch.bfloat16, lens, t, shared, LAYER_COPIES, cfg=cfg)
+    q, kp, vp = case["q"], case["k"], case["v"]
+    table, lengths = case["table"], case["lengths"]
+
+    def layer(i):
+        return kp[i % LAYER_COPIES], vp[i % LAYER_COPIES]
+
+    def run_kernel(i, path=None, split_pages=None):
+        kl, vl = layer(i)
+        paged_attention(q, kl, vl, table, lengths, page_tokens=t,
+                        path=path, split_pages=split_pages)
+
+    def run_ref(i):
+        kl, vl = layer(i)
+        paged_attention_ref(q, kl, vl, table, lengths)
+
+    def run_lib(i):
+        kl, vl = layer(i)
+        library_attention(q, kl, vl, table, lengths, 0)
+
+    nbytes, ops = live_work(case, 0)
+    bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
+    splits, pages = split_plan(len(lens), kp.shape[3], table.shape[1], t)
+    before = counters(pa_mod, ("split", "simt"))
+    ms = cuda_ms(run_kernel)
+    row = {
+        "ms": ms, "path": body(pa_mod, before, f"paged {name} timing"),
+        "ms_simt": cuda_ms(lambda i: run_kernel(i, path="simt")),
+        "ms_again": cuda_ms(run_kernel),
+        "plain_ms": cuda_ms(run_ref, reps=10),
+        "library_ms": cuda_ms(run_lib, reps=10),
+        "bound_ms": bound, "bound_by": bound_by,
+        "bytes": nbytes, "ops": ops, "rows": len(lens),
+        "splits": splits, "split_pages": pages,
     }
+    row["kernels_us"] = kernel_us(lambda: run_kernel(0))
+    log(f"    {name} kernels (torch.profiler, us per call): "
+        + json.dumps(row["kernels_us"]))
+    log(f"  time bf16 {name:7s} rows={len(lens)} ({row['path']}, "
+        f"{splits} splits of {pages} pages): kernel_ms={row['ms']:.4f} "
+        f"(again {row['ms_again']:.4f}) ms_simt={row['ms_simt']:.4f} "
+        f"ref_ms={row['plain_ms']:.4f} library_ms="
+        f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+        f"({row['bound_by']}, {nbytes} B, {ops} flop) "
+        f"share_of_bound={row['bound_ms'] / row['ms']:.3f}")
+    if split_sizes:
+        row["ms_by_split_pages"] = {
+            sp: cuda_ms(lambda i, sp=sp: run_kernel(i, split_pages=sp))
+            for sp in split_sizes}
+        log(f"    {name} ms by pages per split: " + json.dumps(
+            {k: round(v, 5) for k, v in row["ms_by_split_pages"].items()}))
+    return row
+
+
+def paged_checks(pa_mod, shapes, t, cfg, windows) -> tuple:
+    """``paged_attention`` against its plain version at each of ``shapes``
+    (name -> (lens, rows share one table)) of ``cfg``, bf16 and float32,
+    at each window: within ``TOL``, two runs bit-identical, empty rows
+    zero, bf16 on the split body and float32 on simt.  Returns the worst
+    error by (dtype, shape) and the body by shape."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+
     worst, bodies = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, (lens, shared) in shapes.items():
-            case = make_case(dtype, lens, t, shared, copies=1)
+            case = make_case(dtype, lens, t, shared, copies=1, cfg=cfg)
             live = case["lengths"] > 0
-            for window in (0, 256):
+            for window in windows:
                 args = (case["q"], case["k"][0], case["v"][0],
                         case["table"], case["lengths"])
                 before = counters(pa_mod, ("split", "simt"))
@@ -343,61 +418,32 @@ def phase_kernel(t: int) -> dict:
                 assert not out[~live].float().abs().any(), "empty row not 0"
     assert all(b == ("split" if k.startswith("bfloat16") else "simt")
                for k, b in bodies.items()), bodies
+    return worst, bodies
+
+
+def phase_kernel(t: int) -> dict:
+    from repro_torch.kernels import paged_attention as pa_mod
+    from repro_torch.kernels.paged_attention import split_plan
+
+    prefill_pos0 = 8 * t
+    np_ = -(-MAX_LEN // t)
+    _, pages = split_plan(len(DECODE_LENS), get_cfg().n_kv_heads, np_, t)
+    span = pages * t
+    shapes = {
+        "decode": (DECODE_LENS, False),
+        "prefill": (tuple(range(prefill_pos0 + 1, prefill_pos0 + t + 1)),
+                    True),
+        # rows whose last key ends a split (and one that ends just before)
+        "boundary": ((span, 2 * span, 9 * span, 1, 3 * span - 1, 0,
+                      5 * span, span + 1), False),
+    }
+    worst, bodies = paged_checks(pa_mod, shapes, t, get_cfg(), (0, 256))
 
     timings = {}
     for name in ("decode", "prefill"):
         lens, shared = shapes[name]
-        case = make_case(torch.bfloat16, lens, t, shared, LAYER_COPIES)
-        q, kp, vp = case["q"], case["k"], case["v"]
-        table, lengths = case["table"], case["lengths"]
-
-        def layer(i):
-            return kp[i % LAYER_COPIES], vp[i % LAYER_COPIES]
-
-        def run_kernel(i, path=None, split_pages=None):
-            kl, vl = layer(i)
-            paged_attention(q, kl, vl, table, lengths, page_tokens=t,
-                            path=path, split_pages=split_pages)
-
-        def run_ref(i):
-            kl, vl = layer(i)
-            paged_attention_ref(q, kl, vl, table, lengths)
-
-        def run_lib(i):
-            kl, vl = layer(i)
-            library_attention(q, kl, vl, table, lengths, 0)
-
-        nbytes, ops = live_work(case, 0)
-        bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
-        splits, pages = split_plan(len(lens), kp.shape[3], table.shape[1], t)
-        before = counters(pa_mod, ("split", "simt"))
-        ms = cuda_ms(run_kernel)
-        row = {
-            "ms": ms, "path": body(pa_mod, before, f"paged {name} timing"),
-            "ms_simt": cuda_ms(lambda i: run_kernel(i, path="simt")),
-            "ms_again": cuda_ms(run_kernel),
-            "plain_ms": cuda_ms(run_ref, reps=10),
-            "library_ms": cuda_ms(run_lib, reps=10),
-            "bound_ms": bound, "bound_by": bound_by,
-            "bytes": nbytes, "ops": ops, "rows": len(lens),
-            "splits": splits, "split_pages": pages,
-        }
-        row["kernels_us"] = kernel_us(lambda: run_kernel(0))
-        log(f"    {name} kernels (torch.profiler, us per call): "
-            + json.dumps(row["kernels_us"]))
-        row["ms_by_split_pages"] = {
-            sp: cuda_ms(lambda i, sp=sp: run_kernel(i, split_pages=sp))
-            for sp in (1, 2, 3, 4, 8)}
-        timings[name] = row
-        log(f"  time bf16 {name:7s} rows={len(lens)} ({row['path']}, "
-            f"{splits} splits of {pages} pages): kernel_ms={row['ms']:.4f} "
-            f"(again {row['ms_again']:.4f}) ms_simt={row['ms_simt']:.4f} "
-            f"ref_ms={row['plain_ms']:.4f} library_ms="
-            f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
-            f"({row['bound_by']}, {nbytes} B, {ops} flop) "
-            f"share_of_bound={row['bound_ms'] / row['ms']:.3f}")
-        log(f"    {name} ms by pages per split: " + json.dumps(
-            {k: round(v, 5) for k, v in row["ms_by_split_pages"].items()}))
+        timings[name] = paged_timing(pa_mod, name, lens, shared, t,
+                                     get_cfg(), split_sizes=(1, 2, 3, 4, 8))
     log("  phase 2 bodies: " + json.dumps(bodies))
     log("  phase 2 max_abs_err: " + json.dumps(
         {f"{a}/{b}": e for (a, b), e in worst.items()}))
@@ -466,10 +512,15 @@ def phase_slice(t: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(pa_mod) -> dict:
+def serve_trace(cfg, mods: dict, warm_prompts) -> tuple:
+    """``ServeEngine`` on ``cfg`` (seeded random bf16 weights, paged
+    batching, chunked prefill, ``MAX_SLOTS`` slots, ``MAX_LEN``) serving
+    ``PROMPT_LENS`` prompts of ``MAX_NEW`` tokens each, after a warm-up
+    engine (same weights) served ``warm_prompts`` of them.  Every launch
+    counter of ``mods`` is set to 0 just before the main path's run and
+    read just after it.  Returns ``(row, outputs, engine, prompts)``."""
     from repro_torch.serve import ServeEngine, ServePolicy
 
-    cfg = get_cfg()
     policy = ServePolicy(batching="paged", prefill="chunked",
                          max_slots=MAX_SLOTS, max_len=MAX_LEN,
                          max_new_tokens=MAX_NEW)
@@ -478,18 +529,23 @@ def phase_serve(pa_mod) -> dict:
                for n in PROMPT_LENS]
     warm = ServeEngine(cfg, policy, dtype=torch.bfloat16, seed=0,
                        device=DEVICE)
-    warm.generate(prompts[:2], max_new_tokens=2)
+    warm.generate([prompts[i] for i in warm_prompts], max_new_tokens=2)
     engine = ServeEngine(cfg, policy, dtype=torch.bfloat16,
                          params=warm.params, device=DEVICE)
+    del warm
     torch.cuda.synchronize()
-    # the main path's run starts here
-    pa_mod.LAUNCHES = pa_mod.LAUNCHES_SPLIT = pa_mod.LAUNCHES_SIMT = 0
+    torch.cuda.reset_peak_memory_stats()
+    names = ("LAUNCHES", "LAUNCHES_SPLIT", "LAUNCHES_TC", "LAUNCHES_SIMT")
+    for mod in mods.values():       # the main path's run starts here
+        for name in names:
+            if hasattr(mod, name):
+                setattr(mod, name, 0)
     t0 = time.perf_counter()
     outs = engine.generate(prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pa_mod.LAUNCHES             # ... and ends here
-    split = pa_mod.LAUNCHES_SPLIT
+    launches = {k: {n: getattr(mod, n) for n in names if hasattr(mod, n)}
+                for k, mod in mods.items()}           # ... and ends here
     m = engine.metrics
     steps, chunks = int(m["decode_steps"]), int(m["prefill_chunks"])
     events = engine.tracer.export_events()
@@ -506,6 +562,7 @@ def phase_serve(pa_mod) -> dict:
                     / (sum(e["dur"] for e in steady) / 1e6)) if steady \
         else float("nan")
     row = {
+        "arch": cfg.arch, "layers": cfg.n_layers,
         "tokens": int(m["tokens"]), "wall_s": wall,
         "decode_steps": steps, "prefill_chunks": chunks,
         "decode_tok_s": decode_tok_s,
@@ -516,24 +573,34 @@ def phase_serve(pa_mod) -> dict:
         "pages_per_slot": int(m["pages_per_slot"]),
         "pages_allocated": int(m["pages_allocated"]),
         "pages_released": int(m["pages_released"]),
-        "backfills": int(m["backfills"]), "LAUNCHES": launches,
-        "LAUNCHES_SPLIT": split,
+        "backfills": int(m["backfills"]), "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("  serve: " + json.dumps(row))
     assert [len(o) for o in outs] == [MAX_NEW] * len(prompts), \
         [len(o) for o in outs]
     assert all(0 <= tok < cfg.vocab_size for o in outs for tok in o)
+    assert row["pages_allocated"] == row["pages_released"]
+    return row, outs, engine, prompts
+
+
+def phase_serve(pa_mod) -> dict:
+    cfg = get_cfg()
+    row, _, engine, prompts = serve_trace(cfg, {"paged": pa_mod}, (0, 1))
+    launches = row["LAUNCHES"] = row["launches"]["paged"]["LAUNCHES"]
+    split = row["LAUNCHES_SPLIT"] = \
+        row["launches"]["paged"]["LAUNCHES_SPLIT"]
+    steps, chunks = row["decode_steps"], row["prefill_chunks"]
     assert launches > 0, "the main path never launched the kernel"
     assert launches == split == cfg.n_layers * (steps + chunks), \
         (launches, split, cfg.n_layers, steps, chunks)
-    assert row["pages_allocated"] == row["pages_released"]
     if PROFILE:
-        profile_serve(engine, prompts, wall)
+        profile_serve(engine, prompts, row["wall_s"])
     return row
 
 
-def profile_serve(engine, prompts, unprofiled_wall_s: float) -> None:
+def profile_serve(engine, prompts, unprofiled_wall_s: float,
+                  max_new=None) -> None:
     """``--profile``: device time by kernel over one more generate call of
     the same prompts under ``torch.profiler``.  The card's busy share is
     printed twice: over this call's wall time (the profiler's own host
@@ -546,7 +613,7 @@ def profile_serve(engine, prompts, unprofiled_wall_s: float) -> None:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        engine.generate(prompts)
+        engine.generate(prompts, max_new_tokens=max_new)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     avgs = prof.key_averages()
@@ -919,6 +986,247 @@ def phase_tune(mods) -> dict:
                        for r in results}}
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-9: zamba2-1.2b, the hybrid_ssm family
+# ---------------------------------------------------------------------------
+
+
+def ssd_work(b, s, h, p, n, chunk, el, state: bool) -> tuple:
+    """(bytes, operations) of one SSD scan: x and y in the inputs' type,
+    dt in float32, A, B and C, each once, and with ``state`` the initial
+    state read and the final one written (float32); per (batch, head) and
+    chunk of L real steps, C.B over the lower triangle, the intra- and
+    inter-chunk terms of y and the state update."""
+    nbytes = (2 * b * s * h * p * el + b * s * h * 4 + h * 4
+              + 2 * b * s * n * el + (2 * b * h * p * n * 4 if state else 0))
+    ops = 0
+    for lo in range(0, s, chunk):
+        ln = min(chunk, s - lo)
+        tri = ln * (ln + 1) // 2
+        ops += b * h * (2 * tri * n + 2 * tri * p + 4 * ln * n * p)
+    return nbytes, ops
+
+
+def ssd_state_case(gen, s, dtype, cfg):
+    """zamba2-1.2b's mixer scan over ``s`` tokens (batch 1, 64 heads of 64,
+    state 64) with a random float32 initial state."""
+    sc = cfg.ssm
+    h = sc.expand * cfg.d_model // sc.head_dim
+    args = ssd_inputs(gen, 1, s, h, sc.head_dim, sc.state_dim, dtype)
+    init = torch.randn((1, h, sc.head_dim, sc.state_dim), generator=gen,
+                       device=DEVICE)
+    return args, init
+
+
+def phase_zamba_kernels(t: int) -> dict:
+    """Paged attention and the SSD scan at the shapes zamba2-1.2b's serving
+    path gives them, against their plain versions, then their times."""
+    from repro_torch.kernels import paged_attention as pa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.kernels.ssd_scan import call_chunk, ssd_scan
+    from repro_torch.models.mamba2 import kernel_chunk
+
+    cfg = zamba_cfg()
+    g = cfg.n_heads // cfg.n_kv_heads
+    log(f"  shared attention: {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV heads (group {g}), D {cfg.head_dim}, page {t}")
+    shapes = {"decode": (DECODE_LENS, False),
+              "prefill": (tuple(range(8 * t + 1, 9 * t + 1)), True)}
+    worst, bodies = paged_checks(pa_mod, shapes, t, cfg, (0,))
+    paged = {name: paged_timing(pa_mod, name, lens, shared, t, cfg)
+             for name, (lens, shared) in shapes.items()}
+
+    sc = cfg.ssm
+    p, n = sc.head_dim, sc.state_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    ssd_err, ssd_bodies = {}, {}
+    cases = {}
+    for s in (8, 1000):
+        for dtype in (torch.bfloat16, torch.float32):
+            args, init = ssd_state_case(gen, s, dtype, cfg)
+            kc = kernel_chunk(sc.chunk, p, n, dtype.itemsize)
+            before = counters(ssd_mod, ("tc", "simt"))
+            y, fin = ssd_scan(*args, chunk=kc, init_state=init,
+                              return_final=True)
+            y2, fin2 = ssd_scan(*args, chunk=kc, init_state=init,
+                                return_final=True)
+            torch.cuda.synchronize()
+            ran = body(ssd_mod, before, f"ssd_scan S={s}")
+            assert torch.equal(y, y2) and torch.equal(fin, fin2), \
+                f"ssd_scan S={s}: two runs differ"
+            ry, rfin = ssd_ref(*args, init_state=init, return_final=True)
+            name = f"{str(dtype)[6:]} S={s}"
+            q = call_chunk(dtype, kc, s, p, n)
+            what = f"ssd_scan {name} chunk {q} {ran} with state"
+            ssd_err[name] = {
+                "y": held_to(y, ry, SSD_TOL[dtype], what + ": y"),
+                "final": held_to(fin, rfin, SSD_TOL[dtype],
+                                 what + ": final state")}
+            ssd_bodies[name] = ran
+            if dtype == torch.bfloat16:
+                cases[s] = (args, init, kc)
+    # 125 calls of 8 tokens, each from the last one's final state, against
+    # one 1000-token call.
+    for dtype in (torch.bfloat16, torch.float32):
+        args, init = ssd_state_case(gen, 1000, dtype, cfg)
+        kc = kernel_chunk(sc.chunk, p, n, dtype.itemsize)
+        y, fin = ssd_scan(*args, chunk=kc, init_state=init,
+                          return_final=True)
+        state, parts = init, []
+        for lo in range(0, 1000, 8):
+            # A (H,) has no time axis
+            piece = [a if a.dim() == 1 else a[:, lo:lo + 8].contiguous()
+                     for a in args]
+            part, state = ssd_scan(*piece, chunk=kc, init_state=state,
+                                   return_final=True)
+            parts.append(part)
+        name = f"{str(dtype)[6:]} 125 x 8 vs 1000"
+        ssd_err[name] = {
+            "y": held_to(torch.cat(parts, 1), y, SSD_TOL[dtype],
+                         f"ssd_scan {name}: y"),
+            "final": held_to(state, fin, SSD_TOL[dtype],
+                             f"ssd_scan {name}: final state")}
+    assert all(b == ("tc" if k.startswith("bfloat16") else "simt")
+               for k, b in ssd_bodies.items()), ssd_bodies
+
+    ssd = {}
+    for s, (args, init, kc) in cases.items():
+        q = call_chunk(torch.bfloat16, kc, s, p, n)
+
+        def run(i, path=None):
+            ssd_scan(*args, chunk=kc, init_state=init, return_final=True,
+                     path=path)
+
+        nbytes, ops = ssd_work(1, s, args[0].shape[2], p, n, min(q, s), 2,
+                               True)
+        bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
+        before = counters(ssd_mod, ("tc", "simt"))
+        row = {"ms": cuda_ms(run), "path": body(ssd_mod, before, "ssd"),
+               "ms_simt": cuda_ms(lambda i: run(i, "simt")),
+               "plain_ms": cuda_ms(lambda i: ssd_ref(
+                   *args, init_state=init, return_final=True),
+                   reps=10 if s <= 8 else 1),
+               "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+               "bytes": nbytes, "ops": ops, "chunk": q,
+               "max_abs_err": max(ssd_err[f"bfloat16 S={s}"].values())}
+        row["kernels_us"] = kernel_us(lambda: run(0))
+        ssd[f"S={s}"] = row
+        log(f"  time bf16 ssd_scan S={s} with state ({row['path']}, chunk "
+            f"{q}): kernel_ms={row['ms']:.4f} ms_simt={row['ms_simt']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} library_ms=null "
+            f"bound_ms={bound:.5f} ({bound_by}, {nbytes} B, {ops} flop) "
+            f"share_of_bound={bound / row['ms']:.3f}; kernels (us): "
+            + json.dumps(row["kernels_us"]))
+    log("  phase 7 paged bodies: " + json.dumps(bodies))
+    log("  phase 7 paged max_abs_err: " + json.dumps(
+        {f"{a}/{b}": e for (a, b), e in worst.items()}))
+    log("  phase 7 ssd bodies: " + json.dumps(ssd_bodies))
+    log("  phase 7 ssd max_abs_err: " + json.dumps(ssd_err))
+    return {"paged": paged, "paged_err": worst[("bfloat16", "decode")],
+            "ssd": ssd, "ssd_err": ssd_err}
+
+
+def phase_zamba_slice(t: int) -> None:
+    """zamba2-1.2b at full width cut to 2 Mamba2 layers and one application
+    of the shared block, float32: two slots prefill in planned chunks of
+    ``t`` tokens (16 and 13 tokens: the state carried from chunk to
+    chunk), then one paged decode step, on the card and on the CPU with
+    the same weights; logits, pool and Mamba state agree."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.models.model import Model
+    from repro_torch.serve.pages import init_paged_cache
+
+    cfg = dataclasses.replace(zamba_cfg(), n_layers=2)
+    model = Model(cfg)
+    params = {"cpu": model.init(seed=0, device="cpu")}
+    params[DEVICE] = tree_to(params["cpu"], DEVICE)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (2 * t, 13)]
+    table = torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32)
+    res = {}
+    before = counters(ssd_mod, ("tc", "simt"))
+    for dev in ("cpu", DEVICE):
+        cache = init_paged_cache(cfg, 2, 7, t, 3, torch.float32, dev)
+        cache["table"] = table.to(dev)
+        firsts = []
+        with torch.no_grad():
+            for slot, prompt in enumerate(prompts):
+                for lo in range(0, len(prompt), t):
+                    logits, cache = model.prefill_chunk(
+                        params[dev], cache,
+                        {"tokens": torch.from_numpy(
+                            prompt[lo:lo + t])[None].to(dev),
+                         "pos0": lo, "slot": slot}, dtype=torch.float32)
+                firsts.append(logits)
+            toks = torch.stack([lg.argmax(-1) for lg in firsts])  # (2, 1)
+            cache["pos"] = torch.tensor([len(p) for p in prompts],
+                                        dtype=torch.int32, device=dev)
+            dec, cache = model.decode_step_paged(
+                params[dev], cache, {"tokens": toks}, dtype=torch.float32)
+        mc = cache["state"]["mamba"]
+        res[dev] = (torch.cat(firsts).cpu(), dec.cpu(),
+                    cache["pool"]["k"].cpu(), mc["ssm"].cpu(),
+                    mc["conv"].cpu())
+    torch.cuda.synchronize()
+    chunks = sum(-(-len(p) // t) for p in prompts)
+    moved = {k: getattr(ssd_mod, f"LAUNCHES_{k.upper()}") - v
+             for k, v in before.items()}
+    log(f"  ssd_scan launches on the card: {json.dumps(moved)} ({chunks} "
+        f"chunks x {cfg.n_layers} mixers)")
+    assert moved == {"tc": 0, "simt": chunks * cfg.n_layers}, moved
+    names = ("prefill logits", "decode logits", "K pool", "SSM state",
+             "conv state")
+    for name, a, b in zip(names, res[DEVICE], res["cpu"]):
+        err = float((a - b).abs().max())
+        log(f"  {name}: max_abs_err={err:.3e} (shape {tuple(a.shape)})")
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, **SLICE_TOL)
+    (pc, dc), (pg, dg) = res["cpu"][:2], res[DEVICE][:2]
+    tok_c = (pc.argmax(-1).tolist(), dc.argmax(-1).tolist())
+    tok_g = (pg.argmax(-1).tolist(), dg.argmax(-1).tolist())
+    log(f"  greedy tokens cuda={tok_g} cpu={tok_c}")
+    assert tok_g == tok_c, "greedy tokens differ between cuda and cpu"
+
+
+def phase_zamba_serve(pa_mod, ssd_mod) -> dict:
+    """Full-width zamba2-1.2b (38 Mamba2 layers, the shared block 7 times)
+    serving phase 4's trace: every paged launch on the split body, every
+    SSD launch on tc, one per mixer and prefill chunk of more than one
+    token (a one-token chunk takes ``ssd_step``)."""
+    from repro_torch.serve.kvcache import attn_apps
+
+    cfg = zamba_cfg()
+    row, _, engine, prompts = serve_trace(
+        cfg, {"paged": pa_mod, "ssd": ssd_mod}, (0,))
+    apps = attn_apps(cfg)
+    steps, chunks = row["decode_steps"], row["prefill_chunks"]
+    multi = sum(1 for e in engine.metrics["interleave"]
+                if e[0] == "chunk" and e[3] > 1)
+    pa, sd = row["launches"]["paged"], row["launches"]["ssd"]
+    log(f"  launches: paged {json.dumps(pa)} (want {apps} applications x "
+        f"({steps} ticks + {chunks} chunks)), ssd {json.dumps(sd)} (want "
+        f"{cfg.n_layers} mixers x {multi} chunks of > 1 token)")
+    assert pa["LAUNCHES"] > 0 and sd["LAUNCHES"] > 0, \
+        "the main path never launched a kernel"
+    assert pa["LAUNCHES"] == pa["LAUNCHES_SPLIT"] == apps * (steps + chunks)
+    assert sd["LAUNCHES"] == sd["LAUNCHES_TC"] == cfg.n_layers * multi
+    if PROFILE:
+        sub = [prompts[0], prompts[4]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(sub, max_new_tokens=8)
+        torch.cuda.synchronize()
+        profile_serve(engine, sub, time.perf_counter() - t0, max_new=8)
+    return row
+
+
+def zamba_cfg():
+    from repro_torch.configs import get_model_config
+
+    return get_model_config(ZAMBA)
+
+
 def get_cfg():
     from repro_torch.configs import get_model_config
 
@@ -1009,7 +1317,7 @@ def main() -> int:
     log(f"  planned page: {t} tokens ({plan.page_plan()['page_bytes']} B "
         f"per layer page, SMEM budget {plan.level('SMEM').budget_bytes} B, "
         f"{plan.page_plan()['source']})")
-    kern = serve = tk = tune = None
+    kern = serve = tk = tune = zk = zserve = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -1024,7 +1332,25 @@ def main() -> int:
         tune = phase("phase 6 tune", phase_tune, {
             "matmul_cc": mm_mod, "flash_attention": fa_mod,
             "paged_attention": pa_mod, "ssd_scan": ssd_mod})
-    if failed or None in (kern, serve, tk, tune):
+        # Phases 7-9 plan without a tuning artifact, as phases 0-4 do.
+        os.environ[TUNING_ENV] = os.path.join(BUILD,
+                                              "no_tuning_artifact.json")
+        zplan = plan_decode(zamba_cfg(), max_len=MAX_LEN, batch=MAX_SLOTS,
+                            dtype_bytes=2)
+        zt = zplan.page_plan()["page_tokens"]
+        log(f"  zamba2-1.2b planned page: {zt} tokens, chunk "
+            f"{zplan.chunk_tokens()} ({zplan.page_plan()['source']})")
+        log("[7] zamba2-1.2b's shapes: paged attention (group 1, page "
+            f"{zt}) and the SSD scan with state, against their plain "
+            "versions")
+        zk = phase("phase 7 zamba2 kernels", phase_zamba_kernels, zt)
+        log("[8] zamba2-1.2b at full width cut to 2 mixers and 1 shared "
+            "block, cuda against cpu, float32")
+        phase("phase 8 zamba2 slice", phase_zamba_slice, zt)
+        log("[9] serving full-width zamba2-1.2b, bf16")
+        zserve = phase("phase 9 zamba2 serve", phase_zamba_serve, pa_mod,
+                       ssd_mod)
+    if failed or None in (kern, serve, tk, tune, zk, zserve):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -1057,6 +1383,27 @@ def main() -> int:
             "library_ms": row["library_ms"], "path": row["path"],
         })
         kernels[-1].update(ms_simt=row["ms_simt"], sass=sass[name])
+    # zamba2-1.2b: the paged kernel's and the SSD scan's serving launches
+    # (phase 9), and their times and bounds at its shapes (phase 7).  The
+    # SSD scan's main path is now serving; its sweep launches stay beside.
+    keys = ("ms", "ms_simt", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "path")
+    zl = zserve["launches"]
+    kernels[0]["zamba2"] = {
+        "launches": zl["paged"]["LAUNCHES"],
+        "launches_split": zl["paged"]["LAUNCHES_SPLIT"],
+        "max_abs_err": zk["paged_err"],
+        **{name: {k: row[k] for k in keys}
+           for name, row in zk["paged"].items()}}
+    ssd = kernels[3]
+    ssd["launches_tune"] = ssd["launches"]
+    ssd["launches"] = zl["ssd"]["LAUNCHES"]
+    ssd["zamba2"] = {
+        "launches": zl["ssd"]["LAUNCHES"],
+        "launches_tc": zl["ssd"]["LAUNCHES_TC"],
+        "max_abs_err": zk["ssd_err"],
+        **{name: {k: row[k] for k in keys + ("chunk",)}
+           for name, row in zk["ssd"].items()}}
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         log(f"FAILED: the main path never launched {missing}")

@@ -6,8 +6,10 @@ The port imports ``torch`` and never ``jax``, and nothing of ``repro``: what
 it needs from there (configs, the planner walk, obs) it keeps as its own
 copy.
 
-Its one hand-written Hopper kernel so far is paged attention
-(``csrc/paged_attention.cu``, wrapped by ``kernels.paged_attention``).
+It serves the dense and hybrid_ssm (Zamba2) families with the paged
+engine; its hand-written Hopper kernels live in ``csrc/`` and are wrapped
+by ``kernels`` (paged attention and the SSD scan on the serving path,
+``matmul_cc`` and flash attention on the tuning path).
 Entry points take ``device=None``, meaning ``"cuda"``; pass ``"cpu"`` to run
 the plain PyTorch versions of the kernels instead (the CPU tests do).
 """

@@ -11,10 +11,19 @@
 //   y_i  = sum_{j<=i} exp(cum_i - cum_j) (C_i . B_j) dt_j x_j     (intra)
 //        + exp(cum_i) C_i . S_prev                               (inter)
 //   S    = exp(cum_Q) S_prev + sum_j exp(cum_Q - cum_j) dt_j B_j x_j^T
-// with the float32 state S (N x P) carried from chunk to chunk.  It
-// returns y only, as the Pallas kernel does.  A ragged final chunk is
-// masked: steps past the sequence read as zeros (dt = 0), so they neither
-// decay nor add to the state, as with the TPU's padding.
+// with the float32 state S (N x P) carried from chunk to chunk.  Beside
+// y, which is all the Pallas kernel returns, both bodies take an initial
+// state and give the final one (`init`, `final`, each null or (B, H, P, N)
+// float32: the layout of the reference's cache, repro.models.model's
+// init_cache, so a cache holds the same numbers in both packages; the
+// kernels read and write it transposed to their own N x P order), which
+// the hybrid_ssm serving path carries from one prefill chunk to the next.
+// A ragged final chunk is masked: steps past the sequence read as zeros
+// (dt = 0), so they neither decay nor add to the state, as with the TPU's
+// padding.  That is also how a call shorter than 16 steps (an 8-token
+// prefill chunk) runs on the tensor cores: the wrapper rounds its chunk up
+// to 16 and the tail rows are masked, so the final state is the one after
+// the call's last real step.
 //
 // What bounds it on an H100: bytes.  Each element of x, y, dt, B and C
 // crosses HBM once, against O(Q) flops per element at the planned chunk --
@@ -33,10 +42,8 @@
 //      wrapper allocates (B, nc, H, N, P) and (B, nc, H);
 //   2. state passing, one thread per (batch, head, state element), in chunk
 //      order: S_prev[c] = exp(cum_Q[c-1]) S_prev[c-1] + S_c[c-1], written
-//      over S_c in place.  The recurrence already takes an initial state
-//      and gives the final one (`init`, `final`, both (B, H, N, P) float32),
-//      which the hybrid_ssm slice's ssd_chunked needs; the Pallas kernel
-//      has neither, so this entry point passes null;
+//      over S_c in place, from `init` (or zeros), leaving the state after
+//      the last chunk in `final`;
 //   3. outputs, one block per (chunk -- or 128-row panel of a longer
 //      chunk --, group of heads, batch), one 16-row tile per warp: C.B^T
 //      (the panel's rows x the chunk's columns up to its last row) once
@@ -55,11 +62,12 @@
 // ldmatrix); the next head's x (and, in pass 3, its S_prev) is in flight
 // while this head's products run.  A pass-3 block covers the whole chunk,
 // so x and S_prev cross HBM once per head and chunk (with 64-row panels
-// they crossed 1.5 and 2 times).  Each block holds several heads,
-// so the grid has hundreds of blocks at batch 1 where one block per
-// (batch, head) gave 64; the price is the state workspace: 4 B per
-// (chunk, head, N, P) element, written by pass 1, read and rewritten by
-// pass 2, read by pass 3.
+// they crossed 1.5 and 2 times).  Each block holds up to 8 heads, as
+// many as leave a block for every SM (`heads_per_block`), so the grid has
+// hundreds of blocks at batch 1 where one block per (batch, head) gave 64
+// and a short call still spreads its heads over the card; the price is
+// the state workspace: 4 B per (chunk, head, N, P) element, written by
+// pass 1, read and rewritten by pass 2, read by pass 3.
 //
 // `simt` (float32, and shapes the tc body does not take): one thread block
 // per (batch, head) walks the chunks in order with the state in shared
@@ -108,6 +116,8 @@ ssd_scan_kernel(const T* __restrict__ x,       // (B, S, H, P)
                 const T* __restrict__ Bm,      // (B, S, N)
                 const T* __restrict__ Cm,      // (B, S, N)
                 T* __restrict__ y,             // (B, S, H, P)
+                const float* __restrict__ init,  // (B, H, P, N) or null
+                float* __restrict__ final_state,  // (B, H, P, N) or null
                 int S, int H, int P, int N, int Q) {
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
@@ -125,7 +135,12 @@ ssd_scan_kernel(const T* __restrict__ x,       // (B, S, H, P)
   float* sW = scum + Q;               // Q x Q
   float* sS = sW + Q * Q;             // N x P
 
-  for (int i = tid; i < N * P; i += kThreads) sS[i] = 0.f;
+  // The state is N x P here, P x N in `init` and `final`.
+  const size_t ref0 = ((size_t)b * H + h) * P * N;
+  for (int i = tid; i < N * P; i += kThreads) {
+    const int n = i / P;
+    sS[i] = init != nullptr ? init[ref0 + (size_t)(i - n * P) * N + n] : 0.f;
+  }
   const float a = A[h];
 
   for (int c0 = 0; c0 < S; c0 += Q) {
@@ -218,12 +233,18 @@ ssd_scan_kernel(const T* __restrict__ x,       // (B, S, H, P)
     }
     __syncthreads();
   }
+  if (final_state != nullptr)
+    for (int i = tid; i < N * P; i += kThreads) {
+      const int n = i / P;
+      final_state[ref0 + (size_t)(i - n * P) * N + n] = sS[i];
+    }
 }
 
 template <typename T>
 int launch_simt(const void* x, const void* dt, const void* A, const void* Bm,
-           const void* Cm, void* y, int Bsz, int S, int H, int P, int N,
-           int Q, cudaStream_t stream) {
+                const void* Cm, void* y, const float* init, float* final_state,
+                int Bsz, int S, int H, int P, int N, int Q,
+                cudaStream_t stream) {
   const size_t smem = smem_floats(Q, P, N) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -232,7 +253,8 @@ int launch_simt(const void* x, const void* dt, const void* A, const void* Bm,
   ssd_scan_kernel<T><<<Bsz * H, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<T*>(y), S, H, P, N, Q);
+      static_cast<const T*>(Cm), static_cast<T*>(y), init, final_state, S,
+      H, P, N, Q);
   return (int)cudaGetLastError();
 }
 
@@ -251,10 +273,14 @@ constexpr int kPad = 8;              // bf16 elements added to each staged row
 constexpr int kPrefetch = 4;         // pass 3: vectors a thread prefetches
 
 // Heads one block of passes 1 and 3 holds: the largest divisor of H up to
-// kMaxHeadsPerBlock, so C.B^T and B are staged once for that many heads.
-__host__ __device__ inline int heads_per_block(int H) {
+// kMaxHeadsPerBlock that still gives the grid (`chunks` = batch x chunks
+// blocks per head group) a block for each of the card's `sms` SMs, so
+// C.B^T and B are staged once for that many heads; one head a block if
+// none does.  A short call (an 8-token prefill chunk: one chunk) runs one
+// head a block -- at 8 a block its 64 heads were 8 blocks on 132 SMs.
+__host__ __device__ inline int heads_per_block(int H, long chunks, int sms) {
   for (int d = kMaxHeadsPerBlock; d > 1; --d)
-    if (H % d == 0) return d;
+    if (H % d == 0 && chunks * (H / d) >= sms) return d;
   return 1;
 }
 
@@ -487,15 +513,20 @@ ssd_states_kernel(const __nv_bfloat16* __restrict__ x,   // (B, S, H, P)
 __global__ void __launch_bounds__(kPassThreads)
 ssd_pass_kernel(float* __restrict__ states,        // (B, nc, H, N*P)
                 const float* __restrict__ totals,  // (B, nc, H)
-                const float* __restrict__ init,    // (B, H, N*P) or null
-                float* __restrict__ final_state,   // (B, H, N*P) or null
-                int nc, int H, int NPe) {
+                const float* __restrict__ init,    // (B, H, P, N) or null
+                float* __restrict__ final_state,   // (B, H, P, N) or null
+                int nc, int H, int P, int N) {
+  const int NPe = N * P;
   const int e = blockIdx.x * kPassThreads + threadIdx.x;
   if (e >= NPe) return;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  float run = init != nullptr ? init[bh * NPe + e] : 0.f;
+  // Element e = n * P + p of the workspace's N x P state is element
+  // p * N + n of the reference's P x N one.
+  const int n = e / P;
+  const size_t ref = bh * NPe + (size_t)(e - n * P) * N + n;
+  float run = init != nullptr ? init[ref] : 0.f;
   const size_t step = (size_t)H * NPe;
   size_t idx = ((size_t)b * nc * H + h) * NPe + e;
   const float* tot = totals + (size_t)b * nc * H + h;
@@ -518,7 +549,7 @@ ssd_pass_kernel(float* __restrict__ states,        // (B, nc, H, N*P)
     }
     idx += kPassBatch * step;
   }
-  if (final_state != nullptr) final_state[bh * NPe + e] = run;
+  if (final_state != nullptr) final_state[ref] = run;
 }
 
 // ---------------------------------------------------------------------------
@@ -779,8 +810,9 @@ ssd_out_kernel(const __nv_bfloat16* __restrict__ x,   // (B, S, H, P)
 
 template <int P>
 int launch_p(const void* x, const float* dt, const float* A, const void* Bm,
-             const void* Cm, void* y, float* states, float* totals, int Bsz,
-             int S, int H, int N, int Q, int HG, cudaStream_t stream) {
+             const void* Cm, void* y, float* states, float* totals,
+             const float* init, float* final_state, int Bsz, int S, int H,
+             int N, int Q, int HG, cudaStream_t stream) {
   const int nc = (S + Q - 1) / Q;
   const int panels = (Q + kPanel - 1) / kPanel;
   const size_t smem1 = pass1_bytes(Q, P, N);
@@ -801,8 +833,8 @@ int launch_p(const void* x, const float* dt, const float* A, const void* Bm,
   if (err != cudaSuccess) return (int)err;
   const int npe = N * P;
   ssd_pass_kernel<<<dim3((npe + kPassThreads - 1) / kPassThreads, H, Bsz),
-                    kPassThreads, 0, stream>>>(states, totals, nullptr,
-                                               nullptr, nc, H, npe);
+                    kPassThreads, 0, stream>>>(states, totals, init,
+                                               final_state, nc, H, P, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ssd_out_kernel<P><<<dim3(nc * panels, H / HG, Bsz), kThreads, smem3,
@@ -814,26 +846,27 @@ int launch_p(const void* x, const float* dt, const float* A, const void* Bm,
 }
 
 int launch_tc(const void* x, const void* dt, const void* A, const void* Bm,
-              const void* Cm, void* y, void* states, void* totals, int Bsz,
-              int S, int H, int P, int N, int Q, cudaStream_t stream) {
-  const int HG = heads_per_block(H);
+              const void* Cm, void* y, void* states, void* totals,
+              const float* init, float* final_state, int Bsz, int S, int H,
+              int P, int N, int Q, int sms, cudaStream_t stream) {
+  const int HG = heads_per_block(H, (long)Bsz * ((S + Q - 1) / Q), sms);
   const float* d = static_cast<const float*>(dt);
   const float* a = static_cast<const float*>(A);
   float* st = static_cast<float*>(states);
   float* tot = static_cast<float*>(totals);
   switch (P) {
     case 16:
-      return launch_p<16>(x, d, a, Bm, Cm, y, st, tot, Bsz, S, H, N, Q,
-                          HG, stream);
+      return launch_p<16>(x, d, a, Bm, Cm, y, st, tot, init, final_state,
+                          Bsz, S, H, N, Q, HG, stream);
     case 32:
-      return launch_p<32>(x, d, a, Bm, Cm, y, st, tot, Bsz, S, H, N, Q,
-                          HG, stream);
+      return launch_p<32>(x, d, a, Bm, Cm, y, st, tot, init, final_state,
+                          Bsz, S, H, N, Q, HG, stream);
     case 64:
-      return launch_p<64>(x, d, a, Bm, Cm, y, st, tot, Bsz, S, H, N, Q,
-                          HG, stream);
+      return launch_p<64>(x, d, a, Bm, Cm, y, st, tot, init, final_state,
+                          Bsz, S, H, N, Q, HG, stream);
     case 128:
-      return launch_p<128>(x, d, a, Bm, Cm, y, st, tot, Bsz, S, H, N, Q,
-                           HG, stream);
+      return launch_p<128>(x, d, a, Bm, Cm, y, st, tot, init, final_state,
+                           Bsz, S, H, N, Q, HG, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -852,23 +885,33 @@ size_t ssd_scan_smem_bytes(int Q, int P, int N, int path) {
 
 // dtype (of x, B, C and y): 0 = float32, 1 = bfloat16; dt and A are
 // float32.  path: 0 = simt, 1 = tc (bf16 only; states (B, nc, H, N, P)
-// and totals (B, nc, H) are its float32 workspace).  All pointers are
-// device pointers on `device`.
+// and totals (B, nc, H) are its float32 workspace).  init and final are
+// null or (B, H, P, N) float32: the state before the first step, and the
+// state after the last one.  All pointers are device pointers on
+// `device`.
 int ssd_scan_fwd(const void* x, const void* dt, const void* A,
                  const void* Bm, const void* Cm, void* y, void* states,
-                 void* totals, int Bsz, int S, int H, int P, int N, int Q,
-                 int dtype, int path, int device, void* stream) {
+                 void* totals, const void* init, void* final_state, int Bsz,
+                 int S, int H, int P, int N, int Q, int dtype, int path,
+                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (path == 1)
-    return tc::launch_tc(x, dt, A, Bm, Cm, y, states, totals, Bsz, S, H, P,
-                         N, Q, st);
+  const float* in = static_cast<const float*>(init);
+  float* out = static_cast<float*>(final_state);
+  if (path == 1) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return (int)err;
+    return tc::launch_tc(x, dt, A, Bm, Cm, y, states, totals, in, out, Bsz,
+                         S, H, P, N, Q, sms, st);
+  }
   if (dtype == 1)
-    return simt::launch_simt<__nv_bfloat16>(x, dt, A, Bm, Cm, y, Bsz, S, H,
-                                            P, N, Q, st);
-  return simt::launch_simt<float>(x, dt, A, Bm, Cm, y, Bsz, S, H, P, N, Q,
-                                  st);
+    return simt::launch_simt<__nv_bfloat16>(x, dt, A, Bm, Cm, y, in, out, Bsz,
+                                            S, H, P, N, Q, st);
+  return simt::launch_simt<float>(x, dt, A, Bm, Cm, y, in, out, Bsz, S, H, P,
+                                  N, Q, st);
 }
 
 }  // extern "C"

@@ -4,6 +4,7 @@ wrapper, and what the tests and ``chip_smoke.py`` hold each kernel to."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -139,15 +140,20 @@ def ssd_ref(
     A: torch.Tensor,        # (H,) negative
     Bm: torch.Tensor,       # (B, S, N)
     Cm: torch.Tensor,       # (B, S, N)
-) -> torch.Tensor:
+    init_state: Optional[torch.Tensor] = None,   # (B, H, P, N)
+    return_final: bool = False,
+):
     """The sequential SSD recurrence, one step per token
     (``repro.kernels.ref.ssd_ref``, whose ``lax.scan`` becomes a Python
     loop): ``S_t = exp(dt_t A) S_{t-1} + dt_t x_t B_t^T``,
-    ``y_t = S_t C_t``, in float32, rounded to x's dtype at the end."""
+    ``y_t = S_t C_t``, in float32 from ``init_state`` (zeros when None),
+    rounded to x's dtype at the end.  Returns y (B, S, H, P); with
+    ``return_final`` also the final state (B, H, P, N) float32."""
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     a = A.float()
-    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+    state = (torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float().clone())
     ys = []
     for t in range(s):
         dtt = dt[:, t].float()                                  # (B, H)
@@ -155,7 +161,8 @@ def ssd_ref(
                * Bm[:, t].float()[:, None, None, :])            # (B,H,P,N)
         state = state * torch.exp(dtt * a)[..., None, None] + upd
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cm[:, t].float()))
-    return torch.stack(ys, dim=1).to(x.dtype)                   # (B,S,H,P)
+    y = (torch.stack(ys, dim=1) if ys else x.float()).to(x.dtype)
+    return (y, state) if return_final else y
 
 
 def ssd_passes_ref(
@@ -166,6 +173,8 @@ def ssd_passes_ref(
     Cm: torch.Tensor,       # (B, S, N)
     chunk: int = 64,
     return_states: bool = False,
+    init_state: Optional[torch.Tensor] = None,   # (B, H, P, N)
+    return_final: bool = False,
 ):
     """The SSD scan in the tensor-core body's three passes, float32, with
     the sequence padded to whole chunks (dt = 0 and zeros past the end, so
@@ -175,11 +184,14 @@ def ssd_passes_ref(
       1. chunk states ``S_c = (B o exp(cum_Q - cum) o dt)^T x`` (N x P per
          head) and each chunk's total log decay ``cum_Q``;
       2. state passing in chunk order:
-         ``S_prev[c] = exp(cum_Q[c-1]) S_prev[c-1] + S_c[c-1]``, from 0;
+         ``S_prev[c] = exp(cum_Q[c-1]) S_prev[c-1] + S_c[c-1]``, from
+         ``init_state`` (zeros when None; (B, H, P, N), the reference's
+         layout, transposed to the passes' N x P);
       3. outputs ``y = ((C B^T) o L_h) (dt o x) + exp(cum) o (C S_prev)``
          with ``L_h[i, j] = exp(cum_i - cum_j)`` for ``j <= i``, else 0.
 
-    Returns y (B, S, H, P) in x's dtype; with ``return_states`` also the
+    Returns y (B, S, H, P) in x's dtype; with ``return_final`` next the
+    final state (B, H, P, N) float32; with ``return_states`` then the
     chunk states (B, nc, H, N, P), the states entering each chunk (same
     shape) and the totals (B, nc, H)."""
     b, s, h, p = x.shape
@@ -205,7 +217,8 @@ def ssd_passes_ref(
     states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc, w, xc)
     # 2. state passing
     prev = torch.zeros_like(states)
-    run = torch.zeros_like(states[:, 0])
+    run = (torch.zeros_like(states[:, 0]) if init_state is None
+           else init_state.float().transpose(-1, -2))
     for c in range(nc):
         prev[:, c] = run
         run = torch.exp(total[:, c])[..., None, None] * run + states[:, c]
@@ -220,6 +233,9 @@ def ssd_passes_ref(
     y = y + torch.exp(cum)[..., None] * torch.einsum(
         "bcin,bchnp->bcihp", cc, prev)
     y = y.reshape(b, nc * q, h, p)[:, :s].to(x.dtype)
+    out = [y]
+    if return_final:
+        out.append(run.transpose(-1, -2).contiguous())
     if return_states:
-        return y, states, prev, total
-    return y
+        out += [states, prev, total]
+    return tuple(out) if len(out) > 1 else y

@@ -1,11 +1,16 @@
 """Mamba2 / SSD chunked scan: the wrapper of ``csrc/ssd_scan.cu``.
 
 Replaces ``repro.kernels.ssd_scan.ssd_scan`` (the Pallas TPU kernel
-``_ssd_kernel``).  Returns ``y`` only, as the reference does (the state in
-and out belongs to ``ssd_chunked``, ported with the ``hybrid_ssm``
-slice).  The chunk is the planner's partition of the time axis
-(``models.mamba2.choose_chunk``); see the CUDA source's header for the
-design and what bounds it.
+``_ssd_kernel``).  Returns ``y``, as the reference does, and on request
+takes the state before the first step (``init_state``) and returns the
+one after the last (``return_final``), both ``(B, H, P, N)`` float32 as
+the reference's cache holds them: what ``models.mamba2.mamba2_block``
+carries from one prefill chunk to the next.  The chunk is the planner's
+partition of the time axis (``models.mamba2.choose_chunk``); a call that
+fits in one chunk rounds it up to whole 16s where that makes a tc shape
+(``call_chunk``), so the 8-token prefill chunks of zamba2-1.2b run on the
+tensor cores with their tail masked.  See the CUDA source's header for
+the design and what bounds it.
 
 Routing, with no fallback between any two:
   * CPU tensors -> ``kernels.ref.ssd_ref``, the plain version;
@@ -59,7 +64,7 @@ def _kernel():
     if _FN is None:
         lib = _build.load("ssd_scan")
         fn = lib.ssd_scan_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         smem = lib.ssd_scan_smem_bytes
@@ -80,6 +85,25 @@ def ssd_path(dtype: torch.dtype, chunk: int, head_dim: int,
             and chunk % 16 == 0 and 16 <= chunk <= TC_MAX_CHUNK):
         return "tc"
     return "simt"
+
+
+def call_chunk(dtype: torch.dtype, chunk: int, seq_len: int, head_dim: int,
+               state_dim: int) -> int:
+    """The chunk a call of ``seq_len`` steps runs at: ``chunk`` clamped to
+    ``max(8, min(chunk, seq_len))``.  A call that fits in one chunk (a
+    short call, such as an 8-token prefill chunk) rounds it up to whole
+    16s where that makes it a tc shape whose block fits shared memory:
+    the rows past the call are masked, as a ragged final chunk's are."""
+    q = max(8, min(chunk, seq_len))
+    if q >= seq_len and q % 16:
+        from repro_torch.models.mamba2 import ssd_workset_bytes
+
+        r = -(-q // 16) * 16
+        if ssd_path(dtype, r, head_dim, state_dim) == "tc" and \
+                ssd_workset_bytes(r, head_dim, state_dim, "tc") \
+                <= h100_spec().smem_bytes:
+            return r
+    return q
 
 
 def kernel_smem_bytes(chunk: int, head_dim: int, state_dim: int,
@@ -107,9 +131,13 @@ def ssd_scan(
     Cm: torch.Tensor,       # (B, S, N)
     chunk: int = 64,
     path: Optional[str] = None,
-) -> torch.Tensor:
-    """Returns y (B, S, H, P) in x's dtype.  The chunk is clamped to
-    ``max(8, min(chunk, S))``; a ragged final chunk is masked.
+    init_state: Optional[torch.Tensor] = None,   # (B, H, P, N) float32
+    return_final: bool = False,
+):
+    """Returns y (B, S, H, P) in x's dtype, and with ``return_final`` the
+    pair ``(y, final_state)``, the state (B, H, P, N) float32 after the
+    last step.  The scan starts from ``init_state`` (zeros when None).
+    The chunk is ``call_chunk``'s; a ragged final chunk is masked.
     ``path="simt"`` runs the CUDA-core body where ``ssd_path`` would pick
     tc (to compare the two); a body that cannot take the shape raises."""
     if x.dim() != 4:
@@ -122,15 +150,20 @@ def ssd_scan(
             f"bad shapes: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
             f"{tuple(A.shape)}, B {tuple(Bm.shape)}, C {tuple(Cm.shape)}")
     n = Bm.shape[-1]
-    q = max(8, min(chunk, s))
+    if init_state is not None and tuple(init_state.shape) != (b, h, p, n):
+        raise ValueError(f"init_state must be (B, H, P, N) = "
+                         f"{(b, h, p, n)}; got {tuple(init_state.shape)}")
+    q = call_chunk(x.dtype, chunk, s, p, n)
     routed = ssd_path(x.dtype, q, p, n)
     if path not in (None, "simt", routed):
         raise ValueError(f"ssd_scan: the {path} body cannot take {x.dtype} "
                          f"at P={p}, N={n}, chunk {q}")
     path = path or routed
-    tensors = (x, dt, A, Bm, Cm)
+    tensors = (x, dt, A, Bm, Cm) + (() if init_state is None
+                                    else (init_state,))
     if all(t.device.type == "cpu" for t in tensors):
-        return ssd_ref(x, dt, A, Bm, Cm)
+        return ssd_ref(x, dt, A, Bm, Cm, init_state=init_state,
+                       return_final=return_final)
     if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
         raise ValueError("ssd_scan: all tensors must be on one CUDA device "
                          "(or all on the CPU); got "
@@ -138,14 +171,23 @@ def ssd_scan(
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan takes float32 or bfloat16 x, B and C of "
                         f"one dtype; got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if init_state is not None and init_state.dtype != torch.float32:
+        raise TypeError(f"init_state must be float32; got "
+                        f"{init_state.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_scan needs contiguous tensors")
     # The kernel reads dt and A in float32 (the Pallas kernel casts both).
     dt32 = dt.to(torch.float32).contiguous()
     a32 = A.to(torch.float32).contiguous()
     y = torch.empty_like(x)
+    final = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+             if return_final else None)
     if y.numel() == 0:
-        return y
+        if final is not None and init_state is not None:
+            final.copy_(init_state)
+        elif final is not None:
+            final.zero_()
+        return (y, final) if return_final else y
     if path == "tc" and any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
         raise ValueError("the tc body copies x, B and C 16 bytes at a time: "
                          "they must be 16-byte aligned")
@@ -167,10 +209,12 @@ def ssd_scan(
             Cm.data_ptr(), y.data_ptr(),
             0 if states is None else states.data_ptr(),
             0 if totals is None else totals.data_ptr(),
+            0 if init_state is None else init_state.data_ptr(),
+            0 if final is None else final.data_ptr(),
             b, s, h, p, n, q, _DTYPES[x.dtype], _PATHS[path],
             x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed ({path} body): "
                            f"CUDA error {rc}")
     _count(path)
-    return y
+    return (y, final) if return_final else y

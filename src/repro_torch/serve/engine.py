@@ -276,7 +276,9 @@ class ServeEngine:
         rid = self._next_rid
         self._next_rid += 1
         return Request(rid=rid, prompt_len=int(toks.shape[0]),
-                       max_new=max_new, features={"tokens": toks})
+                       max_new=max_new, features={"tokens": toks},
+                       state_bytes=request_state_bytes(
+                           self.cfg, 0, self._dtype_bytes))
 
     # --------------------------------------------------------------- generate
     def generate(
@@ -558,10 +560,26 @@ class ServeEngine:
                     push_table(i)
                 cache["table"] = torch.from_numpy(table_np).to(dev)
                 cache["pos"] = torch.from_numpy(pos_np).to(dev)
+                # Stalled AND prefilling slots ride through the decode
+                # batch: their KV writes land on the null page or at the
+                # chunk front (overwritten by the next chunk), but their
+                # recurrent state would advance on the discarded tick, so
+                # their state rows are saved before the step and put back
+                # after it.
+                frozen = sorted(i for i in stalled | set(prefills)
+                                if sched.slots[i] is not None)
+                saved = None
+                if frozen and cache["state"]:
+                    rows = torch.tensor(frozen, device=dev)
+                    saved = [(buf, buf[:, rows])
+                             for group in cache["state"].values()
+                             for buf in group.values()]
                 td0 = time.monotonic()
                 logits, cache = steps.decode(
                     self.params, cache,
                     {"tokens": torch.from_numpy(next_np).to(dev)})
+                for buf, rows_before in saved or ():
+                    buf[:, rows] = rows_before
                 toks = sample(logits, scfg, gen).cpu().numpy()
                 self.tracer.complete("decode_tick", td0, time.monotonic(),
                                      tid=0, args={"active": len(active)})

@@ -2,7 +2,8 @@
 the paged engine reads).
 
   * ``kv_token_bytes`` / ``request_state_bytes`` -- the per-family memory
-    model: the token-proportional KV term and the token-free state term.
+    model: the token-proportional KV term and the token-free state term
+    (``attn_apps``: the hybrid's pool layers).
   * ``PageSpec`` -- page math: tokens -> pages -> capacity -> global bytes,
     the units the engine budgets in, read off the plan's page level.
 """
@@ -25,6 +26,14 @@ DEFAULT_PAGE_TOKENS = 64
 # ---------------------------------------------------------------------------
 
 
+def attn_apps(cfg: ModelConfig) -> int:
+    """Applications of the hybrid's weight-shared attention block: one
+    before each group of ``ssm.attn_every`` mixers (0 without the block).
+    Each owns one layer of the page pool."""
+    s = cfg.ssm
+    return -(-cfg.n_layers // s.attn_every) if s.attn_every else 0
+
+
 def kv_token_bytes(cfg: ModelConfig, dtype_bytes: int = 2
                    ) -> Tuple[int, int, int]:
     """``(bytes_per_token, kv_layers, kv_heads)`` of the growing KV state.
@@ -43,8 +52,7 @@ def kv_token_bytes(cfg: ModelConfig, dtype_bytes: int = 2
         per_layer = cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim
         return per_layer * dtype_bytes * cfg.n_layers, cfg.n_layers, 0
     if cfg.family == "hybrid_ssm":
-        s = cfg.ssm
-        n_apps = -(-cfg.n_layers // s.attn_every) if s.attn_every else 0
+        n_apps = attn_apps(cfg)
         if not n_apps:
             return 0, 0, 0
         return 2 * kv * hd * dtype_bytes * n_apps, n_apps, kv

@@ -1,5 +1,6 @@
 """The global KV page pool: plan-sized pages, per-slot tables, slot-level
-admission (the port of ``repro.serve.pages`` for the dense family).
+admission (the port of ``repro.serve.pages`` for the dense and hybrid_ssm
+families).
 
   * ``PagePool`` -- the physical pool: ``pages_total`` pages of
     ``page_plan()["page_tokens"]`` tokens each, a refcounted free list and
@@ -14,7 +15,8 @@ admission (the port of ``repro.serve.pages`` for the dense family).
   * ``init_paged_cache`` / ``reset_slot`` -- the pooled cache dict the
     paged steps (``Model.decode_step_paged`` / ``prefill_chunk``) consume:
     ``pool`` (``k``/``v``, each ``(L, P, T, KV, D)``), ``table`` (the
-    per-slot page table) and ``pos`` (the per-slot position vector).
+    per-slot page table), ``pos`` (the per-slot position vector) and
+    ``state`` (per-slot recurrent buffers, the slot on axis 1).
 
 Page export/install and the prefix cache's hooks wait for the prefix
 slice.
@@ -29,13 +31,13 @@ from typing import Any, Deque, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.serve.kvcache import PageSpec
+from repro_torch.serve.kvcache import PageSpec, attn_apps
 from repro_torch.serve.scheduler import Request
 
 PyTree = Any
 
 #: Families with a per-slot paged decode path in the port.
-PAGED_FAMILIES = ("dense",)
+PAGED_FAMILIES = ("dense", "hybrid_ssm")
 
 
 # ---------------------------------------------------------------------------
@@ -327,31 +329,59 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     ``device``: ``pool`` holds one ``(L, n_pages, page_tokens, KV, D)``
     buffer each for K and V, ``table`` the ``(n_slots, n_logical_pages)``
     int32 page table (0 = null page) and ``pos`` the per-slot positions.
+
+    hybrid_ssm: the pool has one layer per application of the shared
+    attention block, and ``state["mamba"]`` holds each mixer's per-slot
+    ``conv`` ``(L, S, W-1, C)`` in ``dtype`` and ``ssm`` ``(L, S, H, P,
+    N)`` in float32, as the reference's ``init_cache`` lays them out.
     """
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
             f"paged serving is not implemented for family {cfg.family!r}")
-    shape = (cfg.n_layers, n_pages, page_tokens, cfg.n_kv_heads,
-             cfg.head_dim)
-    return {
+
+    def pool_kv(n_layers: int) -> dict:
+        shape = (n_layers, n_pages, page_tokens, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    cache = {
         "table": torch.zeros((n_slots, n_logical_pages), dtype=torch.int32,
                              device=device),
         "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
-        "pool": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                 "v": torch.zeros(shape, dtype=dtype, device=device)},
+        "pool": {},
         "state": {},
     }
+    if cfg.family == "dense":
+        cache["pool"] = pool_kv(cfg.n_layers)
+    else:
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        conv_ch = d_inner + 2 * s.state_dim
+        n_apps = attn_apps(cfg)
+        if n_apps:
+            cache["pool"] = pool_kv(n_apps)
+        cache["state"] = {"mamba": {
+            "conv": torch.zeros((cfg.n_layers, n_slots, s.conv_width - 1,
+                                 conv_ch), dtype=dtype, device=device),
+            "ssm": torch.zeros((cfg.n_layers, n_slots,
+                                d_inner // s.head_dim, s.head_dim,
+                                s.state_dim), dtype=torch.float32,
+                               device=device),
+        }}
+    return cache
 
 
 def reset_slot(cfg: ModelConfig, cache: PyTree, slot: int) -> PyTree:
-    """Reset one slot's per-slot state rows for a fresh (chunked) prefill.
-
-    The dense family has no per-slot state besides its pages, and chunk
-    writes land exactly on the slot's allocated pages, so there is nothing
-    to reset; recurrent families will reset their state rows here.
+    """Reset one slot's per-slot state rows for a fresh (chunked) prefill:
+    the hybrid's conv and SSM state rows go back to zeros, its
+    ``init_cache`` values.  The pool needs no reset: chunk writes land
+    exactly on the slot's allocated pages.  In place; returns the cache.
     """
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
             f"paged serving is not implemented for family {cfg.family!r}")
-    del slot
+    for group in cache["state"].values():
+        for buf in group.values():
+            buf[:, slot].zero_()
     return cache

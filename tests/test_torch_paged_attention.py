@@ -388,3 +388,54 @@ def test_cuda_split_body(d, t, group, window):
         assert bool((err <= 2e-2 * (1 + ref.abs())).all()), \
             (split_pages, float(err.max()))
         assert not out[0].float().abs().any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ["decode", "prefill"])
+def test_cuda_zamba2_shared_attention_shapes(dtype, shape):
+    """zamba2-1.2b's shared attention block: 32 query heads over 32 KV
+    heads (group 1, the m16 tile 15/16 padding), D 64, the planned 8-token
+    page, over the engine's 512-page table; decode rows of ragged lengths
+    and one 8-row prefill chunk over one table row.  bf16 takes the split
+    body, float32 simt; both agree with the plain version and two bf16
+    runs are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    t, h, kv, d, n_logical = 8, 32, 32, 64, 512
+    gen = torch.Generator().manual_seed(8)
+    if shape == "decode":
+        lengths = [0, 1, 8, 57, 300, 1000, 1056, 64]
+        need = [-(-n // t) for n in lengths]
+        p_total = 1 + sum(need)
+        perm = (1 + torch.randperm(p_total - 1, generator=gen)).int()
+        table = torch.zeros(len(lengths), n_logical, dtype=torch.int32)
+        at = 0
+        for i, n in enumerate(need):
+            table[i, :n] = perm[at:at + n]
+            at += n
+    else:
+        lengths = list(range(8 * t + 1, 9 * t + 1))
+        p_total = 1 + 9
+        row = torch.zeros(n_logical, dtype=torch.int32)
+        row[:9] = (1 + torch.randperm(9, generator=gen)).int()
+        table = row[None].expand(len(lengths), n_logical).contiguous()
+    s = len(lengths)
+    q = torch.randn(s, h, d, generator=gen).to("cuda", dtype)
+    k = torch.randn(p_total, t, kv, d, generator=gen).to("cuda", dtype)
+    v = torch.randn(p_total, t, kv, d, generator=gen).to("cuda", dtype)
+    table = table.to("cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    body = pa_mod.paged_path(dtype, d, t, h // kv)
+    assert body == ("split" if dtype == torch.bfloat16 else "simt")
+    counter = "LAUNCHES_" + body.upper()
+    before = getattr(pa_mod, counter)
+    out = paged_attention(q, k, v, table, lens, page_tokens=t)
+    again = paged_attention(q, k, v, table, lens, page_tokens=t)
+    torch.cuda.synchronize()
+    assert getattr(pa_mod, counter) == before + 2
+    assert torch.equal(out, again)
+    ref = paged_attention_ref(q, k, v, table, lens).float()
+    live = lens > 0
+    torch.testing.assert_close(out.float()[live], ref[live], **TOL[dtype])
+    assert not out[~live].float().abs().any()

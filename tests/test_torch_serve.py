@@ -129,8 +129,8 @@ def test_unported_paths_raise():
         ServeEngine(cfg, ServePolicy(batching="cohort"), device="cpu")
     with pytest.raises(NotImplementedError, match="prefix"):
         ServeEngine(cfg, ServePolicy(prefix_cache="radix"), device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid_ssm"):
-        ServeEngine(get_model_config("zamba2-1.2b").reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="xlstm"):
+        ServeEngine(get_model_config("xlstm-1.3b").reduced(), device="cpu")
 
 
 def test_seeded_top_k_sampling_replays_and_stays_in_the_top_k():

@@ -113,13 +113,13 @@ def main() -> int:
     us = {}
     for name, path in libs.items():
         fn = ctypes.CDLL(path).ssd_scan_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
 
         def call():
             rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                     Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
-                    totals.data_ptr(), b, s, h, p, n, CHUNK, 1, 1,
+                    totals.data_ptr(), 0, 0, b, s, h, p, n, CHUNK, 1, 1,
                     x.device.index,
                     torch.cuda.current_stream().cuda_stream)
             assert rc == 0, rc
