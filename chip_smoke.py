@@ -73,12 +73,41 @@ Phases (each prints its results; the script exits non-zero if any fails):
   9. serving: ``ServeEngine`` on full-width zamba2-1.2b (38 layers, seeded
      random bf16 weights) serving phase 4's trace; every paged launch must
      be ``split`` and every SSD launch ``tc``.
+ 10. mixtral-8x7b's kernel shape (the moe family): ``paged_attention`` at
+     32 query heads over 8 KV heads (group 4), D 128, the planned 24-token
+     page and the 4096-token sliding window, over the engine's table for
+     8192 tokens whose pages below the window are null entries (as window
+     reclaim leaves them): 8 decode rows, some past the window, and one
+     page of prefill rows over one table; bf16 (split) and float32 (simt)
+     against the plain version, two bf16 runs bit-identical; then the
+     times of split, simt, plain and gather + SDPA beside the bound, and
+     the device time of each CUDA kernel;
+ 11. mixtral-8x7b at full width (8 experts of 14,336, top 2) cut to 2
+     layers, float32: one prefill chunk for each of 2 slots and one paged
+     decode step on the card and on the CPU with the same weights; logits
+     and pool agree;
+ 12. serving: full-width mixtral-8x7b cut in depth to the deepest stack
+     whose bf16 weights fit beside the pool (printed; ~70 GB at 24
+     layers), seeded random weights, serving phase 4's trace with every
+     paged launch ``split``; then, on the same weights, one request of
+     4,400 prompt tokens and 32 new ones at ``max_len`` 8192, whose pages
+     below the window are reclaimed while it runs (at least 12); then the
+     card's busy share over a 2-prompt sub-trace (``torch.profiler``);
+ 13. xlstm-1.3b at full width cut to one period (7 mLSTM and 1 sLSTM
+     block), float32: prefill in the engine's 64-token chunks and one
+     decode step on the card and on the CPU; logits and every state leaf
+     agree;
+ 14. serving: full-width, full-depth xlstm-1.3b (48 blocks, seeded random
+     bf16 weights) serving phase 4's trace; token-free, so no page is
+     allocated and no paged-attention kernel runs.
 
-Phases 0-4 and 7-9 plan and serve without a tuning artifact (the port's
+Phases 0-4 and 7-14 plan and serve without a tuning artifact (the port's
 tuning path points at a file that does not exist until phase 6 writes
-one), so their numbers compare with earlier runs'.
+one), so their numbers compare with earlier runs'.  Each phase prints its
+seconds.
 
-Output, at the end: one JSON line describing the kernels, the card's
+Output, at the end: one JSON line describing the kernels (the zamba2 and
+mixtral shapes nested under the paged and SSD entries), the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script fails before printing results.
@@ -113,6 +142,8 @@ SLICE_TOL = dict(rtol=1e-3, atol=1e-3)
 
 ARCH = "llama3.2-1b"
 ZAMBA = "zamba2-1.2b"
+MIXTRAL = "mixtral-8x7b"
+XLSTM = "xlstm-1.3b"
 DEVICE = "cuda"
 MAX_SLOTS = 8
 MAX_LEN = 4096
@@ -122,6 +153,15 @@ PROMPT_LENS = (64, 1024, 200, 512, 96, 768, 333, 900)
 DECODE_LENS = (0, 1, 57, 300, 700, 1056, 1000, 64)
 LAYER_COPIES = 16       # one pool per layer, as the main path reads them
 REPS = 50
+#: Phases 10 and 12: mixtral-8x7b's decode rows (some past its 4096-token
+#: window) and the long windowed request, served at ``LONG_MAX_LEN``.
+MIXTRAL_DECODE_LENS = (0, 1, 700, 2048, 4096, 4097, 4400, 8000)
+LONG_PROMPT = 4400
+LONG_MAX_LEN = 8192
+#: Card memory phase 12's depth cut leaves beside the weights and the
+#: pool: one layer's float32 draw (1.9 GB for the experts' ``wi``),
+#: activations, workspaces and the allocator's slack.
+MIXTRAL_HEADROOM = 6e9
 PROFILE = "--profile" in sys.argv[1:]
 #: Phase 5/6 shapes: llama3.2-1b's MLP up-projection and attention over a
 #: 4096-token prefill, zamba2-1.2b's SSD mixer (d_inner 2 x 2048 = 64 heads
@@ -200,34 +240,41 @@ def kernel_us(fn, reps: int = 10) -> dict:
 
 
 def make_case(dtype, lens, t, rows_share_table: bool, copies: int, seed=0,
-              cfg=None):
+              cfg=None, max_len=MAX_LEN, window=0):
     """Inputs at the attention width of ``cfg`` (default llama3.2-1b) on
-    the card.
+    the card, over the engine's table for ``max_len`` tokens.
 
     Decode: one row per slot, each slot with its own pages.  Prefill: the
     rows are one chunk's tokens over ONE table row (``lens`` = positions
-    + 1).  ``copies`` pools stand for the model's layers.
+    + 1).  ``copies`` pools stand for the model's layers.  With a
+    ``window``, the pages the engine's window reclaim has freed (wholly
+    below ``len - 1 - window``; for a chunk, below its first row's) are
+    null entries (page 0) and hold no pool page, as in serving.
     """
     cfg = cfg or get_cfg()
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    np_ = -(-MAX_LEN // t)                       # the engine's table width
+    np_ = -(-max_len // t)                       # the engine's table width
     need = [-(-n // t) for n in lens]
+
+    def dead(n):
+        return max(0, n - 1 - window) // t if window else 0
+
     gen = torch.Generator().manual_seed(seed)
     if rows_share_table:
-        n_live = max(need)
-        p_total = 1 + n_live
+        lo, n_live = dead(min(lens)), max(need)
+        p_total = 1 + n_live - lo
         perm = torch.randperm(p_total - 1, generator=gen) + 1
         row = torch.zeros(np_, dtype=torch.int32)
-        row[:n_live] = perm[:n_live].int()
+        row[lo:n_live] = perm.int()
         table = row[None].expand(len(lens), np_).contiguous()
     else:
-        p_total = 1 + sum(need)
+        p_total = 1 + sum(n - dead(ln) for n, ln in zip(need, lens))
         perm = (torch.randperm(p_total - 1, generator=gen) + 1).int()
         table = torch.zeros(len(lens), np_, dtype=torch.int32)
         at = 0
-        for i, n in enumerate(need):
-            table[i, :n] = perm[at:at + n]
-            at += n
+        for i, (n, ln) in enumerate(zip(need, lens)):
+            table[i, dead(ln):n] = perm[at:at + n - dead(ln)]
+            at += n - dead(ln)
     q = torch.randn(len(lens), h, d, generator=gen)
     k = torch.randn(copies, p_total, t, kv, d, generator=gen)
     v = torch.randn(copies, p_total, t, kv, d, generator=gen)
@@ -312,17 +359,19 @@ def body(mod, before, what) -> str:
     return ran[0]
 
 
-def paged_timing(pa_mod, name, lens, shared, t, cfg,
-                 split_sizes=()) -> dict:
+def paged_timing(pa_mod, name, lens, shared, t, cfg, split_sizes=(),
+                 max_len=MAX_LEN, window=0) -> dict:
     """Times of ``paged_attention`` at one shape of ``cfg``, bf16: the
     routed body, the simt body (``ms_simt``), the plain version, gather +
     SDPA, the bound, the device time of each CUDA kernel and, for
-    ``split_sizes``, the time at other pages per split."""
+    ``split_sizes``, the time at other pages per split.  ``max_len`` and
+    ``window`` as in ``make_case``."""
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      split_plan)
     from repro_torch.kernels.ref import paged_attention_ref
 
-    case = make_case(torch.bfloat16, lens, t, shared, LAYER_COPIES, cfg=cfg)
+    case = make_case(torch.bfloat16, lens, t, shared, LAYER_COPIES, cfg=cfg,
+                     max_len=max_len, window=window)
     q, kp, vp = case["q"], case["k"], case["v"]
     table, lengths = case["table"], case["lengths"]
 
@@ -331,18 +380,18 @@ def paged_timing(pa_mod, name, lens, shared, t, cfg,
 
     def run_kernel(i, path=None, split_pages=None):
         kl, vl = layer(i)
-        paged_attention(q, kl, vl, table, lengths, page_tokens=t,
-                        path=path, split_pages=split_pages)
+        paged_attention(q, kl, vl, table, lengths, window=window,
+                        page_tokens=t, path=path, split_pages=split_pages)
 
     def run_ref(i):
         kl, vl = layer(i)
-        paged_attention_ref(q, kl, vl, table, lengths)
+        paged_attention_ref(q, kl, vl, table, lengths, window=window)
 
     def run_lib(i):
         kl, vl = layer(i)
-        library_attention(q, kl, vl, table, lengths, 0)
+        library_attention(q, kl, vl, table, lengths, window)
 
-    nbytes, ops = live_work(case, 0)
+    nbytes, ops = live_work(case, window)
     bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
     splits, pages = split_plan(len(lens), kp.shape[3], table.shape[1], t)
     before = counters(pa_mod, ("split", "simt"))
@@ -376,19 +425,22 @@ def paged_timing(pa_mod, name, lens, shared, t, cfg,
     return row
 
 
-def paged_checks(pa_mod, shapes, t, cfg, windows) -> tuple:
+def paged_checks(pa_mod, shapes, t, cfg, windows, max_len=MAX_LEN,
+                 null_window=0) -> tuple:
     """``paged_attention`` against its plain version at each of ``shapes``
     (name -> (lens, rows share one table)) of ``cfg``, bf16 and float32,
     at each window: within ``TOL``, two runs bit-identical, empty rows
-    zero, bf16 on the split body and float32 on simt.  Returns the worst
-    error by (dtype, shape) and the body by shape."""
+    zero, bf16 on the split body and float32 on simt.  ``max_len`` and
+    ``null_window`` (``make_case``'s ``window``) shape the tables.
+    Returns the worst error by (dtype, shape) and the body by shape."""
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
 
     worst, bodies = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, (lens, shared) in shapes.items():
-            case = make_case(dtype, lens, t, shared, copies=1, cfg=cfg)
+            case = make_case(dtype, lens, t, shared, copies=1, cfg=cfg,
+                             max_len=max_len, window=null_window)
             live = case["lengths"] > 0
             for window in windows:
                 args = (case["q"], case["k"][0], case["v"][0],
@@ -600,12 +652,12 @@ def phase_serve(pa_mod) -> dict:
 
 
 def profile_serve(engine, prompts, unprofiled_wall_s: float,
-                  max_new=None) -> None:
-    """``--profile``: device time by kernel over one more generate call of
-    the same prompts under ``torch.profiler``.  The card's busy share is
-    printed twice: over this call's wall time (the profiler's own host
-    cost included), and over the wall time of the unprofiled call before
-    it (same prompts, same tokens; two calls, so an estimate)."""
+                  max_new=None) -> tuple:
+    """Device time by kernel over one more generate call of the same
+    prompts under ``torch.profiler``.  The card's busy share is printed
+    and returned twice: over this call's wall time (the profiler's own
+    host cost included), and over the wall time of the unprofiled call
+    before it (same prompts, same tokens; two calls, so an estimate)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -625,6 +677,7 @@ def profile_serve(engine, prompts, unprofiled_wall_s: float,
         f"{busy_us / 1e3:.1f} ms, busy share {busy_us / wall_us:.3f}; "
         f"over the unprofiled call's wall {unprofiled_wall_s * 1e3:.1f} ms: "
         f"{busy_us / (unprofiled_wall_s * 1e6):.3f}")
+    return busy_us / wall_us, busy_us / (unprofiled_wall_s * 1e6)
 
 
 # ---------------------------------------------------------------------------
@@ -1221,10 +1274,413 @@ def phase_zamba_serve(pa_mod, ssd_mod) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: mixtral-8x7b, the moe family (sliding window 4096)
+# ---------------------------------------------------------------------------
+
+
+def phase_mixtral_kernels(t: int) -> dict:
+    """``paged_attention`` at the shapes mixtral-8x7b's serving path gives
+    it -- 32 query heads over 8 KV heads (group 4), D 128, the planned
+    page, window 4096, over the engine's table for ``LONG_MAX_LEN`` tokens
+    whose pages below the window are null entries, as reclaim leaves them
+    -- against its plain version, then its times."""
+    from repro_torch.kernels import paged_attention as pa_mod
+
+    cfg = mixtral_cfg()
+    w = cfg.sliding_window
+    log(f"  {cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads (group "
+        f"{cfg.n_heads // cfg.n_kv_heads}), D {cfg.head_dim}, page {t}, "
+        f"window {w}, table for {LONG_MAX_LEN} tokens")
+    pos0 = (LONG_PROMPT // t) * t            # a chunk past the window
+    shapes = {"decode": (MIXTRAL_DECODE_LENS, False),
+              "prefill": (tuple(range(pos0 + 1, pos0 + t + 1)), True)}
+    worst, bodies = paged_checks(pa_mod, shapes, t, cfg, (w,),
+                                 max_len=LONG_MAX_LEN, null_window=w)
+    paged = {name: paged_timing(pa_mod, name, lens, shared, t, cfg,
+                                max_len=LONG_MAX_LEN, window=w)
+             for name, (lens, shared) in shapes.items()}
+    log("  phase 10 bodies: " + json.dumps(bodies))
+    log("  phase 10 max_abs_err: " + json.dumps(
+        {f"{a}/{b}": e for (a, b), e in worst.items()}))
+    return {"paged": paged, "paged_err": worst[("bfloat16", "decode")],
+            "errors": {f"{a}/{b}": e for (a, b), e in worst.items()}}
+
+
+def free_card() -> int:
+    """Release what earlier phases left in the allocator's cache; the
+    card's free bytes."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0]
+
+
+def run_slice(model, params, t, prompts, dev, decode_tokens=None) -> dict:
+    """Each of ``prompts`` prefilled into its own slot in chunks of ``t``
+    tokens, then one paged decode step over all slots fed
+    ``decode_tokens`` (default: each slot's greedy token), float32 on
+    ``dev``: the logits, the decode step's tokens, the K/V pool (where the
+    family has one) and every state leaf, on the CPU."""
+    from repro_torch.serve.pages import init_paged_cache
+
+    cfg = model.cfg
+    n_pages = [-(-len(p) // t) + 1 for p in prompts]
+    width = max(n_pages)
+    table = torch.zeros((len(prompts), width), dtype=torch.int32)
+    at = 1
+    for i, n in enumerate(n_pages):
+        table[i, :n] = torch.arange(at, at + n, dtype=torch.int32)
+        at += n
+    cache = init_paged_cache(cfg, len(prompts), at, t, width, torch.float32,
+                             dev)
+    cache["table"] = table.to(dev)
+    firsts = []
+    with torch.no_grad():
+        for slot, prompt in enumerate(prompts):
+            for lo in range(0, len(prompt), t):
+                logits, cache = model.prefill_chunk(
+                    params, cache,
+                    {"tokens": torch.from_numpy(prompt[lo:lo + t])[None].to(
+                        dev), "pos0": lo, "slot": slot}, dtype=torch.float32)
+            firsts.append(logits)
+        toks = torch.stack([lg.argmax(-1) for lg in firsts]) \
+            if decode_tokens is None else decode_tokens.to(dev)
+        cache["pos"] = torch.tensor([len(p) for p in prompts],
+                                    dtype=torch.int32, device=dev)
+        dec, cache = model.decode_step_paged(params, cache, {"tokens": toks},
+                                             dtype=torch.float32)
+    out = {"prefill logits": torch.cat(firsts), "decode logits": dec,
+           "decode tokens": toks}
+    for part in ("pool", "state"):
+        for name, leaf in flat_leaves(cache[part]).items():
+            out[f"{part}.{name}"] = leaf
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def slice_against_cpu(cfg, t, prompts, what, params=None,
+                      chaotic=()) -> dict:
+    """``cfg`` in float32 on the card and on the CPU with the same seeded
+    weights (drawn on the card unless ``params`` holds both copies): each
+    of ``prompts`` prefilled into its own slot in chunks of ``t`` tokens,
+    then one paged decode step over both slots, fed the CPU's greedy
+    tokens on both.  Logits, the K/V pool (where the family has one) and
+    every state leaf agree within ``SLICE_TOL``, and so do the greedy
+    tokens -- except the results named by a prefix in ``chaotic``: those
+    are printed beside the CPU's own float32 sensitivity (the same run on
+    weights moved by one float32 rounding unit, a relative 2**-24
+    N(0, 1)), and held to being finite.  Returns each compared tensor's
+    max abs error."""
+    from repro_torch.models.model import Model
+
+    model = Model(cfg)
+    if params is None:
+        params = {DEVICE: model.init(seed=0, device=DEVICE)}
+        params["cpu"] = tree_to(params[DEVICE], "cpu")
+    res, toks = {}, None
+    for dev in ("cpu", DEVICE):
+        t0 = time.perf_counter()
+        res[dev] = run_slice(model, params[dev], t, prompts, dev, toks)
+        toks = res[dev].pop("decode tokens")
+        log(f"  {what} on {dev}: {time.perf_counter() - t0:.1f} s")
+    floor = {}
+    if chaotic:
+        gen = torch.Generator().manual_seed(1)
+
+        def nudge(tree):
+            if isinstance(tree, dict):
+                return {k: nudge(v) for k, v in tree.items()}
+            return tree * (1 + 2.0 ** -24 * torch.randn(
+                tree.shape, generator=gen))
+
+        nudged = run_slice(model, nudge(params["cpu"]), t, prompts, "cpu",
+                           toks)
+        nudged.pop("decode tokens")
+        floor = {k: float((v - res["cpu"][k]).abs().max())
+                 for k, v in nudged.items()}
+    errs = {}
+    for name, b in res["cpu"].items():
+        a = res[DEVICE][name]
+        errs[name] = float((a.float() - b.float()).abs().max())
+        assert torch.isfinite(a).all(), name
+        if name.startswith(chaotic) and chaotic:
+            log(f"  {name}: max_abs_err={errs[name]:.3e} (shape "
+                f"{tuple(a.shape)}; the CPU against itself on weights one "
+                f"rounding unit apart: {floor[name]:.3e})")
+            continue
+        log(f"  {name}: max_abs_err={errs[name]:.3e} (shape "
+            f"{tuple(a.shape)})")
+        torch.testing.assert_close(a, b, **SLICE_TOL)
+    tok = {d: (res[d]["prefill logits"].argmax(-1).tolist(),
+               res[d]["decode logits"].argmax(-1).tolist())
+           for d in ("cpu", DEVICE)}
+    log(f"  greedy tokens cuda={tok[DEVICE]} cpu={tok['cpu']}")
+    assert chaotic or tok[DEVICE] == tok["cpu"], \
+        "greedy tokens differ between cuda and cpu"
+    return errs
+
+
+def flat_leaves(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_leaves(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def phase_mixtral_slice(t: int) -> dict:
+    """mixtral-8x7b at full width (8 experts of 14,336, top 2, window
+    4096) cut to 2 layers, float32: one prefill chunk for each of 2 slots
+    and one paged decode step, card against CPU."""
+    free_card()
+    cfg = dataclasses.replace(mixtral_cfg(), n_layers=2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (t, 13)]
+    return slice_against_cpu(cfg, t, prompts, "mixtral 2-layer slice")
+
+
+def mixtral_depth(free_bytes: int):
+    """The deepest cut of full-width mixtral-8x7b whose bf16 weights and
+    phase 4's page pool (8 slots of 4096 tokens at the planned page) leave
+    ``MIXTRAL_HEADROOM`` of ``free_bytes``: ``(cfg, weight bytes, pool
+    bytes)``."""
+    from repro_torch.serve.engine import plan_decode
+    from repro_torch.serve.kvcache import kv_token_bytes
+
+    full = mixtral_cfg()
+    for n in range(full.n_layers, 0, -1):
+        cfg = dataclasses.replace(full, n_layers=n)
+        plan = plan_decode(cfg, max_len=MAX_LEN, batch=MAX_SLOTS,
+                           dtype_bytes=2)
+        pages = 1 + MAX_SLOTS * plan.page_table()["pages_per_slot"]
+        pool = kv_token_bytes(cfg, 2)[0] * plan.page_plan()["page_tokens"] \
+            * pages
+        weights = cfg.param_count() * 2
+        if weights + pool + MIXTRAL_HEADROOM <= free_bytes:
+            return cfg, weights, pool
+    raise RuntimeError(f"no depth of {full.arch} fits {free_bytes} B")
+
+
+def reclaimed_pages(engine) -> int:
+    """Pages freed while their request still ran (one request: only the
+    window reclaim does that), from the engine's trace."""
+    events = engine.tracer.export_events()
+    end = max(e["ts"] + e["dur"] for e in events if e["name"] == "request")
+    return sum(e["args"]["n"] for e in events
+               if e["name"] == "page_free" and e["ts"] < end)
+
+
+def phase_mixtral_serve(pa_mod) -> dict:
+    """Full-width mixtral-8x7b, cut in depth to fit the card (bf16 seeded
+    weights), serving phase 4's trace with every paged launch on the split
+    body; then, on the same weights, one request of ``LONG_PROMPT``
+    tokens and ``MAX_NEW`` new ones at ``max_len`` ``LONG_MAX_LEN``, whose
+    pages below the window are reclaimed as it runs; then the card's busy
+    share over a short sub-trace."""
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    free = free_card()
+    cfg, weights, pool = mixtral_depth(free)
+    log(f"  depth cut: {cfg.n_layers} of {mixtral_cfg().n_layers} layers "
+        f"(widths, experts, top-k, vocab and window as published): "
+        f"{weights / 1e9:.2f} GB of bf16 weights + {pool / 1e9:.2f} GB of "
+        f"page pool + {MIXTRAL_HEADROOM / 1e9:.0f} GB headroom <= "
+        f"{free / 1e9:.2f} GB free")
+    row, _, engine, prompts = serve_trace(cfg, {"paged": pa_mod}, (0,))
+    pa = row["launches"]["paged"]
+    steps, chunks = row["decode_steps"], row["prefill_chunks"]
+    log(f"  launches: {json.dumps(pa)} (want {cfg.n_layers} layers x "
+        f"({steps} ticks + {chunks} chunks))")
+    assert pa["LAUNCHES"] > 0, "the main path never launched the kernel"
+    assert pa["LAUNCHES"] == pa["LAUNCHES_SPLIT"] == \
+        cfg.n_layers * (steps + chunks)
+    row.update(depth=cfg.n_layers, weight_gb=weights / 1e9,
+               free_gb=free / 1e9)
+
+    # One long windowed request on the same weights.
+    long_eng = ServeEngine(cfg, ServePolicy(max_slots=1,
+                                            max_len=LONG_MAX_LEN,
+                                            max_new_tokens=MAX_NEW),
+                           dtype=torch.bfloat16, params=engine.params,
+                           device=DEVICE)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               LONG_PROMPT, dtype=np.int32)
+    before = pa_mod.LAUNCHES_SPLIT
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = long_eng.generate([prompt])[0]
+    torch.cuda.synchronize()
+    m = long_eng.metrics
+    longrow = {
+        "prompt": LONG_PROMPT, "new": len(out),
+        "wall_s": time.perf_counter() - t0,
+        "prefill_chunks": int(m["prefill_chunks"]),
+        "decode_steps": int(m["decode_steps"]),
+        "pages_allocated": int(m["pages_allocated"]),
+        "pages_released": int(m["pages_released"]),
+        "peak_pages": int(m["peak_pages"]),
+        "pages_reclaimed": reclaimed_pages(long_eng),
+        "launches_split": pa_mod.LAUNCHES_SPLIT - before,
+    }
+    log("  long request: " + json.dumps(longrow))
+    assert len(out) == MAX_NEW and all(0 <= x < cfg.vocab_size for x in out)
+    assert longrow["pages_reclaimed"] >= \
+        (LONG_PROMPT - cfg.sliding_window) // long_eng.page.page_tokens, \
+        longrow
+    assert longrow["pages_allocated"] == longrow["pages_released"]
+    row["long"] = longrow
+    del long_eng
+
+    # The card's busy share over a sub-trace (2 prompts, 8 new tokens).
+    sub = [prompts[0], prompts[4]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate(sub, max_new_tokens=8)
+    torch.cuda.synchronize()
+    row["busy_share_profiled"], row["busy_share"] = profile_serve(
+        engine, sub, time.perf_counter() - t0, max_new=8)
+    log(f"  mixtral {cfg.n_layers} layers: wall {row['wall_s']:.2f} s for "
+        f"the trace; device busy share {row['busy_share']:.3f} of the "
+        f"sub-trace's unprofiled wall")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-14: xlstm-1.3b, the token-free xlstm family
+# ---------------------------------------------------------------------------
+
+
+def phase_xlstm_slice() -> dict:
+    """xlstm-1.3b at full width cut to one period (7 mLSTM blocks and one
+    sLSTM block), float32, card against CPU on the same weights.
+
+    Prompts of 100 and 40 tokens in the engine's 64-token chunks, then one
+    decode step fed the same tokens on both: every mLSTM state leaf agrees
+    within ``SLICE_TOL``; the sLSTM state and the logits are printed
+    beside the CPU's own float32 sensitivity.  With these seeded weights
+    the sLSTM recurrence is chaotic -- its recurrent weights (std 0.25
+    over 512-wide heads) grow a rounding-level difference by orders of
+    magnitude within tens of tokens -- so over a prompt, float32 runs one
+    rounding unit apart part on any device.  The sLSTM is the period's
+    last block, so no mLSTM state depends on it.  So the sLSTM block is
+    then held to its plain version teacher-forced: 40 tokens of 2 slots,
+    each token one call on the card from the CPU's state, its output and
+    new state within ``SLICE_TOL``."""
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.model import Model, _layer_params
+    from repro_torch.serve.kvcache import DEFAULT_PAGE_TOKENS
+
+    free_card()
+    full = xlstm_cfg()
+    cfg = dataclasses.replace(full, n_layers=full.xlstm.slstm_every)
+    model = Model(cfg)
+    params = {DEVICE: model.init(seed=0, device=DEVICE)}
+    params["cpu"] = tree_to(params[DEVICE], "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (100, 40)]
+    errs = slice_against_cpu(
+        cfg, DEFAULT_PAGE_TOKENS, prompts, "xlstm 8-block slice", params,
+        chaotic=("prefill logits", "decode logits", "state.slstm."))
+
+    sp = {d: _layer_params(params[d]["slstm_layers"], 0) for d in params}
+    x = torch.randn((2, 40, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    state = {k: v[0] for k, v in model.init_state(2, torch.float32,
+                                                  "cpu")["slstm"].items()}
+    worst = {}
+    for i in range(x.shape[1]):
+        ref, new = XL.slstm_block(sp["cpu"], x[:, i:i + 1], cfg, state)
+        out, got = XL.slstm_block(sp[DEVICE], x[:, i:i + 1].to(DEVICE), cfg,
+                                  tree_to(state, DEVICE))
+        for name, a, b in [("out", out, ref)] + [
+                (k, got[k], new[k]) for k in new]:
+            a = a.cpu()
+            worst[name] = max(worst.get(name, 0.0),
+                              float((a - b).abs().max()))
+            torch.testing.assert_close(a, b, **SLICE_TOL)
+        state = new
+    log("  sLSTM block teacher-forced, 40 tokens x 2 slots, max_abs_err: "
+        + json.dumps(worst))
+    errs.update({f"slstm teacher-forced {k}": v for k, v in worst.items()})
+    return errs
+
+
+def phase_xlstm_serve(pa_mod) -> dict:
+    """Full-width, full-depth xlstm-1.3b (42 mLSTM and 6 sLSTM blocks,
+    seeded random bf16 weights) serving phase 4's trace.  It is token-free:
+    no page is allocated and no paged-attention kernel runs; its sLSTM
+    blocks step through each chunk's tokens one at a time."""
+    free_card()
+    cfg = xlstm_cfg()
+    row, _, engine, _ = serve_trace(cfg, {"paged": pa_mod}, (0,))
+    assert row["pages_allocated"] == 0
+    assert row["launches"]["paged"]["LAUNCHES"] == 0
+    chunk_ms = [e["dur"] / 1e3 for e in engine.tracer.export_events()
+                if e["name"] == "prefill_chunk"]
+    row["prefill_chunk_ms_p50"] = float(np.median(chunk_ms))
+    log(f"  xlstm: {row['prefill_chunks']} chunks of "
+        f"{row['page_tokens']} tokens, p50 {row['prefill_chunk_ms_p50']:.1f}"
+        f" ms a chunk; {row['decode_steps']} ticks")
+    row["block_ms"] = xlstm_block_ms(cfg, engine.params, row["page_tokens"])
+    return row
+
+
+def xlstm_block_ms(cfg, params, t: int) -> dict:
+    """What one prefill chunk of ``t`` tokens of one slot costs each xLSTM
+    block kind (its first layer, bf16): host wall per call with the card
+    synchronised, and device time (``cuda_ms``).  The sLSTM block steps
+    the chunk's tokens one at a time in Python (the reference's
+    ``lax.scan``), so its host time grows with ``t``."""
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.model import Model, _layer_params
+
+    state = Model(cfg).init_state(1, torch.bfloat16, DEVICE)
+    x = torch.randn((1, t, cfg.d_model), device=DEVICE).to(torch.bfloat16)
+    chunk = min(256, max(16, t))
+    calls = {
+        "mlstm": lambda p, c: XL.mlstm_block(p, x, cfg, c, chunk),
+        "slstm": lambda p, c: XL.slstm_block(p, x, cfg, c)}
+    out = {}
+    for kind, call in calls.items():
+        p = _layer_params(params[f"{kind}_layers"], 0)
+        c = {k: v[0] for k, v in state[kind].items()}
+        with torch.no_grad():
+            call(p, c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                call(p, c)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 5 * 1e3
+            dev = cuda_ms(lambda i: call(p, c), reps=5)
+        out[kind] = {"wall_ms": wall, "device_ms": dev}
+    n_s = cfg.n_layers // cfg.xlstm.slstm_every
+    n_m = cfg.n_layers - n_s
+    total = n_m * out["mlstm"]["wall_ms"] + n_s * out["slstm"]["wall_ms"]
+    log(f"  one {t}-token chunk, per block (bf16): " + json.dumps(out)
+        + f"; {n_m} mLSTM + {n_s} sLSTM blocks: {total:.1f} ms of wall")
+    return out
+
+
 def zamba_cfg():
     from repro_torch.configs import get_model_config
 
     return get_model_config(ZAMBA)
+
+
+def mixtral_cfg():
+    from repro_torch.configs import get_model_config
+
+    return get_model_config(MIXTRAL)
+
+
+def xlstm_cfg():
+    from repro_torch.configs import get_model_config
+
+    return get_model_config(XLSTM)
 
 
 def get_cfg():
@@ -1317,7 +1773,7 @@ def main() -> int:
     log(f"  planned page: {t} tokens ({plan.page_plan()['page_bytes']} B "
         f"per layer page, SMEM budget {plan.level('SMEM').budget_bytes} B, "
         f"{plan.page_plan()['source']})")
-    kern = serve = tk = tune = zk = zserve = None
+    kern = serve = tk = tune = zk = zserve = mk = mserve = xserve = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -1350,7 +1806,28 @@ def main() -> int:
         log("[9] serving full-width zamba2-1.2b, bf16")
         zserve = phase("phase 9 zamba2 serve", phase_zamba_serve, pa_mod,
                        ssd_mod)
-    if failed or None in (kern, serve, tk, tune, zk, zserve):
+        mplan = plan_decode(mixtral_cfg(), max_len=MAX_LEN, batch=MAX_SLOTS,
+                            dtype_bytes=2)
+        mt = mplan.page_plan()["page_tokens"]
+        log(f"  mixtral-8x7b planned page: {mt} tokens "
+            f"({mplan.page_plan()['source']})")
+        log(f"[10] mixtral-8x7b's shapes: paged attention (group 4, D 128, "
+            f"page {mt}, window 4096, null pages below the window), against "
+            "its plain version")
+        mk = phase("phase 10 mixtral kernels", phase_mixtral_kernels, mt)
+        log("[11] mixtral-8x7b at full width cut to 2 layers, cuda against "
+            "cpu, float32")
+        phase("phase 11 mixtral slice", phase_mixtral_slice, mt)
+        log("[12] serving full-width mixtral-8x7b cut in depth, bf16; one "
+            f"{LONG_PROMPT}-token windowed request")
+        mserve = phase("phase 12 mixtral serve", phase_mixtral_serve, pa_mod)
+        log("[13] xlstm-1.3b at full width cut to one period of 8 blocks, "
+            "cuda against cpu, float32")
+        phase("phase 13 xlstm slice", phase_xlstm_slice)
+        log("[14] serving full-width xlstm-1.3b, bf16")
+        xserve = phase("phase 14 xlstm serve", phase_xlstm_serve, pa_mod)
+    if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
+                          xserve):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -1395,6 +1872,15 @@ def main() -> int:
         "max_abs_err": zk["paged_err"],
         **{name: {k: row[k] for k in keys}
            for name, row in zk["paged"].items()}}
+    # mixtral-8x7b: the paged kernel's serving launches (phase 12) and its
+    # times and bounds at group 4, D 128, window 4096 (phase 10).
+    kernels[0]["mixtral"] = {
+        "layers": mserve["depth"],
+        "launches": mserve["launches"]["paged"]["LAUNCHES"],
+        "launches_split": mserve["launches"]["paged"]["LAUNCHES_SPLIT"],
+        "max_abs_err": mk["paged_err"],
+        **{name: {k: row[k] for k in keys}
+           for name, row in mk["paged"].items()}}
     ssd = kernels[3]
     ssd["launches_tune"] = ssd["launches"]
     ssd["launches"] = zl["ssd"]["LAUNCHES"]

@@ -1,5 +1,6 @@
 """The 10 architectures, exact published configurations (a copy of
-``repro.configs.archs``; the port serves only the ``dense`` family so far).
+``repro.configs.archs``; the port serves the ``dense``, ``moe``,
+``hybrid_ssm`` and ``xlstm`` families so far).
 
 ``ModelConfig.reduced()`` gives the small variant the CPU tests use.
 """

@@ -1,36 +1,46 @@
-"""Model assembly for the dense and hybrid_ssm families (the port of the
-paged paths of ``repro.models.model``).
+"""Model assembly for the dense, moe, hybrid_ssm and xlstm families (the
+port of the paged paths of ``repro.models.model``).
 
 ``Model`` declares the parameter tree (same paths and shapes as the JAX
-package) and runs the two serving steps over the paged KV pool:
-``decode_step_paged`` (one token per slot) and ``prefill_chunk`` (one
-prompt chunk of one slot).  Both run the one shared layer body
-``_tf_layer`` with a mode-specific attention hook.  Layers run as a Python
-loop over the stacked parameters; the pool and the per-slot state are
-updated in place.
+package), the per-slot recurrent state (``init_state``, the state part of
+the reference's ``init_cache``) and runs the two serving steps over the
+paged cache: ``decode_step_paged`` (one token per slot) and
+``prefill_chunk`` (one prompt chunk of one slot).  The transformer
+families run the one shared layer body ``_tf_layer`` with a mode-specific
+attention hook; its FFN is SwiGLU, or ``moe_ffn`` for ``moe`` (Mixtral).
+Layers run as a Python loop over the stacked parameters; the pool and the
+per-slot state are updated in place.
 
 ``hybrid_ssm`` (Zamba2) is a stack of Mamba2 mixers with ONE weight-shared
 attention block (``_tf_layer`` over ``shared_attn``) applied before each
 group of ``attn_every`` mixers; application ``app`` owns layer ``app`` of
 the page pool, and each mixer owns its rows of ``state["mamba"]`` (conv
-and SSM state per slot).  Other families raise ``NotImplementedError``
-until their slice lands.
+and SSM state per slot).  ``xlstm`` is token-free: periods of
+``slstm_every - 1`` mLSTM blocks and one sLSTM block, whose per-slot
+states (``state["mlstm"]``, ``state["slstm"]``) are its whole cache.
+Other families raise ``NotImplementedError`` until their slice lands.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as XL
 from repro_torch.models.params import ParamSpec, init_params
 
 PyTree = Any
 
 #: Families this port can run so far.
-FAMILIES = ("dense", "hybrid_ssm")
+FAMILIES = ("dense", "moe", "hybrid_ssm", "xlstm")
+
+#: The MoE decode step's capacity factor (the reference ``Model``'s
+#: default); prefill chunks dispatch dropless.
+CAPACITY_FACTOR = 1.25
 
 
 def _norm_spec(cfg, layers: int = 0) -> ParamSpec:
@@ -46,21 +56,37 @@ def _layer_params(stack: PyTree, i: int) -> PyTree:
     return stack[i]
 
 
+def _tf_layer_specs(cfg, layers: int, kind: str) -> dict:
+    specs = {"ln1": _norm_spec(cfg, layers), "ln2": _norm_spec(cfg, layers),
+             "attn": L.attention_param_specs(cfg, layers)}
+    if kind == "moe":
+        specs["moe"] = MOE.moe_param_specs(cfg, layers)
+    else:
+        specs["ffn"] = L.ffn_param_specs(cfg, layers=layers)
+    return specs
+
+
 def _tf_layer(lp: dict, x: torch.Tensor, cfg,
-              attn: Callable[[dict, torch.Tensor], torch.Tensor]
-              ) -> torch.Tensor:
+              attn: Callable[[dict, torch.Tensor], torch.Tensor],
+              kind: str = "dense",
+              capacity_factor: Optional[float] = None) -> torch.Tensor:
     """ONE decoder-layer body for every mode: pre-norm attention +
-    residual, pre-norm SwiGLU FFN + residual.  ``attn(lp["attn"], h)`` is
-    the mode's attention hook (paged decode or chunked prefill)."""
+    residual, pre-norm FFN + residual.  ``attn(lp["attn"], h)`` is the
+    mode's attention hook (paged decode or chunked prefill); ``kind``
+    picks the FFN: "moe" routes through ``moe_ffn`` at
+    ``capacity_factor`` (its aux loss is dropped: serving has no loss),
+    anything else is SwiGLU."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + attn(lp["attn"], h)
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if kind == "moe":
+        return x + MOE.moe_ffn(lp["moe"], h, cfg.moe, capacity_factor)[0]
     return x + L.swiglu_ffn(lp["ffn"], h)
 
 
 class Model:
-    """The dense decoder and the Zamba2 hybrid; see the module
-    docstring."""
+    """The dense and MoE decoders, the Zamba2 hybrid and xLSTM; see the
+    module docstring."""
 
     def __init__(self, cfg):
         if cfg.family not in FAMILIES:
@@ -83,11 +109,14 @@ class Model:
                     "ffn": L.ffn_param_specs(cfg),
                 }
             return specs
-        specs["layers"] = {
-            "ln1": _norm_spec(cfg, n), "ln2": _norm_spec(cfg, n),
-            "attn": L.attention_param_specs(cfg, n),
-            "ffn": L.ffn_param_specs(cfg, layers=n),
-        }
+        if cfg.family == "xlstm":
+            n_s = n // cfg.xlstm.slstm_every
+            specs["mlstm_layers"] = XL.mlstm_param_specs(cfg, n - n_s)
+            specs["mlstm_ln"] = _norm_spec(cfg, n - n_s)
+            specs["slstm_layers"] = XL.slstm_param_specs(cfg, n_s)
+            specs["slstm_ln"] = _norm_spec(cfg, n_s)
+            return specs
+        specs["layers"] = _tf_layer_specs(cfg, n, cfg.family)
         return specs
 
     def init(self, seed: int = 0, device=None,
@@ -97,14 +126,60 @@ class Model:
         return init_params(self.param_specs(), seed, resolve_device(device),
                            dtype)
 
-    # ------------------------------------------------------------- hybrid
+    def init_state(self, n_slots: int, dtype, device) -> PyTree:
+        """The per-slot recurrent state at its start, as the state part of
+        the reference's ``init_cache`` lays it out (the slot on axis 1):
+        hybrid_ssm ``{"mamba": {conv (L, S, W-1, C) in dtype, ssm (L, S,
+        H, P, N) f32}}``; xlstm ``{"mlstm": {conv, C, n, m}, "slstm": {c,
+        n, h, m}}``, all zeros except the stabilisers ``m`` at ``NEG``
+        (the running max starts at its floor), conv in dtype, the rest
+        f32.  Families without state: ``{}``."""
+        cfg = self.cfg
+        f32 = dict(dtype=torch.float32, device=device)
+        if cfg.family == "hybrid_ssm":
+            s = cfg.ssm
+            d_inner = s.expand * cfg.d_model
+            return {"mamba": {
+                "conv": torch.zeros((cfg.n_layers, n_slots,
+                                     s.conv_width - 1,
+                                     d_inner + 2 * s.state_dim),
+                                    dtype=dtype, device=device),
+                "ssm": torch.zeros((cfg.n_layers, n_slots,
+                                    d_inner // s.head_dim, s.head_dim,
+                                    s.state_dim), **f32),
+            }}
+        if cfg.family == "xlstm":
+            x = cfg.xlstm
+            di = XL._round128(x.mlstm_proj_factor * cfg.d_model)
+            h = cfg.n_heads
+            dh, dhs = di // h, cfg.d_model // h
+            n_s = cfg.n_layers // x.slstm_every
+            n_m = cfg.n_layers - n_s
+            return {
+                "mlstm": {
+                    "conv": torch.zeros((n_m, n_slots, x.conv_width - 1, di),
+                                        dtype=dtype, device=device),
+                    "C": torch.zeros((n_m, n_slots, h, dh, dh), **f32),
+                    "n": torch.zeros((n_m, n_slots, h, dh), **f32),
+                    "m": torch.full((n_m, n_slots, h), XL.NEG, **f32),
+                },
+                "slstm": {
+                    "c": torch.zeros((n_s, n_slots, h, dhs), **f32),
+                    "n": torch.zeros((n_s, n_slots, h, dhs), **f32),
+                    "h": torch.zeros((n_s, n_slots, h, dhs), **f32),
+                    "m": torch.full((n_s, n_slots, h, dhs), XL.NEG, **f32),
+                },
+            }
+        return {}
+
+    # ------------------------------------------------- recurrent stacks
     def _hybrid_stack(self, params: PyTree, x: torch.Tensor,
                       attn: Callable[[int], Callable],
-                      state: Callable[[int], dict]) -> torch.Tensor:
+                      rows: Callable[[str, int], dict]) -> torch.Tensor:
         """Zamba2's stack: the shared block (``attn(app)``, its attention
         hook for application ``app``) before each group of ``attn_every``
-        Mamba2 mixers.  Mixer ``i`` reads its cache rows ``state(i)``
-        (views) and its new state is written back into them."""
+        Mamba2 mixers.  Mixer ``i`` reads its state rows ``rows("mamba",
+        i)`` (views) and its new state is written back into them."""
         cfg = self.cfg
         per = cfg.ssm.attn_every or cfg.n_layers
         app = 0
@@ -113,11 +188,52 @@ class Model:
                 x = _tf_layer(params["shared_attn"], x, cfg, attn(app))
                 app += 1
             for i in range(start, min(start + per, cfg.n_layers)):
-                rows = state(i)
+                r = rows("mamba", i)
                 x, new = M2.mamba2_block(
-                    _layer_params(params["mamba_layers"], i), x, cfg, rows)
-                rows["conv"].copy_(new["conv"])
-                rows["ssm"].copy_(new["ssm"])
+                    _layer_params(params["mamba_layers"], i), x, cfg, r)
+                _write_back(r, new)
+        return x
+
+    def _xlstm_stack(self, params: PyTree, x: torch.Tensor,
+                     rows: Callable[[str, int], dict]) -> torch.Tensor:
+        """xLSTM's stack: periods of ``slstm_every - 1`` pre-norm mLSTM
+        blocks and one pre-norm sLSTM block, each with a residual.  Block
+        ``i`` of group "mlstm" or "slstm" reads its state rows ``rows(group,
+        i)`` (views) and its new state is written back into them."""
+        cfg = self.cfg
+        per = cfg.xlstm.slstm_every
+        m_per = per - 1
+        chunk = min(cfg.ssm.chunk if cfg.ssm else 256, max(16, x.shape[1]))
+        for p in range(cfg.n_layers // per):
+            for i in range(p * m_per, (p + 1) * m_per):
+                r = rows("mlstm", i)
+                h = L.rms_norm(x, params["mlstm_ln"][i], cfg.norm_eps)
+                y, new = XL.mlstm_block(
+                    _layer_params(params["mlstm_layers"], i), h, cfg, r,
+                    chunk)
+                x = x + y
+                _write_back(r, new)
+            r = rows("slstm", p)
+            h = L.rms_norm(x, params["slstm_ln"][p], cfg.norm_eps)
+            y, new = XL.slstm_block(_layer_params(params["slstm_layers"], p),
+                                    h, cfg, r)
+            x = x + y
+            _write_back(r, new)
+        return x
+
+    def _layers(self, params: PyTree, x: torch.Tensor,
+                attn: Callable[[int], Callable],
+                rows: Callable[[str, int], dict],
+                capacity_factor: Optional[float]) -> torch.Tensor:
+        """The family's stack between the embedding and the LM head."""
+        cfg = self.cfg
+        if cfg.family == "hybrid_ssm":
+            return self._hybrid_stack(params, x, attn, rows)
+        if cfg.family == "xlstm":
+            return self._xlstm_stack(params, x, rows)
+        for i in range(cfg.n_layers):
+            x = _tf_layer(_layer_params(params["layers"], i), x, cfg,
+                          attn(i), cfg.family, capacity_factor)
         return x
 
     # ------------------------------------------------------- paged decode
@@ -125,19 +241,19 @@ class Model:
                           batch: Dict[str, torch.Tensor],
                           dtype=torch.bfloat16
                           ) -> Tuple[torch.Tensor, PyTree]:
-        """One-token decode against the paged KV pool.
+        """One-token decode against the paged cache.
 
         ``cache`` is the pooled layout of ``serve.pages.init_paged_cache``:
-        ``pool`` (``k``/``v``, each ``(L, P, T, KV, D)``), ``table`` (the
-        ``(S, NP)`` int32 page table), ``pos`` (the per-slot position
-        vector) and, for hybrid_ssm, ``state["mamba"]`` (``conv`` and
-        ``ssm``, each with the slot on axis 1).  ``batch["tokens"]`` is
-        ``(S, 1)``.  Every row carries its own RoPE offset and length
-        mask, so slots at different depths decode as one batch; empty
-        slots (``pos == 0``, null table row) decode garbage the engine
-        ignores.  The pool and the state are
-        written in place; returns ``(logits (S, V), cache)`` with
-        ``cache["pos"]`` advanced.
+        ``pool`` (``k``/``v``, each ``(L, P, T, KV, D)``; none for xlstm),
+        ``table`` (the ``(S, NP)`` int32 page table), ``pos`` (the
+        per-slot position vector) and ``state`` (``Model.init_state``'s
+        groups, the slot on axis 1).  ``batch["tokens"]`` is ``(S, 1)``.
+        Every row carries its own RoPE offset and length mask, so slots at
+        different depths decode as one batch; empty slots (``pos == 0``,
+        null table row) decode garbage the engine ignores.  MoE decode
+        dispatches at ``CAPACITY_FACTOR`` (one token a row: dropless by
+        construction).  The pool and the state are written in place;
+        returns ``(logits (S, V), cache)`` with ``cache["pos"]`` advanced.
         """
         cfg = self.cfg
         pos, table = cache["pos"], cache["table"]
@@ -148,15 +264,10 @@ class Model:
             return lambda ap, h: L.paged_attention_block(
                 ap, h, pos, cfg, kp, vp, i, table)
 
-        if cfg.family == "hybrid_ssm":
-            mc = cache["state"]["mamba"]
-            x = self._hybrid_stack(
-                params, x, attn,
-                lambda i: {"conv": mc["conv"][i], "ssm": mc["ssm"][i]})
-        else:
-            for i in range(cfg.n_layers):
-                x = _tf_layer(_layer_params(params["layers"], i), x, cfg,
-                              attn(i))
+        def rows(group, i):
+            return {k: buf[i] for k, buf in cache["state"][group].items()}
+
+        x = self._layers(params, x, attn, rows, CAPACITY_FACTOR)
         new_cache = dict(cache)
         new_cache["pos"] = pos + 1
         logits = L.lm_logits(params, x, cfg)
@@ -166,14 +277,15 @@ class Model:
     def prefill_chunk(self, params: PyTree, cache: PyTree,
                       batch: Dict[str, Any], dtype=torch.bfloat16
                       ) -> Tuple[torch.Tensor, PyTree]:
-        """One prompt CHUNK of one slot against the paged pool.
+        """One prompt CHUNK of one slot against the paged cache.
 
         ``batch``: ``tokens`` (1, C), ``pos0`` -- the chunk's first
         absolute position -- and ``slot``.  K/V rows go straight into the
         slot's pool pages through its table row (in place).  Returns the
         chunk's last-token logits ``(1, V)`` (meaningful on the final
-        chunk) and the cache.  For hybrid_ssm the chunk's mixers start
-        from the slot's state rows and leave the next chunk's there.
+        chunk) and the cache.  Recurrent blocks start from the slot's
+        state rows and leave the next chunk's there.  MoE dispatches
+        dropless, so any chunking of a prompt gives the same tokens.
         """
         cfg = self.cfg
         slot, pos0 = int(batch["slot"]), int(batch["pos0"])
@@ -187,15 +299,16 @@ class Model:
             return lambda ap, h: L.paged_prefill_block(
                 ap, h, positions, cfg, kp, vp, i, table_row)
 
-        if cfg.family == "hybrid_ssm":
-            mc = cache["state"]["mamba"]
-            x = self._hybrid_stack(
-                params, x, attn,
-                lambda i: {"conv": mc["conv"][i, slot:slot + 1],
-                           "ssm": mc["ssm"][i, slot:slot + 1]})
-        else:
-            for i in range(cfg.n_layers):
-                x = _tf_layer(_layer_params(params["layers"], i), x, cfg,
-                              attn(i))
+        def rows(group, i):
+            return {k: buf[i, slot:slot + 1]
+                    for k, buf in cache["state"][group].items()}
+
+        x = self._layers(params, x, attn, rows, None)
         logits = L.lm_logits(params, x[:, -1:], cfg)
         return logits[:, -1], dict(cache)
+
+
+def _write_back(rows: dict, new: dict) -> None:
+    """A block's new state into its cache rows (views), in place."""
+    for k, buf in rows.items():
+        buf.copy_(new[k])

@@ -14,7 +14,12 @@
   * Prefill is CHUNKED: a prompt is cut into page-sized chunks written
     straight into the slot's pool pages and interleaved with decode ticks
     (``prefill="monolithic"`` runs one whole-prompt chunk instead).
+  * A sliding-window family (Mixtral) frees the pages wholly below
+    ``pos - window`` behind the chunk front and after every token; a
+    token-free family (xLSTM) holds no pages and chunks its prompts at
+    ``kvcache.DEFAULT_PAGE_TOKENS``.
 
+It serves ``serve.pages.PAGED_FAMILIES`` (dense, moe, hybrid_ssm, xlstm).
 ``batching="cohort"`` and ``prefix_cache="radix"`` wait for later slices
 and raise ``NotImplementedError``.
 """
@@ -317,8 +322,11 @@ class ServeEngine:
         """Pool geometry from the plan: the table width is the plan's
         per-slot page bound, stretched to the longest submitted request;
         the physical pool is the KV budget in pages, capped at what the
-        slots can ever pin (plus the null page)."""
+        slots can ever pin (plus the null page).  A token-free family
+        (xLSTM) gets a one-page table and the null page plus one."""
         page = self.page
+        if page.page_bytes <= 0:
+            return 1, 2
         ptab = self.plan.page_table() or {}
         need = max(page.pages_for(r.prompt_len + r.max_new + 1)
                    for r in reqs)
@@ -563,9 +571,10 @@ class ServeEngine:
                 # Stalled AND prefilling slots ride through the decode
                 # batch: their KV writes land on the null page or at the
                 # chunk front (overwritten by the next chunk), but their
-                # recurrent state would advance on the discarded tick, so
-                # their state rows are saved before the step and put back
-                # after it.
+                # recurrent state (every buffer of every state group:
+                # Mamba, mLSTM, sLSTM) would advance on the discarded
+                # tick, so their state rows are saved before the step and
+                # put back after it.
                 frozen = sorted(i for i in stalled | set(prefills)
                                 if sched.slots[i] is not None)
                 saved = None

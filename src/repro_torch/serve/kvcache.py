@@ -31,7 +31,7 @@ def attn_apps(cfg: ModelConfig) -> int:
     before each group of ``ssm.attn_every`` mixers (0 without the block).
     Each owns one layer of the page pool."""
     s = cfg.ssm
-    return -(-cfg.n_layers // s.attn_every) if s.attn_every else 0
+    return -(-cfg.n_layers // s.attn_every) if s and s.attn_every else 0
 
 
 def kv_token_bytes(cfg: ModelConfig, dtype_bytes: int = 2

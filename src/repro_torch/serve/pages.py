@@ -1,6 +1,6 @@
 """The global KV page pool: plan-sized pages, per-slot tables, slot-level
-admission (the port of ``repro.serve.pages`` for the dense and hybrid_ssm
-families).
+admission (the port of ``repro.serve.pages`` for the dense, moe,
+hybrid_ssm and xlstm families).
 
   * ``PagePool`` -- the physical pool: ``pages_total`` pages of
     ``page_plan()["page_tokens"]`` tokens each, a refcounted free list and
@@ -11,12 +11,16 @@ families).
     of decode slots, FIFO admission of one request per free slot, one-page
     growth, youngest-slot recompute preemption, and sliding-window page
     reclaim.  A finished slot frees its pages at once and is backfilled by
-    the next pending request mid-flight.
+    the next pending request mid-flight.  A token-free family (xLSTM:
+    ``page_bytes == 0``) holds no pages at all; its slots only gate
+    admission.
   * ``init_paged_cache`` / ``reset_slot`` -- the pooled cache dict the
     paged steps (``Model.decode_step_paged`` / ``prefill_chunk``) consume:
     ``pool`` (``k``/``v``, each ``(L, P, T, KV, D)``), ``table`` (the
     per-slot page table), ``pos`` (the per-slot position vector) and
-    ``state`` (per-slot recurrent buffers, the slot on axis 1).
+    ``state`` (per-slot recurrent buffers, the slot on axis 1);
+    ``reset_slot`` puts one slot's state back to ``Model.init_state``'s
+    values.
 
 Page export/install and the prefix cache's hooks wait for the prefix
 slice.
@@ -37,7 +41,10 @@ from repro_torch.serve.scheduler import Request
 PyTree = Any
 
 #: Families with a per-slot paged decode path in the port.
-PAGED_FAMILIES = ("dense", "hybrid_ssm")
+PAGED_FAMILIES = ("dense", "moe", "hybrid_ssm", "xlstm")
+
+#: Per-slot recurrent-state groups per family (reset at admission).
+STATE_GROUPS = {"hybrid_ssm": ("mamba",), "xlstm": ("mlstm", "slstm")}
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +181,11 @@ class PagedScheduler:
     Rules:
 
       * **admit**   FIFO: the head request takes any free slot iff the pool
-        can grant its first page; the prompt's other pages are granted as
-        its chunks arrive.  A lone head that can never fit an empty pool
-        raises.
+        can grant its first page (none for a token-free family); the
+        prompt's other pages are granted as its chunks arrive, and a
+        windowed prompt's pages wholly below the window are reclaimed
+        behind the chunk front, so it is billed for its resident window.
+        A lone head that can never fit an empty pool raises.
       * **grow**    one page at a time when the chunk front or ``pos + 1``
         crosses the slot's capacity; refusal (pool empty) makes the
         engine preempt or stall.
@@ -223,11 +232,12 @@ class PagedScheduler:
         it.  A lone head that cannot get one page of an empty pool raises.
         """
         out: List[Tuple[int, Request, List[Optional[int]]]] = []
+        first = 1 if self.page.page_bytes > 0 else 0
         for slot, s in enumerate(self.slots):
             if s is not None or not self.pending:
                 continue
             head = self.pending[0]
-            ids = self.pool.alloc(1)
+            ids = self.pool.alloc(first) if first else []
             if ids is None:
                 if not any(x is not None for x in self.slots) and not out:
                     raise ValueError(
@@ -250,8 +260,11 @@ class PagedScheduler:
         or the slot's logical page table is full (``pages_per_slot`` --
         check ``table_full`` to tell the cases apart: eviction cannot
         help a full table).  Chunked prefill passes ``upto = done +
-        chunk`` to allocate just ahead of the chunk front."""
+        chunk`` to allocate just ahead of the chunk front.  A token-free
+        family always has room."""
         s = self.slots[slot]
+        if self.page.page_bytes <= 0:
+            return True                   # token-free family: no pages
         need = s.pos + 1 if upto is None else upto
         while need > len(s.pages) * self.page.page_tokens:
             if len(s.pages) >= self.pages_per_slot:
@@ -264,8 +277,10 @@ class PagedScheduler:
 
     def table_full(self, slot: int) -> bool:
         """True when the slot has exhausted its logical page table (its
-        sequence hit the ``pages_per_slot`` bound)."""
-        return len(self.slots[slot].pages) >= self.pages_per_slot
+        sequence hit the ``pages_per_slot`` bound; never for a token-free
+        family)."""
+        return self.page.page_bytes > 0 and \
+            len(self.slots[slot].pages) >= self.pages_per_slot
 
     def victim(self, protect: int) -> Optional[int]:
         """Preemption victim: the occupied slot holding the newest request
@@ -328,60 +343,53 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     """The pooled cache ``Model.decode_step_paged`` consumes, on
     ``device``: ``pool`` holds one ``(L, n_pages, page_tokens, KV, D)``
     buffer each for K and V, ``table`` the ``(n_slots, n_logical_pages)``
-    int32 page table (0 = null page) and ``pos`` the per-slot positions.
+    int32 page table (0 = null page), ``pos`` the per-slot positions and
+    ``state`` the per-slot recurrent state of ``Model.init_state``.
 
-    hybrid_ssm: the pool has one layer per application of the shared
-    attention block, and ``state["mamba"]`` holds each mixer's per-slot
-    ``conv`` ``(L, S, W-1, C)`` in ``dtype`` and ``ssm`` ``(L, S, H, P,
-    N)`` in float32, as the reference's ``init_cache`` lays them out.
+    dense and moe: one pool layer per layer, no state.  hybrid_ssm: one
+    pool layer per application of the shared attention block, and
+    ``state["mamba"]``.  xlstm is token-free: no pool, and
+    ``state["mlstm"]`` and ``state["slstm"]`` are its whole cache.
     """
+    from repro_torch.models.model import Model
+
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
             f"paged serving is not implemented for family {cfg.family!r}")
-
-    def pool_kv(n_layers: int) -> dict:
-        shape = (n_layers, n_pages, page_tokens, cfg.n_kv_heads,
-                 cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
-
+    pool_layers = {"dense": cfg.n_layers, "moe": cfg.n_layers,
+                   "hybrid_ssm": attn_apps(cfg)}.get(cfg.family, 0)
     cache = {
         "table": torch.zeros((n_slots, n_logical_pages), dtype=torch.int32,
                              device=device),
         "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
         "pool": {},
-        "state": {},
+        "state": Model(cfg).init_state(n_slots, dtype, device),
     }
-    if cfg.family == "dense":
-        cache["pool"] = pool_kv(cfg.n_layers)
-    else:
-        s = cfg.ssm
-        d_inner = s.expand * cfg.d_model
-        conv_ch = d_inner + 2 * s.state_dim
-        n_apps = attn_apps(cfg)
-        if n_apps:
-            cache["pool"] = pool_kv(n_apps)
-        cache["state"] = {"mamba": {
-            "conv": torch.zeros((cfg.n_layers, n_slots, s.conv_width - 1,
-                                 conv_ch), dtype=dtype, device=device),
-            "ssm": torch.zeros((cfg.n_layers, n_slots,
-                                d_inner // s.head_dim, s.head_dim,
-                                s.state_dim), dtype=torch.float32,
-                               device=device),
-        }}
+    if pool_layers:
+        shape = (pool_layers, n_pages, page_tokens, cfg.n_kv_heads,
+                 cfg.head_dim)
+        cache["pool"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                         "v": torch.zeros(shape, dtype=dtype, device=device)}
     return cache
 
 
 def reset_slot(cfg: ModelConfig, cache: PyTree, slot: int) -> PyTree:
-    """Reset one slot's per-slot state rows for a fresh (chunked) prefill:
-    the hybrid's conv and SSM state rows go back to zeros, its
-    ``init_cache`` values.  The pool needs no reset: chunk writes land
-    exactly on the slot's allocated pages.  In place; returns the cache.
+    """Reset one slot's per-slot state rows for a fresh (chunked) prefill
+    to the family's ``Model.init_state`` values -- not zeros: xLSTM's
+    stabiliser rows start at the running max's floor.  The pool needs no
+    reset: chunk writes land exactly on the slot's allocated pages.  In
+    place; returns the cache.
     """
+    from repro_torch.models.model import Model
+
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
             f"paged serving is not implemented for family {cfg.family!r}")
-    for group in cache["state"].values():
-        for buf in group.values():
-            buf[:, slot].zero_()
+    groups = STATE_GROUPS.get(cfg.family, ())
+    if groups:
+        device = cache["pos"].device
+        fresh = Model(cfg).init_state(1, torch.float32, device)
+        for g in groups:
+            for k, buf in cache["state"][g].items():
+                buf[:, slot] = fresh[g][k][:, 0]        # cast to buf's dtype
     return cache

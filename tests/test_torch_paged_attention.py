@@ -439,3 +439,61 @@ def test_cuda_zamba2_shared_attention_shapes(dtype, shape):
     live = lens > 0
     torch.testing.assert_close(out.float()[live], ref[live], **TOL[dtype])
     assert not out[~live].float().abs().any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ["decode", "prefill"])
+def test_cuda_mixtral_window_shapes(dtype, shape):
+    """mixtral-8x7b's attention: 32 query heads over 8 KV heads (group 4),
+    D 128, the planned 24-token page and the 4096-token sliding window,
+    over the engine's 342-page table (8192 tokens) whose entries below the
+    window point at the null page, as window reclaim leaves them; decode
+    rows some past the window, and one page of prefill rows over one
+    table.  bf16 takes the split body, float32 simt; both agree with the
+    plain version and two bf16 runs are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    t, h, kv, d, n_logical, window = 24, 32, 8, 128, 342, 4096
+    gen = torch.Generator().manual_seed(24)
+
+    def dead(n):                    # pages wholly below the window: null
+        return max(0, n - 1 - window) // t
+
+    if shape == "decode":
+        lengths = [0, 1, 700, 4096, 4097, 4400, 5000, 8000]
+        spans = [(dead(n), -(-n // t)) for n in lengths]
+    else:
+        pos0 = 183 * t
+        lengths = list(range(pos0 + 1, pos0 + t + 1))
+        spans = [(dead(lengths[0]), -(-lengths[-1] // t))]
+    p_total = 1 + sum(b - a for a, b in spans)
+    perm = (1 + torch.randperm(p_total - 1, generator=gen)).int()
+    rows = torch.zeros(len(spans), n_logical, dtype=torch.int32)
+    at = 0
+    for i, (a, b) in enumerate(spans):
+        rows[i, a:b] = perm[at:at + b - a]
+        at += b - a
+    table = rows if shape == "decode" else \
+        rows.expand(len(lengths), n_logical).contiguous()
+    lo = spans[-1][0]               # the last row's null entries
+    assert lo > 0 and (table[-1, :lo] == 0).all()
+    s = len(lengths)
+    q = torch.randn(s, h, d, generator=gen).to("cuda", dtype)
+    k = torch.randn(p_total, t, kv, d, generator=gen).to("cuda", dtype)
+    v = torch.randn(p_total, t, kv, d, generator=gen).to("cuda", dtype)
+    table = table.to("cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    body = pa_mod.paged_path(dtype, d, t, h // kv)
+    assert body == ("split" if dtype == torch.bfloat16 else "simt")
+    counter = "LAUNCHES_" + body.upper()
+    before = getattr(pa_mod, counter)
+    out = paged_attention(q, k, v, table, lens, window=window, page_tokens=t)
+    again = paged_attention(q, k, v, table, lens, window=window,
+                            page_tokens=t)
+    torch.cuda.synchronize()
+    assert getattr(pa_mod, counter) == before + 2
+    assert torch.equal(out, again)
+    ref = paged_attention_ref(q, k, v, table, lens, window=window).float()
+    live = lens > 0
+    torch.testing.assert_close(out.float()[live], ref[live], **TOL[dtype])

@@ -129,8 +129,11 @@ def test_unported_paths_raise():
         ServeEngine(cfg, ServePolicy(batching="cohort"), device="cpu")
     with pytest.raises(NotImplementedError, match="prefix"):
         ServeEngine(cfg, ServePolicy(prefix_cache="radix"), device="cpu")
-    with pytest.raises(NotImplementedError, match="xlstm"):
-        ServeEngine(get_model_config("xlstm-1.3b").reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="mla_moe"):
+        ServeEngine(get_model_config("deepseek-v2-236b").reduced(),
+                    device="cpu")
+    for arch in ("mixtral-8x7b", "xlstm-1.3b"):       # served: no raise
+        ServeEngine(get_model_config(arch).reduced(), device="cpu")
 
 
 def test_seeded_top_k_sampling_replays_and_stays_in_the_top_k():
