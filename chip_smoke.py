@@ -13,8 +13,8 @@ Phases (each prints its results; the script exits non-zero if any fails):
      ``cuobjdump -sass``, the tensor-core (HGMMA, HMMA) and async-copy
      (UTMALDG for TMA, LDGSTS for cp.async) instructions of the
      tensor-core bodies: ``matmul_cc`` and ``flash_attention`` (wgmma),
-     ``paged_attention`` (split) and ``ssd_scan`` (tc); the phase fails if
-     one of them has none of either;
+     ``paged_attention`` (split and mla) and ``ssd_scan`` (tc); the phase
+     fails if one of them has none of either;
   2. kernel against its plain version: ``paged_attention`` on the card
      against ``paged_attention_ref`` on the same inputs, at the full width
      of llama3.2-1b (H=32, KV=8, D=64, the planned page) in the decode shape
@@ -100,15 +100,34 @@ Phases (each prints its results; the script exits non-zero if any fails):
  14. serving: full-width, full-depth xlstm-1.3b (48 blocks, seeded random
      bf16 weights) serving phase 4's trace; token-free, so no page is
      allocated and no paged-attention kernel runs.
+ 15. deepseek-v2-236b's kernel shape (the mla_moe family):
+     ``paged_attention`` at 128 query heads over the one latent "KV head"
+     at D 576, K = V = the latent pool, the planned 96-token page: 8
+     decode rows at ``DECODE_LENS`` and one page of prefill rows at
+     ~1,024 tokens over one table; bf16 (the mla body) and float32 (simt,
+     16-head tiles) against the plain version, two bf16 runs
+     bit-identical; then the times of mla, simt, plain and gather + SDPA
+     beside the bound, and the mla kernel's SASS counts from phase 1;
+ 16. deepseek-v2-236b at full width cut to 2 layers (the dense one and
+     one MoE layer of 160 experts), float32, ~21 GB of weights on each
+     side (the host's free memory printed first): prefill in planned
+     chunks and one paged decode step on the card and on the CPU; logits
+     and the ``lat`` pool agree, and the greedy tokens;
+ 17. serving: full-width deepseek-v2-236b cut in depth to the deepest
+     stack (a dense layer and MoE layers) whose bf16 weights -- the
+     parameter tree's bytes -- fit beside the pool (10 of 60 layers,
+     74.3 GB), seeded random weights, serving phase 4's trace with every
+     paged launch on the mla body; then the card's busy share over a
+     2-prompt sub-trace.
 
-Phases 0-4 and 7-14 plan and serve without a tuning artifact (the port's
+Phases 0-4 and 7-17 plan and serve without a tuning artifact (the port's
 tuning path points at a file that does not exist until phase 6 writes
 one), so their numbers compare with earlier runs'.  Each phase prints its
 seconds.
 
-Output, at the end: one JSON line describing the kernels (the zamba2 and
-mixtral shapes nested under the paged and SSD entries), the card's
-``nvidia-smi`` name and power limit, and as the last line
+Output, at the end: one JSON line describing the kernels (the zamba2,
+mixtral and deepseek shapes nested under the paged and SSD entries), the
+card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script fails before printing results.
 """
@@ -144,6 +163,7 @@ ARCH = "llama3.2-1b"
 ZAMBA = "zamba2-1.2b"
 MIXTRAL = "mixtral-8x7b"
 XLSTM = "xlstm-1.3b"
+DEEPSEEK = "deepseek-v2-236b"
 DEVICE = "cuda"
 MAX_SLOTS = 8
 MAX_LEN = 4096
@@ -241,18 +261,21 @@ def kernel_us(fn, reps: int = 10) -> dict:
 
 def make_case(dtype, lens, t, rows_share_table: bool, copies: int, seed=0,
               cfg=None, max_len=MAX_LEN, window=0):
-    """Inputs at the attention width of ``cfg`` (default llama3.2-1b) on
-    the card, over the engine's table for ``max_len`` tokens.
+    """Inputs at the attention width of ``cfg`` (default llama3.2-1b; for
+    an MLA config, its latent: ``mla_heads``) on the card, over the
+    engine's table for ``max_len`` tokens.
 
     Decode: one row per slot, each slot with its own pages.  Prefill: the
     rows are one chunk's tokens over ONE table row (``lens`` = positions
     + 1).  ``copies`` pools stand for the model's layers.  With a
     ``window``, the pages the engine's window reclaim has freed (wholly
     below ``len - 1 - window``; for a chunk, below its first row's) are
-    null entries (page 0) and hold no pool page, as in serving.
+    null entries (page 0) and hold no pool page, as in serving.  An MLA
+    config's V is its K: the one latent pool, as serving passes it.
     """
     cfg = cfg or get_cfg()
-    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, kv, d = mla_heads(cfg) if cfg.mla else (cfg.n_heads, cfg.n_kv_heads,
+                                               cfg.head_dim)
     np_ = -(-max_len // t)                       # the engine's table width
     need = [-(-n // t) for n in lens]
 
@@ -276,19 +299,29 @@ def make_case(dtype, lens, t, rows_share_table: bool, copies: int, seed=0,
             table[i, dead(ln):n] = perm[at:at + n - dead(ln)]
             at += n - dead(ln)
     q = torch.randn(len(lens), h, d, generator=gen)
-    k = torch.randn(copies, p_total, t, kv, d, generator=gen)
-    v = torch.randn(copies, p_total, t, kv, d, generator=gen)
+    k = torch.randn(copies, p_total, t, kv, d, generator=gen).to(DEVICE,
+                                                                 dtype)
+    v = k if cfg.mla else torch.randn(copies, p_total, t, kv, d,
+                                      generator=gen).to(DEVICE, dtype)
     dev = DEVICE
-    return dict(q=q.to(dev, dtype), k=k.to(dev, dtype), v=v.to(dev, dtype),
-                table=table.to(dev),
+    return dict(q=q.to(dev, dtype), k=k, v=v, table=table.to(dev),
                 lengths=torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def mla_heads(cfg) -> tuple:
+    """(query heads, KV heads, head dim) of an MLA config's paged call:
+    every query head over the one latent row of ``kv_lora_rank +
+    rope_head_dim`` (DeepSeek-V2: 128 over 1 at 576)."""
+    m = cfg.mla
+    return cfg.n_heads, 1, m.kv_lora_rank + m.rope_head_dim
 
 
 def live_work(case, window: int):
     """(bytes, operations) the function needs on these inputs: q, table,
     lengths and the output once, and each live K/V token of the pool once
-    (rows that share a page read it once); 4 flops per live (row, key,
-    query head, dim): q.k and p.v."""
+    (rows that share a page read it once; where K and V are one tensor, as
+    MLA's latent pool, its token once); 4 flops per live (row, key, query
+    head, dim): q.k and p.v."""
     q, kp, table, lengths = case["q"], case["k"], case["table"], case["lengths"]
     s, h, d = q.shape
     _, p_total, t, kv, _ = kp.shape
@@ -307,14 +340,20 @@ def live_work(case, window: int):
         live[tab[i, pos // t], pos % t] = True
         pairs += hi - lo + 1
     el = q.element_size()
+    kv_reads = 1 if case["v"] is kp else 2
     nbytes = (2 * q.numel() * el + tab.numel() * 4 + s * 4
-              + int(live.sum()) * 2 * kv * d * el)
+              + int(live.sum()) * kv_reads * kv * d * el)
     return nbytes, 4 * pairs * h * d
 
 
-def library_attention(q, kp, vp, table, lengths, window):
+def library_attention(q, kp, vp, table, lengths, window,
+                      fold_group=False):
     """Yardstick only (the port never calls it): gather the pages, then
-    ``scaled_dot_product_attention`` with grouped heads and a length mask."""
+    ``scaled_dot_product_attention`` with grouped heads and a length mask.
+    ``fold_group`` puts a KV head's G query heads on the query-length axis
+    instead (the same function, and SDPA does not repeat K and V G times:
+    at MLA's 128 heads over one 576-wide latent that would be 58 GB for a
+    prefill chunk)."""
     import torch.nn.functional as F
 
     s, h, d = q.shape
@@ -327,6 +366,10 @@ def library_attention(q, kp, vp, table, lengths, window):
     mask = kpos <= qpos
     if window:
         mask &= kpos > qpos - window
+    if fold_group:
+        return F.scaled_dot_product_attention(
+            q.reshape(s, kv, h // kv, d), k, v,
+            attn_mask=mask[:, None, None, :]).reshape(s, h, d)
     return F.scaled_dot_product_attention(
         q[:, :, None, :], k, v, attn_mask=mask[:, None, None, :],
         enable_gqa=True)[:, :, 0]
@@ -344,6 +387,10 @@ def bound_ms(nbytes: int, ops: int, dtype) -> tuple:
     t_bytes = nbytes / spec.hbm_bw * 1e3
     t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+#: The paged kernel's bodies, each with its launch counter.
+PAGED_BODIES = ("split", "mla", "simt")
 
 
 def counters(mod, bodies) -> dict:
@@ -366,7 +413,8 @@ def paged_timing(pa_mod, name, lens, shared, t, cfg, split_sizes=(),
     SDPA, the bound, the device time of each CUDA kernel and, for
     ``split_sizes``, the time at other pages per split.  ``max_len`` and
     ``window`` as in ``make_case``."""
-    from repro_torch.kernels.paged_attention import (paged_attention,
+    from repro_torch.kernels.paged_attention import (mla_split_plan,
+                                                     paged_attention,
                                                      split_plan)
     from repro_torch.kernels.ref import paged_attention_ref
 
@@ -389,12 +437,16 @@ def paged_timing(pa_mod, name, lens, shared, t, cfg, split_sizes=(),
 
     def run_lib(i):
         kl, vl = layer(i)
-        library_attention(q, kl, vl, table, lengths, window)
+        library_attention(q, kl, vl, table, lengths, window,
+                          fold_group=cfg.mla is not None)
 
     nbytes, ops = live_work(case, window)
     bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
-    splits, pages = split_plan(len(lens), kp.shape[3], table.shape[1], t)
-    before = counters(pa_mod, ("split", "simt"))
+    n_kv = kp.shape[3]
+    splits, pages = (
+        mla_split_plan(len(lens), n_kv, q.shape[1] // n_kv, table.shape[1], t)
+        if cfg.mla else split_plan(len(lens), n_kv, table.shape[1], t))
+    before = counters(pa_mod, PAGED_BODIES)
     ms = cuda_ms(run_kernel)
     row = {
         "ms": ms, "path": body(pa_mod, before, f"paged {name} timing"),
@@ -426,11 +478,11 @@ def paged_timing(pa_mod, name, lens, shared, t, cfg, split_sizes=(),
 
 
 def paged_checks(pa_mod, shapes, t, cfg, windows, max_len=MAX_LEN,
-                 null_window=0) -> tuple:
+                 null_window=0, bf16_body="split") -> tuple:
     """``paged_attention`` against its plain version at each of ``shapes``
     (name -> (lens, rows share one table)) of ``cfg``, bf16 and float32,
     at each window: within ``TOL``, two runs bit-identical, empty rows
-    zero, bf16 on the split body and float32 on simt.  ``max_len`` and
+    zero, bf16 on ``bf16_body`` and float32 on simt.  ``max_len`` and
     ``null_window`` (``make_case``'s ``window``) shape the tables.
     Returns the worst error by (dtype, shape) and the body by shape."""
     from repro_torch.kernels.paged_attention import paged_attention
@@ -445,7 +497,7 @@ def paged_checks(pa_mod, shapes, t, cfg, windows, max_len=MAX_LEN,
             for window in windows:
                 args = (case["q"], case["k"][0], case["v"][0],
                         case["table"], case["lengths"])
-                before = counters(pa_mod, ("split", "simt"))
+                before = counters(pa_mod, PAGED_BODIES)
                 out = paged_attention(*args, window=window, page_tokens=t)
                 again = paged_attention(*args, window=window, page_tokens=t)
                 torch.cuda.synchronize()
@@ -468,7 +520,7 @@ def paged_checks(pa_mod, shapes, t, cfg, windows, max_len=MAX_LEN,
                         f"window {window}")
                 assert same, f"two runs differ: {key}, window {window}"
                 assert not out[~live].float().abs().any(), "empty row not 0"
-    assert all(b == ("split" if k.startswith("bfloat16") else "simt")
+    assert all(b == (bf16_body if k.startswith("bfloat16") else "simt")
                for k, b in bodies.items()), bodies
     return worst, bodies
 
@@ -564,9 +616,11 @@ def phase_slice(t: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def serve_trace(cfg, mods: dict, warm_prompts) -> tuple:
+def serve_trace(cfg, mods: dict, warm_prompts,
+                kv_budget_bytes=None) -> tuple:
     """``ServeEngine`` on ``cfg`` (seeded random bf16 weights, paged
-    batching, chunked prefill, ``MAX_SLOTS`` slots, ``MAX_LEN``) serving
+    batching, chunked prefill, ``MAX_SLOTS`` slots, ``MAX_LEN``, the
+    engine's KV budget unless ``kv_budget_bytes`` is given) serving
     ``PROMPT_LENS`` prompts of ``MAX_NEW`` tokens each, after a warm-up
     engine (same weights) served ``warm_prompts`` of them.  Every launch
     counter of ``mods`` is set to 0 just before the main path's run and
@@ -575,7 +629,8 @@ def serve_trace(cfg, mods: dict, warm_prompts) -> tuple:
 
     policy = ServePolicy(batching="paged", prefill="chunked",
                          max_slots=MAX_SLOTS, max_len=MAX_LEN,
-                         max_new_tokens=MAX_NEW)
+                         max_new_tokens=MAX_NEW,
+                         kv_budget_bytes=kv_budget_bytes)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
                for n in PROMPT_LENS]
@@ -587,7 +642,8 @@ def serve_trace(cfg, mods: dict, warm_prompts) -> tuple:
     del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    names = ("LAUNCHES", "LAUNCHES_SPLIT", "LAUNCHES_TC", "LAUNCHES_SIMT")
+    names = ("LAUNCHES", "LAUNCHES_SPLIT", "LAUNCHES_MLA", "LAUNCHES_TC",
+             "LAUNCHES_SIMT")
     for mod in mods.values():       # the main path's run starts here
         for name in names:
             if hasattr(mod, name):
@@ -1665,6 +1721,164 @@ def xlstm_block_ms(cfg, params, t: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-17: deepseek-v2-236b, the mla_moe family
+# ---------------------------------------------------------------------------
+
+
+def phase_deepseek_kernels(t: int, sass_by_fn: dict) -> dict:
+    """``paged_attention`` at the shapes deepseek-v2-236b's serving path
+    gives it -- 128 query heads over the one latent "KV head" at D 576
+    (kv_lora 512 + rope 64), K = V = the latent pool, the planned page --
+    against its plain version: 8 decode rows at ``DECODE_LENS`` and one
+    page of prefill rows at ~1,024 tokens over one table; bf16 on the mla
+    body, float32 on simt, two bf16 runs bit-identical; then the times of
+    mla, simt, plain and gather + SDPA beside the bound, and the device
+    time of each CUDA kernel; and the mla kernel's tensor-core and
+    async-copy instructions from phase 1's SASS scan."""
+    from repro_torch.kernels import paged_attention as pa_mod
+
+    cfg = deepseek_cfg()
+    h, kv, d = mla_heads(cfg)
+    log(f"  {h} query heads over {kv} latent head, D {d}, page {t}, K = V")
+    pos0 = (1024 // t) * t
+    shapes = {"decode": (DECODE_LENS, False),
+              "prefill": (tuple(range(pos0 + 1, pos0 + t + 1)), True)}
+    worst, bodies = paged_checks(pa_mod, shapes, t, cfg, (0,),
+                                 bf16_body="mla")
+    paged = {name: paged_timing(pa_mod, name, lens, shared, t, cfg)
+             for name, (lens, shared) in shapes.items()}
+    sass = {op: n for fn, c in sass_by_fn.items() if "paged_mla_kernel" in fn
+            for op, n in c.items()}
+    log("  phase 15 bodies: " + json.dumps(bodies))
+    log("  phase 15 max_abs_err: " + json.dumps(
+        {f"{a}/{b}": e for (a, b), e in worst.items()}))
+    log("  phase 15 mla kernel SASS (phase 1): " + json.dumps(sass))
+    return {"paged": paged, "paged_err": worst[("bfloat16", "decode")],
+            "errors": {f"{a}/{b}": e for (a, b), e in worst.items()},
+            "sass": sass}
+
+
+def host_free_bytes() -> int:
+    """The host's available memory (``MemAvailable`` of /proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def tree_bytes(specs, el: int) -> int:
+    """Bytes of a parameter tree (``Model.param_specs``) at ``el`` bytes an
+    element: the tree's own leaves, not ``cfg.param_count()``."""
+    from repro_torch.models.params import spec_tree_map
+
+    sizes = []
+    spec_tree_map(lambda _, sp: sizes.append(int(np.prod(sp.shape))), specs)
+    return sum(sizes) * el
+
+
+def phase_deepseek_slice(t: int) -> dict:
+    """deepseek-v2-236b at full width cut to 2 layers (the dense one and
+    one MoE layer: 160 experts of 1,536, top 6, 2 shared), float32: each
+    of 2 slots prefilled in planned chunks and one paged decode step, card
+    against CPU on the same weights; logits and the ``lat`` pool agree,
+    and so do the greedy tokens.  Both copies of the weights are float32
+    (~21 GB each); if the host cannot hold its copy the phase stops."""
+    from repro_torch.models.model import Model
+
+    free_card()
+    cfg = dataclasses.replace(deepseek_cfg(), n_layers=2)
+    need = tree_bytes(Model(cfg).param_specs(), 4)
+    host = host_free_bytes()
+    log(f"  host memory available {host / 1e9:.1f} GB; the CPU copy of the "
+        f"2-layer float32 weights takes {need / 1e9:.1f} GB")
+    if host < need * 1.3:
+        raise RuntimeError(f"the host cannot hold the slice's float32 "
+                           f"weights ({need / 1e9:.1f} GB of "
+                           f"{host / 1e9:.1f} GB available); widths are "
+                           f"not cut")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (t + 7, 13)]
+    return slice_against_cpu(cfg, t, prompts, "deepseek 2-layer slice")
+
+
+#: Card memory phase 17's depth cut leaves beside the weights and the
+#: pool: one layer's float32 draw (5.03 GB for the experts' ``wi``: 160 x
+#: 5120 x 1536), the prefill chunk's expert buffers, activations, the
+#: split workspace and the allocator's slack.
+DEEPSEEK_HEADROOM = 8e9
+
+
+def deepseek_depth(free_bytes: int):
+    """The deepest cut of full-width deepseek-v2-236b -- the leading dense
+    layer and MoE layers -- whose bf16 weights (the parameter tree's own
+    bytes: ``cfg.param_count()`` overcounts this model) and phase 4's page
+    pool (8 slots of 4096 tokens at the planned page) leave
+    ``DEEPSEEK_HEADROOM`` of ``free_bytes``: ``(cfg, weight bytes, pool
+    bytes)``."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import plan_decode
+    from repro_torch.serve.kvcache import kv_token_bytes
+
+    full = deepseek_cfg()
+    for n in range(full.n_layers, full.moe.first_k_dense, -1):
+        cfg = dataclasses.replace(full, n_layers=n)
+        plan = plan_decode(cfg, max_len=MAX_LEN, batch=MAX_SLOTS,
+                           dtype_bytes=2)
+        pages = MAX_SLOTS * plan.page_table()["pages_per_slot"]
+        pool = kv_token_bytes(cfg, 2)[0] * plan.page_plan()["page_tokens"] \
+            * pages
+        weights = tree_bytes(Model(cfg).param_specs(), 2)
+        if weights + pool + DEEPSEEK_HEADROOM <= free_bytes:
+            return cfg, weights, pool
+    raise RuntimeError(f"no depth of {full.arch} fits {free_bytes} B")
+
+
+def phase_deepseek_serve(pa_mod) -> dict:
+    """Full-width deepseek-v2-236b, cut in depth to fit the card (bf16
+    seeded weights), serving phase 4's trace with every paged launch on
+    the mla body; then the card's busy share over a short sub-trace.  The
+    engine's own KV budget subtracts ``cfg.param_count()``'s weights from
+    the card, which at this cut exceed it, so the pool the depth was sized
+    for is given as the budget."""
+    free = free_card()
+    cfg, weights, pool = deepseek_depth(free)
+    log(f"  depth cut: {cfg.n_layers} of {deepseek_cfg().n_layers} layers "
+        f"({cfg.moe.first_k_dense} dense + "
+        f"{cfg.n_layers - cfg.moe.first_k_dense} MoE; widths, experts, "
+        f"top-k, MLA ranks and vocab as published): {weights / 1e9:.2f} GB "
+        f"of bf16 weights + {pool / 1e9:.2f} GB of page pool + "
+        f"{DEEPSEEK_HEADROOM / 1e9:.0f} GB headroom <= {free / 1e9:.2f} GB "
+        f"free (param_count() would say {cfg.param_count() * 2 / 1e9:.2f} "
+        f"GB)")
+    row, _, engine, prompts = serve_trace(cfg, {"paged": pa_mod}, (0,),
+                                          kv_budget_bytes=pool)
+    pa = row["launches"]["paged"]
+    steps, chunks = row["decode_steps"], row["prefill_chunks"]
+    log(f"  launches: {json.dumps(pa)} (want {cfg.n_layers} layers x "
+        f"({steps} ticks + {chunks} chunks), all mla)")
+    assert pa["LAUNCHES"] > 0, "the main path never launched the kernel"
+    assert pa["LAUNCHES"] == pa["LAUNCHES_MLA"] == \
+        cfg.n_layers * (steps + chunks), pa
+    assert pa["LAUNCHES_SIMT"] == pa["LAUNCHES_SPLIT"] == 0, pa
+    row.update(depth=cfg.n_layers, weight_gb=weights / 1e9,
+               pool_gb=pool / 1e9, free_gb=free / 1e9)
+
+    # The card's busy share over a sub-trace (2 prompts, 8 new tokens).
+    sub = [prompts[0], prompts[4]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate(sub, max_new_tokens=8)
+    torch.cuda.synchronize()
+    row["busy_share_profiled"], row["busy_share"] = profile_serve(
+        engine, sub, time.perf_counter() - t0, max_new=8)
+    log(f"  deepseek {cfg.n_layers} layers: wall {row['wall_s']:.2f} s for "
+        f"the trace; device busy share {row['busy_share']:.3f} of the "
+        f"sub-trace's unprofiled wall")
+    return row
+
+
 def zamba_cfg():
     from repro_torch.configs import get_model_config
 
@@ -1681,6 +1895,12 @@ def xlstm_cfg():
     from repro_torch.configs import get_model_config
 
     return get_model_config(XLSTM)
+
+
+def deepseek_cfg():
+    from repro_torch.configs import get_model_config
+
+    return get_model_config(DEEPSEEK)
 
 
 def get_cfg():
@@ -1726,7 +1946,7 @@ def main() -> int:
             failed.append(name)
             return None
 
-    sass = {}
+    sass, sass_by_fn = {}, {}
 
     def build():
         t0 = time.perf_counter()
@@ -1747,11 +1967,13 @@ def main() -> int:
         ops = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
         bodies = {"matmul_cc": ("wgmma_kernel",),
                   "flash_attention": ("wgmma_kernel",),
-                  "paged_attention": ("paged_split_kernel",),
+                  "paged_attention": ("paged_split_kernel",
+                                      "paged_mla_kernel"),
                   "ssd_scan": ("ssd_states_kernel", "ssd_out_kernel")}
         for name, marks in bodies.items():
             counts = _build.sass_counts(name, ops)
             total = dict.fromkeys(ops, 0)
+            sass_by_fn.update(counts)
             for fn, c in counts.items():
                 log(f"  sass {fn}: " + ", ".join(f"{op} {c[op]}"
                                                   for op in ops))
@@ -1774,6 +1996,7 @@ def main() -> int:
         f"per layer page, SMEM budget {plan.level('SMEM').budget_bytes} B, "
         f"{plan.page_plan()['source']})")
     kern = serve = tk = tune = zk = zserve = mk = mserve = xserve = None
+    dk = dserve = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -1826,8 +2049,26 @@ def main() -> int:
         phase("phase 13 xlstm slice", phase_xlstm_slice)
         log("[14] serving full-width xlstm-1.3b, bf16")
         xserve = phase("phase 14 xlstm serve", phase_xlstm_serve, pa_mod)
+        free_card()
+        dplan = plan_decode(deepseek_cfg(), max_len=MAX_LEN, batch=MAX_SLOTS,
+                            dtype_bytes=2)
+        dt = dplan.page_plan()["page_tokens"]
+        log(f"  deepseek-v2-236b planned page: {dt} tokens, "
+            f"{dplan.page_table()['pages_per_slot']} pages a slot "
+            f"({dplan.page_plan()['source']})")
+        log(f"[15] deepseek-v2-236b's shapes: paged attention (128 heads "
+            f"over the 576-wide latent, page {dt}), against its plain "
+            "version")
+        dk = phase("phase 15 deepseek kernels", phase_deepseek_kernels, dt,
+                   sass_by_fn)
+        log("[16] deepseek-v2-236b at full width cut to 2 layers (dense + "
+            "MoE), cuda against cpu, float32")
+        phase("phase 16 deepseek slice", phase_deepseek_slice, dt)
+        log("[17] serving full-width deepseek-v2-236b cut in depth, bf16")
+        dserve = phase("phase 17 deepseek serve", phase_deepseek_serve,
+                       pa_mod)
     if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
-                          xserve):
+                          xserve, dk, dserve):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -1881,6 +2122,17 @@ def main() -> int:
         "max_abs_err": mk["paged_err"],
         **{name: {k: row[k] for k in keys}
            for name, row in mk["paged"].items()}}
+    # deepseek-v2-236b: the paged kernel's serving launches (phase 17) by
+    # body, and its times and bounds at 128 heads x D 576 (phase 15).
+    dl = dserve["launches"]["paged"]
+    kernels[0]["deepseek"] = {
+        "layers": dserve["depth"],
+        "launches": dl["LAUNCHES"],
+        "launches_mla": dl["LAUNCHES_MLA"],
+        "launches_simt": dl["LAUNCHES_SIMT"],
+        "max_abs_err": dk["paged_err"], "sass_mla": dk["sass"],
+        **{name: {k: row[k] for k in keys}
+           for name, row in dk["paged"].items()}}
     ssd = kernels[3]
     ssd["launches_tune"] = ssd["launches"]
     ssd["launches"] = zl["ssd"]["LAUNCHES"]

@@ -19,7 +19,7 @@
 // keep enough bytes in flight to fill HBM's bandwidth, and to spend no
 // more than the page's own load time on the math.
 //
-// Two bodies:
+// Three bodies:
 //
 // `split` (bf16, D 64 or 128, T a multiple of 8 up to 256, G <= 16):
 //   * flash-decoding: the grid is (KV head, row, split), each split a fixed
@@ -58,10 +58,26 @@
 //     which it finds from `lengths` on the card.  Nothing is summed with
 //     atomics, so two launches on the same inputs are bit-identical.
 //
-// `simt` (float32, and shapes the split body does not take): one thread
-// block per (row, KV head) that walks its live pages in 64-token tiles,
-// widened to float32 in shared memory, on the CUDA cores (the first
-// slice's kernel, kept as it was).
+// `mla` (bf16, D 576, up to 128 query heads per KV head): DeepSeek-V2's
+// absorbed MLA decode, where the "KV head" is the one 576-wide latent row
+// (kv_lora 512 + rope 64) and K = V = the latent pool.  Decode (8 rows,
+// ~3,200 live tokens: 3.7 MB and 0.94 GFLOP) is bytes-bound by a hair;
+// a 96-row prefill chunk over ~1,000 keys (29 GFLOP) is bound by the
+// tensor cores.  A G = 128 group is eight m16 tiles, so 16-head tiles go
+// in the grid; a warp cannot own 576 float32 output columns of 16 heads
+// (288 accumulators a thread), so the columns are split over the 4 warps
+// and the tile's probabilities meet in shared memory; a 96-token page of
+// the latent is 110.6 KB, so 32-token tiles are staged (cp.async, a
+// two-stage ring of padded rows, once when K and V are one tensor) rather
+// than whole pages.  The stream is split only where the (row, head tile)
+// blocks do not fill the card (decode); a prefill chunk's 768 blocks
+// write their rows directly, with no workspace.  See the kernel below.
+//
+// `simt` (float32, and shapes the other bodies do not take): one thread
+// block per (row, KV head, run of query heads) that walks its live pages
+// in 64-token tiles, widened to float32 in shared memory, on the CUDA
+// cores (the first slice's kernel); where a whole group and 64-token tile
+// do not fit a block (the MLA latent), 16 heads and 16-token tiles.
 //
 // Interface: plain C functions (no PyTorch headers), loaded with ctypes.
 // They launch on the caller's stream, allocate nothing, and return
@@ -81,7 +97,10 @@ namespace simt {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileTokens = 64;     // tokens of one page staged at a time
+constexpr int kWideTileTokens = 16; // ... where a 64-token tile does not fit
+constexpr int kWideHeads = 16;      // query heads of a block there
 constexpr float kNegInf = -1e30f;   // the masked logit, as in the reference
+constexpr size_t kMaxSmem = 232448; // shared memory a block may use
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -92,16 +111,40 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Shared-memory floats one block needs (the layout in the kernel below).
-__host__ __device__ inline size_t smem_floats(int G, int D) {
-  return 2 * (size_t)G * D                         // q, acc
-         + (size_t)kTileTokens * (D + 1)           // K tile (padded rows)
-         + (size_t)kTileTokens * D                 // V tile
-         + (size_t)G * kTileTokens                 // logits / probabilities
-         + 3 * (size_t)G;                          // m, l, corr
+// Shared-memory floats one block of `gb` query heads needs with a tile of
+// `tile` tokens (the layout in the kernel below).
+__host__ __device__ inline size_t smem_floats(int gb, int D,
+                                              int tile = kTileTokens) {
+  return 2 * (size_t)gb * D                        // q, acc
+         + (size_t)tile * (D + 1)                  // K tile (padded rows)
+         + (size_t)tile * D                        // V tile
+         + (size_t)gb * tile                       // logits / probabilities
+         + 3 * (size_t)gb;                         // m, l, corr
 }
 
-template <typename T>
+// A block's query heads and token tile: the whole group and 64-token
+// tiles where they fit a block's shared memory (every shape before the
+// MLA latent); else 16 heads and 16-token tiles (the 576-wide latent at
+// 128 heads: 148,736 B instead of 919,296 B).
+__host__ __device__ inline void plan(int G, int D, int* gb, int* tile) {
+  if (smem_floats(G, D) * sizeof(float) <= kMaxSmem) {
+    *gb = G;
+    *tile = kTileTokens;
+  } else {
+    *gb = G < kWideHeads ? G : kWideHeads;
+    *tile = kWideTileTokens;
+  }
+}
+
+__host__ __device__ inline size_t smem_bytes(int G, int D) {
+  int gb, tile;
+  plan(G, D, &gb, &tile);
+  return smem_floats(gb, D, tile) * sizeof(float);
+}
+
+// One block per (row, KV head, run of `heads_per_block` query heads of
+// its group).
+template <typename T, int kTile>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q,        // (S, H, D)
                        const T* __restrict__ k_pages,  // (P, T, KV, D)
@@ -110,33 +153,35 @@ paged_attention_kernel(const T* __restrict__ q,        // (S, H, D)
                        const int* __restrict__ lengths,  // (S,)
                        T* __restrict__ out,            // (S, H, D)
                        int H, int KV, int D, int page_tokens, int NP,
-                       int window, float scale) {
+                       int window, float scale, int heads_per_block) {
   constexpr int kVec = 16 / sizeof(T);         // elements per 16-byte load
   const int row = blockIdx.x;
   const int kvh = blockIdx.y;
   const int G = H / KV;
+  const int g0 = blockIdx.z * heads_per_block;  // first head of the block
+  const int GB = min(heads_per_block, G - g0);  // heads of this block
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
   extern __shared__ float smem[];
-  float* s_q = smem;                           // G x D
-  float* s_acc = s_q + G * D;                  // G x D
-  float* s_k = s_acc + G * D;                  // kTileTokens x (D + 1)
-  float* s_v = s_k + kTileTokens * (D + 1);    // kTileTokens x D
-  float* s_p = s_v + kTileTokens * D;          // G x kTileTokens
-  float* s_m = s_p + G * kTileTokens;          // G
-  float* s_l = s_m + G;                        // G
-  float* s_corr = s_l + G;                     // G
+  float* s_q = smem;                           // GB x D
+  float* s_acc = s_q + GB * D;                 // GB x D
+  float* s_k = s_acc + GB * D;                 // kTile x (D + 1)
+  float* s_v = s_k + kTile * (D + 1);          // kTile x D
+  float* s_p = s_v + kTile * D;                // GB x kTile
+  float* s_m = s_p + GB * kTile;               // GB
+  float* s_l = s_m + GB;                       // GB
+  float* s_corr = s_l + GB;                    // GB
 
-  // The G query heads of KV head kvh are heads kvh*G .. kvh*G+G-1: one
-  // contiguous run of G*D elements of row `row`.
-  const size_t q_base = ((size_t)row * H + (size_t)kvh * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) {
+  // The block's heads of KV head kvh are heads kvh*G+g0 .. +GB-1: one
+  // contiguous run of GB*D elements of row `row`.
+  const size_t q_base = ((size_t)row * H + (size_t)kvh * G + g0) * D;
+  for (int i = tid; i < GB * D; i += kThreads) {
     s_q[i] = to_f32(q[q_base + i]);
     s_acc[i] = 0.f;
   }
-  for (int g = tid; g < G; g += kThreads) {
+  for (int g = tid; g < GB; g += kThreads) {
     s_m[g] = kNegInf;
     s_l[g] = 0.f;
   }
@@ -154,9 +199,9 @@ paged_attention_kernel(const T* __restrict__ q,        // (S, H, D)
     for (int p = lo / page_tokens; p <= hi / page_tokens; ++p) {
       const size_t page_base =
           (size_t)row_table[p] * page_tokens * tok_stride + (size_t)kvh * D;
-      for (int t0 = 0; t0 < page_tokens; t0 += kTileTokens) {
+      for (int t0 = 0; t0 < page_tokens; t0 += kTile) {
         const int k0 = p * page_tokens + t0;       // first key of the tile
-        const int n = min(kTileTokens, page_tokens - t0);
+        const int n = min(kTile, page_tokens - t0);
         if (k0 > hi || k0 + n - 1 < lo) continue;  // no live key: skip
         // Every tile processed below holds at least one live key, so its
         // max is finite and masked keys get probability exp(-1e30 - m) = 0.
@@ -180,8 +225,8 @@ paged_attention_kernel(const T* __restrict__ q,        // (S, H, D)
         }
         __syncthreads();
 
-        // Logits of the G heads against the tile's keys, masked.
-        for (int i = tid; i < G * n; i += kThreads) {
+        // Logits of the block's heads against the tile's keys, masked.
+        for (int i = tid; i < GB * n; i += kThreads) {
           const int g = i / n;
           const int j = i - g * n;
           const float* qr = s_q + g * D;
@@ -199,13 +244,13 @@ paged_attention_kernel(const T* __restrict__ q,        // (S, H, D)
           const int kpos = k0 + j;
           const bool live =
               kpos <= qpos && (window <= 0 || kpos > qpos - window);
-          s_p[g * kTileTokens + j] = live ? dot * scale : kNegInf;
+          s_p[g * kTile + j] = live ? dot * scale : kNegInf;
         }
         __syncthreads();
 
         // Online softmax: one warp per head.
-        for (int g = warp; g < G; g += kWarps) {
-          float* pr = s_p + g * kTileTokens;
+        for (int g = warp; g < GB; g += kWarps) {
+          float* pr = s_p + g * kTile;
           float m_cur = kNegInf;
           for (int j = lane; j < n; j += 32) m_cur = fmaxf(m_cur, pr[j]);
           for (int o = 16; o > 0; o >>= 1)
@@ -230,10 +275,10 @@ paged_attention_kernel(const T* __restrict__ q,        // (S, H, D)
         __syncthreads();
 
         // acc = acc * corr + P V
-        for (int i = tid; i < G * D; i += kThreads) {
+        for (int i = tid; i < GB * D; i += kThreads) {
           const int g = i / D;
           const int d = i - g * D;
-          const float* pr = s_p + g * kTileTokens;
+          const float* pr = s_p + g * kTile;
           const float* vc = s_v + d;
           float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
           int j = 0;
@@ -251,9 +296,31 @@ paged_attention_kernel(const T* __restrict__ q,        // (S, H, D)
     }
   }
 
-  for (int i = tid; i < G * D; i += kThreads) {
+  for (int i = tid; i < GB * D; i += kThreads) {
     store_f32(&out[q_base + i], s_acc[i] / fmaxf(s_l[i / D], 1e-30f));
   }
+}
+
+template <typename T, int kTile>
+int launch_tile(const void* q, const void* k_pages, const void* v_pages,
+                const void* table, const void* lengths, void* out, int S,
+                int H, int KV, int D, int page_tokens, int NP, int window,
+                float scale, int gb, cudaStream_t stream) {
+  const size_t smem = smem_floats(gb, D, kTile) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_kernel<T, kTile>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int G = H / KV;
+  dim3 grid(S, KV, (G + gb - 1) / gb);
+  paged_attention_kernel<T, kTile><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), static_cast<const int*>(table),
+      static_cast<const int*>(lengths), static_cast<T*>(out), H, KV, D,
+      page_tokens, NP, window, scale, gb);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -261,20 +328,15 @@ int launch_simt(const void* q, const void* k_pages, const void* v_pages,
            const void* table, const void* lengths, void* out, int S, int H,
            int KV, int D, int page_tokens, int NP, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = smem_floats(H / KV, D) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid(S, KV);
-  paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<T*>(out), H, KV, D,
-      page_tokens, NP, window, scale);
-  return (int)cudaGetLastError();
+  int gb, tile;
+  plan(H / KV, D, &gb, &tile);
+  if (tile == kTileTokens)
+    return launch_tile<T, kTileTokens>(q, k_pages, v_pages, table, lengths,
+                                       out, S, H, KV, D, page_tokens, NP,
+                                       window, scale, gb, stream);
+  return launch_tile<T, kWideTileTokens>(q, k_pages, v_pages, table, lengths,
+                                         out, S, H, KV, D, page_tokens, NP,
+                                         window, scale, gb, stream);
 }
 
 
@@ -550,7 +612,8 @@ paged_split_kernel(const __grid_constant__ CUtensorMap tm_k,  // (D, KV, P*T)
   }
 }
 
-// Merges the splits' partials of one (row, KV head), in split order.  The
+// Merges the splits' partials of one (row, KV head), in split order (a
+// block merges the part of its G x D outputs that blockIdx.z names).  The
 // live splits are the run (lo / T) / split_pages .. (hi / T) / split_pages,
 // found from lengths[row] exactly as the split kernel finds them, so only
 // their partials are read; the loads of several splits are in flight at
@@ -573,7 +636,12 @@ paged_combine_kernel(const float* __restrict__ ws_acc,
   const bool any = len > 0 && hi >= lo;
   const int s_lo = any ? (lo / T) / split_pages : 0;
   const int s_hi = any ? (hi / T) / split_pages : -1;
-  for (int idx = threadIdx.x; idx < G * D; idx += kCombineThreads) {
+  // Block z of gridDim.z merges elements [z * chunk, (z + 1) * chunk) of
+  // the G x D output (one z: all of it, as the split body launches it).
+  const int chunk = (G * D + gridDim.z - 1) / gridDim.z;
+  const int end = min(G * D, ((int)blockIdx.z + 1) * chunk);
+  for (int idx = blockIdx.z * chunk + threadIdx.x; idx < end;
+       idx += kCombineThreads) {
     const int gr = idx / D;
     const int d = idx - gr * D;
     float mx = -INFINITY, lsum = 0.f, a = 0.f;
@@ -621,7 +689,7 @@ int launch_split_d(const CUtensorMap& tk, const CUtensorMap& tv,
       scale * 1.4426950408889634f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_combine_kernel<<<dim3(KV, S), kCombineThreads, 0, stream>>>(
+  paged_combine_kernel<<<dim3(KV, S, 1), kCombineThreads, 0, stream>>>(
       ws_acc, ws_ml, static_cast<const int*>(lengths),
       static_cast<__nv_bfloat16*>(out), H, KV, D, T, NP, splits, split_pages,
       window);
@@ -655,20 +723,314 @@ int launch_split(const void* q, const void* k_pages, const void* v_pages,
 
 }  // namespace split
 
-extern "C" {
+namespace mla {
 
-// Bytes of shared memory one block of body `path` (0 = simt, 1 = split)
-// needs; the simt body's does not depend on the page.  The wrapper refuses
-// shapes above the 232,448 B a block may use.
-size_t paged_attention_smem_bytes(int G, int D, int T, int path) {
-  if (path == 1) return split::smem_bytes(G, D, T);
-  return simt::smem_floats(G, D) * sizeof(float);
+constexpr int kD = 576;              // the latent row: kv_lora 512 + rope 64
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kHeads = 16;           // query heads of a block: one m16 tile
+constexpr int kTile = 32;            // tokens staged at a time: 8 a warp
+constexpr int kStages = 2;
+constexpr int kRow = kD + 8;         // staged row, padded to 1,168 B so the
+                                     // 8 rows one ldmatrix reads hit 8 banks
+constexpr int kChunks = kD / 8;      // 16-byte chunks of a row
+constexpr int kCols = kD / kWarps;   // output columns a warp owns: 144
+constexpr int kColTiles = kCols / 8;  // its n8 accumulator tiles: 18
+constexpr int kScoreLd = kTile + 8;  // floats of a staged score row
+
+// Shared memory of one block: the q tile, the ring of token tiles (one
+// ring when K and V are one tensor, as the MLA latent pool is; two
+// otherwise) and the tile's scores.
+__host__ __device__ inline size_t smem_bytes(bool shared_kv) {
+  return (size_t)kHeads * kRow * 2
+         + (shared_kv ? 1 : 2) * (size_t)kStages * kTile * kRow * 2
+         + (size_t)kHeads * kScoreLd * 4;
 }
 
-// dtype: 0 = float32, 1 = bfloat16; path: 0 = simt, 1 = split (bf16 only;
-// ws_acc/ws_ml are the float32 partials, (S, KV, splits, G, D) and
-// (S, KV, splits, G, 2), and P the pool's page count).  All pointers are
-// device pointers on `device`; `stream` is a cudaStream_t.
+// One block per (KV head x 16-head tile of its group, row, split).  The
+// block walks the split's live tokens in 32-token tiles, copied with
+// cp.async into a two-stage ring of padded rows (each token's address
+// from the row's table: a tile may cross pages).  Per tile: q.K^T on the
+// tensor cores, each warp 8 tokens against all 16 heads over the 576-wide
+// depth; the masked scores meet in shared memory; every warp runs the
+// same online softmax over the tile (so all hold the same max, sum and
+// correction) and keeps P as its A fragment; P.V on the tensor cores, each
+// warp 144 of the 576 output columns.  With one split the block writes its
+// normalised rows; with more, its float32 partial (m, l, unnormalised acc)
+// in the split body's workspace layout, merged by paged_combine_kernel.
+__global__ void __launch_bounds__(kThreads)
+paged_mla_kernel(const __nv_bfloat16* __restrict__ q,        // (S, H, D)
+                 const __nv_bfloat16* __restrict__ k_pages,  // (P, T, KV, D)
+                 const __nv_bfloat16* __restrict__ v_pages,  // (P, T, KV, D)
+                 const int* __restrict__ table,              // (S, NP)
+                 const int* __restrict__ lengths,            // (S,)
+                 __nv_bfloat16* __restrict__ out,            // (S, H, D)
+                 float* __restrict__ ws_acc,  // (S, KV, splits, G, D)
+                 float* __restrict__ ws_ml,   // (S, KV, splits, G, 2)
+                 int H, int KV, int T, int NP, int split_pages, int window,
+                 float scale_log2) {
+  const int G = H / KV;
+  const int tiles = (G + kHeads - 1) / kHeads;
+  const int kvh = blockIdx.x / tiles;
+  const int h0 = (blockIdx.x - kvh * tiles) * kHeads;  // in the group
+  const int nh = min(kHeads, G - h0);                  // heads of the block
+  const int row = blockIdx.y;
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const bool shared_kv = k_pages == v_pages;
+  const size_t base = ((size_t)row * KV + kvh) * splits + split;
+  const size_t head0 = (size_t)row * H + (size_t)kvh * G + h0;
+
+  const int len = lengths[row];
+  const int qpos = len - 1;
+  const int lo = window > 0 ? max(0, qpos - window + 1) : 0;
+  const int hi = min(qpos, NP * T - 1);
+  const int span = split_pages * T;
+  const int k_first = max(lo, split * span);
+  const int k_last = min(hi, split * span + span - 1);
+  if (len <= 0 || k_first > k_last) {
+    if (splits > 1) {                  // an empty partial (never merged)
+      for (int i = tid; i < nh; i += kThreads) {
+        ws_ml[(base * G + h0 + i) * 2] = -INFINITY;
+        ws_ml[(base * G + h0 + i) * 2 + 1] = 0.f;
+      }
+    } else {                           // a row without keys is zeros
+      for (int i = tid; i < nh * kD; i += kThreads)
+        out[head0 * kD + i] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  const int n_tiles = (k_last - k_first) / kTile + 1;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_k = s_q + kHeads * kRow;
+  __nv_bfloat16* s_v = shared_kv ? s_k : s_k + kStages * kTile * kRow;
+  float* s_sc = reinterpret_cast<float*>(
+      s_k + (shared_kv ? 1 : 2) * kStages * kTile * kRow);
+
+  // The q tile: the block's heads, zero rows past the group.
+  for (int i = tid; i < kHeads * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    __nv_bfloat16* d = s_q + r * kRow + c * 8;
+    if (r < nh)
+      hopper::cp_async_16(d, q + (head0 + r) * kD + c * 8);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // Token tile i into stage i % kStages: four threads a token, each every
+  // fourth 16-byte chunk of its row.  Tokens past the split's last live
+  // key copy that key (finite; masked below).
+  const size_t tok_stride = (size_t)KV * kD;
+  auto stage_tile = [&](int i) {
+    const int st = i % kStages;
+    const int j = tid >> 2;
+    const int kp = min(k_first + i * kTile + j, k_last);
+    const int page = table[(size_t)row * NP + kp / T];
+    const size_t src = ((size_t)page * T + kp % T) * tok_stride +
+                       (size_t)kvh * kD;
+    __nv_bfloat16* dk = s_k + (st * kTile + j) * kRow;
+    __nv_bfloat16* dv = s_v + (st * kTile + j) * kRow;
+    for (int c = tid & 3; c < kChunks; c += 4) {
+      hopper::cp_async_16(dk + c * 8, k_pages + src + c * 8);
+      if (!shared_kv) hopper::cp_async_16(dv + c * 8, v_pages + src + c * 8);
+    }
+  };
+  stage_tile(0);
+  hopper::cp_async_commit();           // group 0: q and tile 0
+  if (n_tiles > 1) stage_tile(1);
+  hopper::cp_async_commit();           // group 1: tile 1 (or nothing)
+
+  // Rows g and g + 8 of the tile: online softmax (log2 domain) and this
+  // warp's 144 output columns.
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[kColTiles][4];
+#pragma unroll
+  for (int i = 0; i < kColTiles; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int mi = lane >> 3;            // the ldmatrix matrix this lane names
+  const int n0 = warp * 8;             // this warp's tokens in q.K^T
+  const int c_base = warp * kCols;     // ... and its columns in P.V
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    hopper::cp_async_wait<1>();        // groups 0..i are in
+    __syncthreads();
+    const __nv_bfloat16* kt = s_k + st * kTile * kRow;
+    const __nv_bfloat16* vt = s_v + st * kTile * kRow;
+    const int k0 = k_first + i * kTile;
+
+    // Scores of the 16 heads against tokens n0..n0+7, two k16 steps a
+    // K load: matrices mi = dims kk + 8 mi of the 8 tokens.
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 6
+    for (int kk = 0; kk < kD; kk += 32) {
+      uint32_t kb[4], qa[4];
+      hopper::ldmatrix_x4(kb, kt + (n0 + (lane & 7)) * kRow + kk + mi * 8);
+      const __nv_bfloat16* qr =
+          s_q + ((lane & 7) + ((mi & 1) << 3)) * kRow + kk + ((mi >> 1) << 3);
+      hopper::ldmatrix_x4(qa, qr);
+      hopper::mma_bf16_16816(sc, qa, kb[0], kb[1]);
+      hopper::ldmatrix_x4(qa, qr + 16);
+      hopper::mma_bf16_16816(sc, qa, kb[2], kb[3]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = n0 + 2 * t + (c & 1);
+      s_sc[(g + 8 * (c >> 1)) * kScoreLd + j] =
+          k0 + j <= k_last ? sc[c] * scale_log2 : -INFINITY;
+    }
+    __syncthreads();
+
+    // Every warp: rows g, g + 8 at tokens 2t + {0, 1, 8, 9, 16, 17, 24,
+    // 25} -- the A fragments of P for the tile's two k16 steps.
+    float p[2][8];
+    uint32_t pa[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        p[r][e] = s_sc[(g + 8 * r) * kScoreLd + 2 * t + (e & 1) +
+                       8 * (e >> 1)];
+        mx = fmaxf(mx, p[r][e]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f(m[r] - m_use);
+      m[r] = m_new;
+      l[r] *= corr;
+#pragma unroll
+      for (int n = 0; n < kColTiles; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        p[r][e] = exp2f(p[r][e] - m_use);
+        l[r] += p[r][e];
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      pa[ks][0] = hopper::pack_bf16(p[0][4 * ks], p[0][4 * ks + 1]);
+      pa[ks][1] = hopper::pack_bf16(p[1][4 * ks], p[1][4 * ks + 1]);
+      pa[ks][2] = hopper::pack_bf16(p[0][4 * ks + 2], p[0][4 * ks + 3]);
+      pa[ks][3] = hopper::pack_bf16(p[1][4 * ks + 2], p[1][4 * ks + 3]);
+    }
+
+    // P.V over this warp's columns: matrices are tokens 16ks..+7 and
+    // +8..+15 at columns c0, then at c0 + 8.
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int j = 16 * ks + (lane & 7) + ((mi & 1) << 3);
+#pragma unroll
+      for (int np = 0; np < kColTiles / 2; ++np) {
+        uint32_t vb[4];
+        hopper::ldmatrix_x4_trans(
+            vb, vt + j * kRow + c_base + np * 16 + ((mi >> 1) << 3));
+        hopper::mma_bf16_16816(acc[2 * np], pa[ks], vb[0], vb[1]);
+        hopper::mma_bf16_16816(acc[2 * np + 1], pa[ks], vb[2], vb[3]);
+      }
+    }
+    __syncthreads();                   // the stage and the scores are free
+    if (i + kStages < n_tiles) stage_tile(i + kStages);
+    hopper::cp_async_commit();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int hr = g + 8 * r;
+    if (hr >= nh) continue;
+    if (splits == 1) {
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* o = out + (head0 + hr) * kD + c_base + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kColTiles; ++n)
+        *reinterpret_cast<uint32_t*>(o + n * 8) = hopper::pack_bf16(
+            acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    } else {
+      const size_t at = base * G + h0 + hr;
+      float* a = ws_acc + at * kD + c_base + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kColTiles; ++n)
+        *reinterpret_cast<float2*>(a + n * 8) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      if (warp == 0 && t == 0) {
+        ws_ml[at * 2] = m[r];
+        ws_ml[at * 2 + 1] = l[r];
+      }
+    }
+  }
+}
+
+int launch_mla(const void* q, const void* k_pages, const void* v_pages,
+               const void* table, const void* lengths, void* out,
+               void* ws_acc, void* ws_ml, int S, int H, int KV, int T,
+               int NP, int window, float scale, int splits, int split_pages,
+               cudaStream_t stream) {
+  const size_t smem = smem_bytes(k_pages == v_pages);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_mla_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int G = H / KV;
+  const int tiles = (G + kHeads - 1) / kHeads;
+  float* wa = static_cast<float*>(ws_acc);
+  float* wm = static_cast<float*>(ws_ml);
+  paged_mla_kernel<<<dim3(KV * tiles, S, splits), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pages),
+      static_cast<const __nv_bfloat16*>(v_pages),
+      static_cast<const int*>(table), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), wa, wm, H, KV, T, NP, split_pages,
+      window, scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  // One merge block per (KV head, row, query head).
+  split::paged_combine_kernel<<<dim3(KV, S, G), split::kCombineThreads, 0,
+                                stream>>>(
+      wa, wm, static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), H, KV, kD, T, NP, splits,
+      split_pages, window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mla
+
+extern "C" {
+
+// Bytes of shared memory one block of body `path` (0 = simt, 1 = split,
+// 2 = mla) needs; the simt and mla bodies' do not depend on the page, and
+// the mla body's depends on whether K and V are one tensor (`shared_kv`).
+// The wrapper refuses shapes above the 232,448 B a block may use.
+size_t paged_attention_smem_bytes(int G, int D, int T, int path,
+                                  int shared_kv) {
+  if (path == 1) return split::smem_bytes(G, D, T);
+  if (path == 2) return mla::smem_bytes(shared_kv != 0);
+  return simt::smem_bytes(G, D);
+}
+
+// dtype: 0 = float32, 1 = bfloat16; path: 0 = simt, 1 = split, 2 = mla
+// (both bf16 only; ws_acc/ws_ml are the float32 partials, (S, KV, splits,
+// G, D) and (S, KV, splits, G, 2), unused by mla at one split, and P the
+// pool's page count).  All pointers are device pointers on `device`;
+// `stream` is a cudaStream_t.
 int paged_attention_fwd(const void* q, const void* k_pages,
                         const void* v_pages, const void* table,
                         const void* lengths, void* out, void* ws_acc,
@@ -679,6 +1041,10 @@ int paged_attention_fwd(const void* q, const void* k_pages,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 2)
+    return mla::launch_mla(q, k_pages, v_pages, table, lengths, out, ws_acc,
+                           ws_ml, S, H, KV, page_tokens, NP, window, scale,
+                           splits, split_pages, st);
   if (path == 1)
     return split::launch_split(q, k_pages, v_pages, table, lengths, out,
                                ws_acc, ws_ml, S, H, KV, D, page_tokens, NP, P,

@@ -9,12 +9,13 @@ tensors, plus a plain-integer launch counter ``LAUNCHES``:
   * ``flash_attention`` -- streaming-softmax attention, SMEM-sized KV blocks
   * ``ssd_scan``        -- Mamba2/SSD chunked scan, state kept on chip
 
-Each kernel has two bodies, a tensor-core one for bf16 and a CUDA-core
-``simt`` one for float32 and the shapes the other does not take, chosen by
+Each kernel has a tensor-core body for bf16 (paged attention has two:
+``split`` for GQA heads, ``mla`` for the MLA latent) and a CUDA-core
+``simt`` one for float32 and the shapes the others do not take, chosen by
 a pure function of the shape (``matmul_path``, ``attention_path``,
 ``paged_path``, ``ssd_path``), and counts launches by body:
-``LAUNCHES_WGMMA`` (matmul, attention), ``LAUNCHES_SPLIT`` (paged),
-``LAUNCHES_TC`` (SSD) and ``LAUNCHES_SIMT``.
+``LAUNCHES_WGMMA`` (matmul, attention), ``LAUNCHES_SPLIT`` and
+``LAUNCHES_MLA`` (paged), ``LAUNCHES_TC`` (SSD) and ``LAUNCHES_SIMT``.
 
 ``ops`` holds the public ``matmul``/``attention``/``ssd`` entry points,
 exported here.  The wrappers are reached through their modules (the

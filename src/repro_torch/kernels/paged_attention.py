@@ -12,18 +12,25 @@ Routing, with no fallback between any two:
     (``"split"``: bf16 at head dims 64 and 128, pages of 8 to 256 tokens in
     steps of 8, up to 16 query heads per KV head -- the KV stream split
     across blocks, pages staged by TMA, products on the tensor cores, and
-    a second launch that merges the splits; ``"simt"``: the rest, on the
-    CUDA cores), or an exception.  The wrapper checks devices, dtypes,
-    contiguity and shapes, allocates the output and the split body's
-    float32 workspace, launches on ``torch.cuda.current_stream()`` and
+    a second launch that merges the splits; ``"mla"``: bf16 at the MLA
+    latent's head dim 576 with up to 128 query heads per KV head (the
+    absorbed MLA decode of DeepSeek-V2: K = V = the latent pool) -- 16-head
+    tiles in the grid, 32-token tiles by cp.async, products on the tensor
+    cores, the output columns split over the warps, and the splits, where
+    there are several, merged as the split body's are; ``"simt"``: the
+    rest, on the CUDA cores, in 16-head, 16-token tiles where the whole
+    group does not fit a block), or an exception.  The wrapper checks
+    devices, dtypes, contiguity and shapes, allocates the output and the
+    split workspace, launches on ``torch.cuda.current_stream()`` and
     raises when the launch reports an error.
 
-The split count comes from shapes alone (``split_plan``): ``lengths`` is
-never read on the host, so a launch never waits for the card.
+The split count comes from shapes alone (``split_plan``,
+``mla_split_plan``): ``lengths`` is never read on the host, so a launch
+never waits for the card.
 
-``LAUNCHES_SPLIT`` and ``LAUNCHES_SIMT`` count kernel launches by body
-(never CPU calls); ``LAUNCHES`` is their sum, so a run can show its main
-path went through the kernel.
+``LAUNCHES_SPLIT``, ``LAUNCHES_MLA`` and ``LAUNCHES_SIMT`` count kernel
+launches by body (never CPU calls); ``LAUNCHES`` is their sum, so a run
+can show its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -40,11 +47,16 @@ from repro_torch.kernels.ref import paged_attention_ref
 
 #: Kernel launches made by this process, by body, and in all.
 LAUNCHES_SPLIT = 0
+LAUNCHES_MLA = 0
 LAUNCHES_SIMT = 0
 LAUNCHES = 0
 
-#: Tokens of a page the simt body stages at a time (``kTileTokens``).
+#: Tokens of a page the simt body stages at a time (``kTileTokens``), and
+#: its heads and tokens a block where the whole group does not fit
+#: (``kWideHeads``, ``kWideTileTokens``).
 TILE_TOKENS = 64
+WIDE_HEADS = 16
+WIDE_TILE_TOKENS = 16
 
 #: The split body: warps per block, page stages in its ring (the plan's
 #: ``PAGE_BUFFERING``), the most pages one split covers, and the blocks a
@@ -58,9 +70,19 @@ SPLIT_TARGET_BLOCKS_PER_SM = 32
 SPLIT_HEAD_DIMS = (64, 128)
 SPLIT_MAX_PAGE = 256
 SPLIT_MAX_GROUP = 16
+#: The mla body: the head dim it takes (DeepSeek-V2's latent row, kv_lora
+#: 512 + rope 64), the most query heads per KV head, and its block's heads
+#: (one m16 tile), token tile, stages, staged row (padded) and score row.
+MLA_HEAD_DIM = 576
+MLA_MAX_GROUP = 128
+MLA_HEADS = 16
+MLA_TILE = 32
+MLA_STAGES = 2
+MLA_ROW = MLA_HEAD_DIM + 8
+MLA_SCORE_LD = MLA_TILE + 8
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PATHS = {"simt": 0, "split": 1}
+_PATHS = {"simt": 0, "split": 1, "mla": 2}
 _FN = None
 
 
@@ -74,7 +96,7 @@ def _kernel():
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         smem = lib.paged_attention_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 4
+        smem.argtypes = [ctypes.c_int] * 5
         smem.restype = ctypes.c_size_t
         _FN = (fn, smem)
     return _FN
@@ -85,7 +107,12 @@ def paged_path(dtype: torch.dtype, head_dim: int, page_tokens: int,
     """The body a shape takes on the card: ``"split"`` for bf16 at head
     dims 64 and 128, pages a multiple of 8 up to 256 tokens (one TMA box)
     whose two stages fit one block's shared memory, and at most 16 query
-    heads per KV head (one m16 tile); ``"simt"`` otherwise."""
+    heads per KV head (one m16 tile); ``"mla"`` for bf16 at head dim 576
+    with at most 128 query heads per KV head, any page; ``"simt"``
+    otherwise."""
+    if (dtype == torch.bfloat16 and head_dim == MLA_HEAD_DIM
+            and 1 <= group <= MLA_MAX_GROUP):
+        return "mla"
     if (dtype == torch.bfloat16 and head_dim in SPLIT_HEAD_DIMS
             and page_tokens % 8 == 0 and 8 <= page_tokens <= SPLIT_MAX_PAGE
             and 1 <= group <= SPLIT_MAX_GROUP
@@ -113,6 +140,38 @@ def split_plan(rows: int, n_kv: int, table_width: int, page_tokens: int,
     return -(-max(1, table_width) // pages), pages
 
 
+def mla_split_plan(rows: int, n_kv: int, group: int, table_width: int,
+                   page_tokens: int, spec=None) -> Tuple[int, int]:
+    """``(splits, split_pages)`` of the mla body, from shapes alone.
+
+    A block is one (row, KV head, 16-head tile).  Where those blocks
+    already fill the card's SMs -- a prefill chunk: 96 rows x 8 head tiles
+    at DeepSeek-V2 -- there is one split, and each block writes its rows
+    with no workspace (split, the float32 partials would be 295 KB a
+    (row, split) at 128 heads x 576).  Otherwise ``split_plan`` over the
+    head tiles as it plans over KV heads: at decode (8 rows x 8 tiles, 43
+    pages of 96 tokens) one page a split, 43 splits."""
+    spec = spec or h100_spec()
+    tiles = n_kv * -(-group // MLA_HEADS)
+    if rows * tiles >= spec.num_sms:
+        return 1, max(1, table_width)
+    return split_plan(rows, tiles, table_width, page_tokens, spec)
+
+
+def simt_plan(group: int, head_dim: int) -> Tuple[int, int]:
+    """``(heads a block, tokens a tile)`` of the simt body (its ``plan``):
+    the whole group and ``TILE_TOKENS`` where they fit a block's shared
+    memory, else ``WIDE_HEADS`` heads and ``WIDE_TILE_TOKENS`` tokens."""
+    if _simt_floats(group, head_dim, TILE_TOKENS) * 4 <= \
+            h100_spec().smem_bytes:
+        return group, TILE_TOKENS
+    return min(group, WIDE_HEADS), WIDE_TILE_TOKENS
+
+
+def _simt_floats(gb: int, d: int, tile: int) -> int:
+    return 2 * gb * d + tile * (d + 1) + tile * d + gb * tile + 3 * gb
+
+
 def split_workspace(rows: int, n_kv: int, splits: int, group: int,
                     head_dim: int) -> Tuple[tuple, tuple]:
     """Shapes of the split body's float32 workspace: each split's
@@ -123,7 +182,7 @@ def split_workspace(rows: int, n_kv: int, splits: int, group: int,
 
 
 def smem_bytes(group: int, head_dim: int, page_tokens: int,
-               path: str = "split") -> int:
+               path: str = "split", shared_kv: bool = True) -> int:
     """Shared memory of one block of body ``path``, as the CUDA source lays
     it out (its ``paged_attention_smem_bytes`` reports the same).
 
@@ -134,31 +193,44 @@ def smem_bytes(group: int, head_dim: int, page_tokens: int,
     (``SPLIT_WARPS x (G x D + 2G)`` floats); one 8-byte mbarrier per stage
     and ``MAX_SPLIT_PAGES`` table entries.
 
-    ``simt``: float32 q and accumulator (G x D each), one ``TILE_TOKENS``
-    tile of K (rows padded by one float) and of V, the tile's logits
-    (G x TILE_TOKENS) and the softmax state (3 x G); it does not depend on
-    the page."""
+    ``mla``: the bf16 q tile (``MLA_HEADS`` rows of ``MLA_ROW``), the ring
+    of ``MLA_STAGES`` tiles of ``MLA_TILE`` tokens (one ring when K and V
+    are one tensor -- ``shared_kv`` -- two otherwise) and the tile's
+    float32 scores; it depends on neither the page nor the group.
+
+    ``simt``: float32 q and accumulator (heads x D each), one tile of K
+    (rows padded by one float) and of V, the tile's logits (heads x tile)
+    and the softmax state (3 x heads), at ``simt_plan``'s heads and tile;
+    it does not depend on the page."""
     g, d = group, head_dim
     if path == "split":
         ring = SPLIT_STAGES * 2 * page_tokens * d * 2
         merge = SPLIT_WARPS * (g * d + 2 * g) * 4
         return 1024 + max(ring, merge) + SPLIT_STAGES * 8 \
             + MAX_SPLIT_PAGES * 4
-    t = TILE_TOKENS
-    return 4 * (2 * g * d + t * (d + 1) + t * d + g * t + 3 * g)
+    if path == "mla":
+        rings = 1 if shared_kv else 2
+        return (MLA_HEADS * MLA_ROW * 2
+                + rings * MLA_STAGES * MLA_TILE * MLA_ROW * 2
+                + MLA_HEADS * MLA_SCORE_LD * 4)
+    gb, tile = simt_plan(g, d)
+    return 4 * _simt_floats(gb, d, tile)
 
 
 def kernel_smem_bytes(group: int, head_dim: int, page_tokens: int,
                       path: str = "split") -> int:
     """The shared memory the CUDA kernel's ``path`` body reports for one
-    block (builds the kernel first)."""
-    return int(_kernel()[1](group, head_dim, page_tokens, _PATHS[path]))
+    block (builds the kernel first; the mla body's with K and V one
+    tensor, as serving calls it)."""
+    return int(_kernel()[1](group, head_dim, page_tokens, _PATHS[path], 1))
 
 
 def _count(path: str) -> None:
-    global LAUNCHES, LAUNCHES_SIMT, LAUNCHES_SPLIT
+    global LAUNCHES, LAUNCHES_MLA, LAUNCHES_SIMT, LAUNCHES_SPLIT
     if path == "split":
         LAUNCHES_SPLIT += 1
+    elif path == "mla":
+        LAUNCHES_MLA += 1
     else:
         LAUNCHES_SIMT += 1
     LAUNCHES += 1
@@ -180,8 +252,10 @@ def paged_attention(
     ``page_tokens`` is the plan's page size; when given it must equal the
     pool's second dim -- the kernel streams at the planned page and no
     other granule.  ``path="simt"`` runs the CUDA-core body where
-    ``paged_path`` would pick split (to compare the two); ``split_pages``
-    overrides ``split_plan``'s pages per split (to time other splits).
+    ``paged_path`` would pick split or mla (to compare them);
+    ``split_pages`` overrides the split plan's pages per split (to time
+    other splits; up to ``MAX_SPLIT_PAGES`` on the split body, up to the
+    table's width on the mla body).
     """
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k "
@@ -204,8 +278,11 @@ def paged_attention(
         raise ValueError(f"paged_attention: the {path} body cannot take "
                          f"{q.dtype} at D={d}, page {t}, group {h // n_kv}")
     path = path or routed
-    if split_pages is not None and not 1 <= split_pages <= MAX_SPLIT_PAGES:
-        raise ValueError(f"split_pages must be in 1..{MAX_SPLIT_PAGES}; got "
+    # The split body holds a split's table entries in shared memory; the
+    # mla body reads them as it goes, so any split size works there.
+    top = MAX_SPLIT_PAGES if path == "split" else max(1, page_table.shape[1])
+    if split_pages is not None and not 1 <= split_pages <= top:
+        raise ValueError(f"split_pages must be in 1..{top}; got "
                          f"{split_pages}")
     tensors = (q, k_pages, v_pages, page_table, lengths)
     if all(x.device.type == "cpu" for x in tensors):
@@ -234,8 +311,9 @@ def paged_attention(
         return out
     g = h // n_kv
     n_pages = page_table.shape[1]
+    shared_kv = k_pages.data_ptr() == v_pages.data_ptr()
     fn, kernel_smem = _kernel()
-    smem = kernel_smem(g, d, t, _PATHS[path])
+    smem = kernel_smem(g, d, t, _PATHS[path], int(shared_kv))
     limit = h100_spec().smem_bytes
     if smem > limit:
         raise ValueError(f"{g} query heads per KV head at head dim {d} and "
@@ -243,19 +321,22 @@ def paged_attention(
                          f"block on the {path} path; a block may use {limit}")
     splits = pages = 0
     ws_acc = ws_ml = None
-    if path == "split":
+    if path in ("split", "mla"):
         if s > 65535 or p_total * t >= 2 ** 32:
-            raise ValueError(f"the split body takes at most 65535 rows and "
+            raise ValueError(f"the {path} body takes at most 65535 rows and "
                              f"2**32 pool tokens; got {s} rows, "
                              f"{p_total * t} tokens")
-        splits, pages = split_plan(s, n_kv, n_pages, t)
+        splits, pages = (split_plan(s, n_kv, n_pages, t) if path == "split"
+                         else mla_split_plan(s, n_kv, g, n_pages, t))
         if split_pages is not None:
             pages = split_pages
             splits = -(-max(1, n_pages) // pages)
-        acc_shape, ml_shape = split_workspace(s, n_kv, splits, g, d)
-        ws_acc = torch.empty(acc_shape, dtype=torch.float32,
-                             device=q.device)
-        ws_ml = torch.empty(ml_shape, dtype=torch.float32, device=q.device)
+        if path == "split" or splits > 1:
+            acc_shape, ml_shape = split_workspace(s, n_kv, splits, g, d)
+            ws_acc = torch.empty(acc_shape, dtype=torch.float32,
+                                 device=q.device)
+            ws_ml = torch.empty(ml_shape, dtype=torch.float32,
+                                device=q.device)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             0 if ws_acc is None else ws_acc.data_ptr(),

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, moe, hybrid_ssm and xlstm families (the
-port of the paged paths of ``repro.models.model``).
+"""Model assembly for the dense, moe, mla_moe, hybrid_ssm and xlstm
+families (the port of the paged paths of ``repro.models.model``).
 
 ``Model`` declares the parameter tree (same paths and shapes as the JAX
 package), the per-slot recurrent state (``init_state``, the state part of
@@ -8,6 +8,11 @@ paged cache: ``decode_step_paged`` (one token per slot) and
 ``prefill_chunk`` (one prompt chunk of one slot).  The transformer
 families run the one shared layer body ``_tf_layer`` with a mode-specific
 attention hook; its FFN is SwiGLU, or ``moe_ffn`` for ``moe`` (Mixtral).
+``mla_moe`` (DeepSeek-V2) runs its ``first_k_dense`` leading layers
+(``dense_layers``: MLA attention, SwiGLU at ``dense_d_ff``) and then its
+MoE layers (``layers``: MLA attention, ``moe_ffn`` with shared experts)
+through the same body, with the MLA hook over one latent pool ``lat``
+(dense layers at pool indices ``[0, kd)``, MoE layer ``i`` at ``kd + i``).
 Layers run as a Python loop over the stacked parameters; the pool and the
 per-slot state are updated in place.
 
@@ -29,6 +34,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as XL
 from repro_torch.models.params import ParamSpec, init_params
@@ -36,7 +42,7 @@ from repro_torch.models.params import ParamSpec, init_params
 PyTree = Any
 
 #: Families this port can run so far.
-FAMILIES = ("dense", "moe", "hybrid_ssm", "xlstm")
+FAMILIES = ("dense", "moe", "mla_moe", "hybrid_ssm", "xlstm")
 
 #: The MoE decode step's capacity factor (the reference ``Model``'s
 #: default); prefill chunks dispatch dropless.
@@ -58,8 +64,9 @@ def _layer_params(stack: PyTree, i: int) -> PyTree:
 
 def _tf_layer_specs(cfg, layers: int, kind: str) -> dict:
     specs = {"ln1": _norm_spec(cfg, layers), "ln2": _norm_spec(cfg, layers),
-             "attn": L.attention_param_specs(cfg, layers)}
-    if kind == "moe":
+             "attn": (MLA.mla_param_specs(cfg, layers) if kind == "mla"
+                      else L.attention_param_specs(cfg, layers))}
+    if kind in ("moe", "mla"):
         specs["moe"] = MOE.moe_param_specs(cfg, layers)
     else:
         specs["ffn"] = L.ffn_param_specs(cfg, layers=layers)
@@ -72,21 +79,21 @@ def _tf_layer(lp: dict, x: torch.Tensor, cfg,
               capacity_factor: Optional[float] = None) -> torch.Tensor:
     """ONE decoder-layer body for every mode: pre-norm attention +
     residual, pre-norm FFN + residual.  ``attn(lp["attn"], h)`` is the
-    mode's attention hook (paged decode or chunked prefill); ``kind``
-    picks the FFN: "moe" routes through ``moe_ffn`` at
+    mode's attention hook (paged decode or chunked prefill, GQA or MLA);
+    ``kind`` picks the FFN: "moe" and "mla" route through ``moe_ffn`` at
     ``capacity_factor`` (its aux loss is dropped: serving has no loss),
     anything else is SwiGLU."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + attn(lp["attn"], h)
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    if kind == "moe":
+    if kind in ("moe", "mla"):
         return x + MOE.moe_ffn(lp["moe"], h, cfg.moe, capacity_factor)[0]
     return x + L.swiglu_ffn(lp["ffn"], h)
 
 
 class Model:
-    """The dense and MoE decoders, the Zamba2 hybrid and xLSTM; see the
-    module docstring."""
+    """The dense, MoE and MLA-MoE decoders, the Zamba2 hybrid and xLSTM;
+    see the module docstring."""
 
     def __init__(self, cfg):
         if cfg.family not in FAMILIES:
@@ -115,6 +122,17 @@ class Model:
             specs["mlstm_ln"] = _norm_spec(cfg, n - n_s)
             specs["slstm_layers"] = XL.slstm_param_specs(cfg, n_s)
             specs["slstm_ln"] = _norm_spec(cfg, n_s)
+            return specs
+        if cfg.family == "mla_moe":
+            kd = cfg.moe.first_k_dense
+            if kd:
+                specs["dense_layers"] = {
+                    "ln1": _norm_spec(cfg, kd), "ln2": _norm_spec(cfg, kd),
+                    "attn": MLA.mla_param_specs(cfg, kd),
+                    "ffn": L.ffn_param_specs(cfg, d_ff=cfg.moe.dense_d_ff,
+                                             layers=kd),
+                }
+            specs["layers"] = _tf_layer_specs(cfg, n - kd, "mla")
             return specs
         specs["layers"] = _tf_layer_specs(cfg, n, cfg.family)
         return specs
@@ -231,6 +249,15 @@ class Model:
             return self._hybrid_stack(params, x, attn, rows)
         if cfg.family == "xlstm":
             return self._xlstm_stack(params, x, rows)
+        if cfg.family == "mla_moe":
+            kd = cfg.moe.first_k_dense
+            for i in range(kd):
+                x = _tf_layer(_layer_params(params["dense_layers"], i), x,
+                              cfg, attn(i))
+            for i in range(cfg.n_layers - kd):
+                x = _tf_layer(_layer_params(params["layers"], i), x, cfg,
+                              attn(kd + i), "mla", capacity_factor)
+            return x
         for i in range(cfg.n_layers):
             x = _tf_layer(_layer_params(params["layers"], i), x, cfg,
                           attn(i), cfg.family, capacity_factor)
@@ -244,7 +271,8 @@ class Model:
         """One-token decode against the paged cache.
 
         ``cache`` is the pooled layout of ``serve.pages.init_paged_cache``:
-        ``pool`` (``k``/``v``, each ``(L, P, T, KV, D)``; none for xlstm),
+        ``pool`` (``k``/``v``, each ``(L, P, T, KV, D)``; for mla_moe one
+        ``lat`` of ``(L, P, T, 1, R + dr)``; none for xlstm),
         ``table`` (the ``(S, NP)`` int32 page table), ``pos`` (the
         per-slot position vector) and ``state`` (``Model.init_state``'s
         groups, the slot on axis 1).  ``batch["tokens"]`` is ``(S, 1)``.
@@ -258,9 +286,13 @@ class Model:
         cfg = self.cfg
         pos, table = cache["pos"], cache["table"]
         kp, vp = cache["pool"].get("k"), cache["pool"].get("v")
+        lat = cache["pool"].get("lat")
         x = L.embed_tokens(params, batch["tokens"], dtype)
 
         def attn(i):
+            if lat is not None:
+                return lambda ap, h: MLA.paged_mla_attention_block(
+                    ap, h, pos, cfg, lat, i, table)
             return lambda ap, h: L.paged_attention_block(
                 ap, h, pos, cfg, kp, vp, i, table)
 
@@ -290,12 +322,16 @@ class Model:
         cfg = self.cfg
         slot, pos0 = int(batch["slot"]), int(batch["pos0"])
         kp, vp = cache["pool"].get("k"), cache["pool"].get("v")
+        lat = cache["pool"].get("lat")
         x = L.embed_tokens(params, batch["tokens"], dtype)
         c = x.shape[1]
         positions = pos0 + torch.arange(c, device=x.device)
         table_row = cache["table"][slot]
 
         def attn(i):
+            if lat is not None:
+                return lambda ap, h: MLA.paged_mla_prefill_block(
+                    ap, h, positions, cfg, lat, i, table_row)
             return lambda ap, h: L.paged_prefill_block(
                 ap, h, positions, cfg, kp, vp, i, table_row)
 

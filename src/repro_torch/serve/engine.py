@@ -19,7 +19,8 @@
     token-free family (xLSTM) holds no pages and chunks its prompts at
     ``kvcache.DEFAULT_PAGE_TOKENS``.
 
-It serves ``serve.pages.PAGED_FAMILIES`` (dense, moe, hybrid_ssm, xlstm).
+It serves ``serve.pages.PAGED_FAMILIES`` (dense, moe, mla_moe, hybrid_ssm,
+xlstm).
 ``batching="cohort"`` and ``prefix_cache="radix"`` wait for later slices
 and raise ``NotImplementedError``.
 """
@@ -51,6 +52,8 @@ from repro_torch.serve.pages import (
     PagedScheduler,
     init_paged_cache,
     reset_slot,
+    set_slot_rows,
+    slot_rows,
 )
 from repro_torch.serve.sampling import SamplingConfig, make_generator, sample
 from repro_torch.serve.scheduler import Request
@@ -574,13 +577,14 @@ class ServeEngine:
                 # recurrent state (every buffer of every state group:
                 # Mamba, mLSTM, sLSTM) would advance on the discarded
                 # tick, so their state rows are saved before the step and
-                # put back after it.
+                # put back after it (``slot_rows``: the slot is axis 1 of
+                # a layer-stacked buffer, axis 0 of a per-slot vector).
                 frozen = sorted(i for i in stalled | set(prefills)
                                 if sched.slots[i] is not None)
                 saved = None
                 if frozen and cache["state"]:
                     rows = torch.tensor(frozen, device=dev)
-                    saved = [(buf, buf[:, rows])
+                    saved = [(buf, slot_rows(buf, rows))
                              for group in cache["state"].values()
                              for buf in group.values()]
                 td0 = time.monotonic()
@@ -588,7 +592,7 @@ class ServeEngine:
                     self.params, cache,
                     {"tokens": torch.from_numpy(next_np).to(dev)})
                 for buf, rows_before in saved or ():
-                    buf[:, rows] = rows_before
+                    set_slot_rows(buf, rows, rows_before)
                 toks = sample(logits, scfg, gen).cpu().numpy()
                 self.tracer.complete("decode_tick", td0, time.monotonic(),
                                      tid=0, args={"active": len(active)})

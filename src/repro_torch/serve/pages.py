@@ -1,6 +1,6 @@
 """The global KV page pool: plan-sized pages, per-slot tables, slot-level
 admission (the port of ``repro.serve.pages`` for the dense, moe,
-hybrid_ssm and xlstm families).
+mla_moe, hybrid_ssm and xlstm families).
 
   * ``PagePool`` -- the physical pool: ``pages_total`` pages of
     ``page_plan()["page_tokens"]`` tokens each, a refcounted free list and
@@ -16,11 +16,12 @@ hybrid_ssm and xlstm families).
     admission.
   * ``init_paged_cache`` / ``reset_slot`` -- the pooled cache dict the
     paged steps (``Model.decode_step_paged`` / ``prefill_chunk``) consume:
-    ``pool`` (``k``/``v``, each ``(L, P, T, KV, D)``), ``table`` (the
-    per-slot page table), ``pos`` (the per-slot position vector) and
-    ``state`` (per-slot recurrent buffers, the slot on axis 1);
-    ``reset_slot`` puts one slot's state back to ``Model.init_state``'s
-    values.
+    ``pool`` (``k``/``v``, each ``(L, P, T, KV, D)``, or mla_moe's latent
+    ``lat``, ``(L, P, T, 1, R + dr)``), ``table`` (the per-slot page
+    table), ``pos`` (the per-slot position vector) and ``state`` (per-slot
+    recurrent buffers: the slot on axis 1 of a layer-stacked buffer, on
+    axis 0 of a per-slot vector); ``reset_slot`` puts one slot's state
+    back to ``Model.init_state``'s values.
 
 Page export/install and the prefix cache's hooks wait for the prefix
 slice.
@@ -41,7 +42,7 @@ from repro_torch.serve.scheduler import Request
 PyTree = Any
 
 #: Families with a per-slot paged decode path in the port.
-PAGED_FAMILIES = ("dense", "moe", "hybrid_ssm", "xlstm")
+PAGED_FAMILIES = ("dense", "moe", "mla_moe", "hybrid_ssm", "xlstm")
 
 #: Per-slot recurrent-state groups per family (reset at admission).
 STATE_GROUPS = {"hybrid_ssm": ("mamba",), "xlstm": ("mlstm", "slstm")}
@@ -346,7 +347,9 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     int32 page table (0 = null page), ``pos`` the per-slot positions and
     ``state`` the per-slot recurrent state of ``Model.init_state``.
 
-    dense and moe: one pool layer per layer, no state.  hybrid_ssm: one
+    dense and moe: one pool layer per layer, no state.  mla_moe: one
+    latent pool ``lat`` of ``(L, n_pages, page_tokens, 1, R + dr)`` -- the
+    absorbed-form cache row, one "KV head" -- and no state.  hybrid_ssm: one
     pool layer per application of the shared attention block, and
     ``state["mamba"]``.  xlstm is token-free: no pool, and
     ``state["mlstm"]`` and ``state["slstm"]`` are its whole cache.
@@ -365,7 +368,12 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
         "pool": {},
         "state": Model(cfg).init_state(n_slots, dtype, device),
     }
-    if pool_layers:
+    if cfg.family == "mla_moe":
+        m = cfg.mla
+        cache["pool"] = {"lat": torch.zeros(
+            (cfg.n_layers, n_pages, page_tokens, 1,
+             m.kv_lora_rank + m.rope_head_dim), dtype=dtype, device=device)}
+    elif pool_layers:
         shape = (pool_layers, n_pages, page_tokens, cfg.n_kv_heads,
                  cfg.head_dim)
         cache["pool"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -391,5 +399,22 @@ def reset_slot(cfg: ModelConfig, cache: PyTree, slot: int) -> PyTree:
         fresh = Model(cfg).init_state(1, torch.float32, device)
         for g in groups:
             for k, buf in cache["state"][g].items():
-                buf[:, slot] = fresh[g][k][:, 0]        # cast to buf's dtype
+                set_slot_rows(buf, slot, slot_rows(fresh[g][k], 0))
     return cache
+
+
+def slot_rows(buf: torch.Tensor, slots) -> torch.Tensor:
+    """The rows of ``slots`` (an index or an index tensor) in a per-slot
+    state buffer: the slot is axis 1 of a layer-stacked buffer (two or
+    more dims) and axis 0 of a per-slot vector, as the reference's engine
+    takes it."""
+    return buf[:, slots] if buf.dim() >= 2 else buf[slots]
+
+
+def set_slot_rows(buf: torch.Tensor, slots, value: torch.Tensor) -> None:
+    """Write ``value`` into the rows of ``slots`` of a per-slot state
+    buffer (the axis as in ``slot_rows``), in place, cast to its dtype."""
+    if buf.dim() >= 2:
+        buf[:, slots] = value
+    else:
+        buf[slots] = value

@@ -272,6 +272,10 @@ def test_split_partials_of_splits_without_a_live_key(split_pages):
     (torch.bfloat16, 64, 60, 4, "simt"),
     (torch.bfloat16, 64, 264, 4, "simt"),
     (torch.bfloat16, 64, 56, 32, "simt"),
+    (torch.bfloat16, 576, 96, 128, "mla"),       # DeepSeek-V2's latent
+    (torch.bfloat16, 576, 8, 4, "mla"),
+    (torch.bfloat16, 576, 96, 256, "simt"),      # past 8 head tiles
+    (torch.float32, 576, 96, 128, "simt"),
 ])
 def test_body_selection(dtype, d, t, group, body):
     assert pa_mod.paged_path(dtype, d, t, group) == body
@@ -497,3 +501,123 @@ def test_cuda_mixtral_window_shapes(dtype, shape):
     ref = paged_attention_ref(q, k, v, table, lens, window=window).float()
     live = lens > 0
     torch.testing.assert_close(out.float()[live], ref[live], **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# The mla body (DeepSeek-V2's latent: D 576, 128 query heads, K = V)
+# ---------------------------------------------------------------------------
+
+
+def test_mla_split_plan_and_shared_memory():
+    """The mla body's splits come from shapes alone: at DeepSeek-V2 decode
+    (8 rows x 8 head tiles, 43 pages of 96 tokens) one page a split, 43
+    splits; a 96-row prefill chunk (768 blocks, more than the 132 SMs)
+    does not split, so it needs no workspace.  Its block stages the 16-head
+    q tile, one ring of two 32-token tiles when K and V are one tensor (two
+    otherwise) and the tile's scores, whatever the page and group.  The
+    simt body takes the same shape in 16-head, 16-token tiles (148,736 B
+    where the whole group would need 919,296 B)."""
+    assert pa_mod.mla_split_plan(8, 1, 128, 43, 96) == (43, 1)
+    assert pa_mod.mla_split_plan(96, 1, 128, 43, 96) == (1, 43)
+    assert pa_mod.mla_split_plan(2, 1, 4, 5, 8)[0] >= 1
+    row = 2 * (576 + 8)
+    assert pa_mod.smem_bytes(128, 576, 96, "mla") == \
+        16 * row + 2 * 32 * row + 16 * 40 * 4 == 96_000
+    assert pa_mod.smem_bytes(4, 576, 8, "mla", shared_kv=False) == \
+        96_000 + 2 * 32 * row <= 232_448
+    assert pa_mod.simt_plan(128, 576) == (16, 16)
+    assert pa_mod.smem_bytes(128, 576, 96, "simt") == 148_736
+    assert 4 * (2 * 128 * 576 + 64 * 577 + 64 * 576 + 128 * 64
+                + 3 * 128) == 919_296
+    assert pa_mod.simt_plan(4, 64) == (4, 64)
+
+
+def _mla_case(dtype, shape, shared=True, seed=17):
+    """DeepSeek-V2's paged MLA call at its published widths: q (S, 128,
+    576), the latent pool (P, 96, 1, 576) as K and V, the engine's 43-page
+    table (4096 tokens).  Decode: 8 rows of ragged lengths; prefill: one
+    96-token chunk at 961..1056 over one table."""
+    t, h, d, n_logical = 96, 128, 576, 43
+    gen = torch.Generator().manual_seed(seed)
+    if shape == "decode":
+        lengths = [0, 1, 57, 300, 700, 1056, 1000, 64]
+        need = [-(-n // t) for n in lengths]
+        p_total = 1 + sum(need)
+        perm = (1 + torch.randperm(p_total - 1, generator=gen)).int()
+        table = torch.zeros(len(lengths), n_logical, dtype=torch.int32)
+        at = 0
+        for i, n in enumerate(need):
+            table[i, :n] = perm[at:at + n]
+            at += n
+    else:
+        lengths = list(range(10 * t + 1, 11 * t + 1))
+        p_total = 1 + 11
+        row = torch.zeros(n_logical, dtype=torch.int32)
+        row[:11] = (1 + torch.randperm(11, generator=gen)).int()
+        table = row[None].expand(len(lengths), n_logical).contiguous()
+    q = torch.randn(len(lengths), h, d, generator=gen).to("cuda", dtype)
+    k = torch.randn(p_total, t, 1, d, generator=gen).to("cuda", dtype)
+    v = k if shared else torch.randn(p_total, t, 1, d,
+                                     generator=gen).to("cuda", dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, k, v, table.to("cuda"), lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ["decode", "prefill"])
+def test_cuda_mla_shapes(dtype, shape):
+    """DeepSeek-V2's MLA call (128 query heads over the one latent "KV
+    head", D 576, K = V, 96-token pages): bf16 takes the mla body (split at
+    decode, one split at prefill), float32 the simt body in 16-head tiles;
+    both agree with the plain version, empty rows are zero, and two bf16
+    runs are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, table, lens = _mla_case(dtype, shape)
+    body = pa_mod.paged_path(dtype, 576, 96, 128)
+    assert body == ("mla" if dtype == torch.bfloat16 else "simt")
+    counter = "LAUNCHES_" + body.upper()
+    before = getattr(pa_mod, counter)
+    out = paged_attention(q, k, v, table, lens, page_tokens=96)
+    again = paged_attention(q, k, v, table, lens, page_tokens=96)
+    torch.cuda.synchronize()
+    assert getattr(pa_mod, counter) == before + 2
+    assert torch.equal(out, again)
+    ref = paged_attention_ref(q, k, v, table, lens).float()
+    live = lens > 0
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    err = (out.float() - ref)[live].abs()
+    assert bool((err <= tol * (1 + ref[live].abs())).all()), \
+        float(err.max())
+    assert not out[~live].float().abs().any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 200])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("split_pages", [None, 1, 3, 16])
+def test_cuda_mla_body_splits_windows_and_distinct_kv(split_pages, shared,
+                                                      window):
+    """The mla body at DeepSeek-V2's decode shape over splits of 1, 3 and
+    16 pages (the 16-page split covers rows whose keys cross pages inside
+    one block), a window that starts inside a page, and K and V as two
+    tensors (staged in two rings) as well as one: against the plain
+    version, reruns bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, table, lens = _mla_case(torch.bfloat16, "decode", shared,
+                                     seed=split_pages or 0)
+    before = pa_mod.LAUNCHES_MLA
+    out = paged_attention(q, k, v, table, lens, window=window,
+                          page_tokens=96, split_pages=split_pages)
+    again = paged_attention(q, k, v, table, lens, window=window,
+                            page_tokens=96, split_pages=split_pages)
+    torch.cuda.synchronize()
+    assert pa_mod.LAUNCHES_MLA == before + 2
+    assert torch.equal(out, again)
+    ref = paged_attention_ref(q, k, v, table, lens, window=window).float()
+    live = lens > 0
+    err = (out.float() - ref)[live].abs()
+    assert bool((err <= 2e-2 * (1 + ref[live].abs())).all()), \
+        float(err.max())

@@ -129,10 +129,11 @@ def test_unported_paths_raise():
         ServeEngine(cfg, ServePolicy(batching="cohort"), device="cpu")
     with pytest.raises(NotImplementedError, match="prefix"):
         ServeEngine(cfg, ServePolicy(prefix_cache="radix"), device="cpu")
-    with pytest.raises(NotImplementedError, match="mla_moe"):
-        ServeEngine(get_model_config("deepseek-v2-236b").reduced(),
+    with pytest.raises(NotImplementedError, match="enc_dec"):
+        ServeEngine(get_model_config("whisper-large-v3").reduced(),
                     device="cpu")
-    for arch in ("mixtral-8x7b", "xlstm-1.3b"):       # served: no raise
+    for arch in ("mixtral-8x7b", "xlstm-1.3b",
+                 "deepseek-v2-236b"):                 # served: no raise
         ServeEngine(get_model_config(arch).reduced(), device="cpu")
 
 
@@ -193,3 +194,52 @@ def test_scheduler_page_flow_reconciles(seed, n_slots, pages):
     pool.assert_reconciled()
     assert pool.used_pages == 0
     assert pool.pages_allocated == pool.pages_released
+
+
+def test_state_rows_take_the_slot_axis_of_each_buffer(monkeypatch):
+    """A state group holding a per-slot vector (S,) beside a layer-stacked
+    buffer (L, S, X): the engine's save and restore of frozen slots and
+    ``reset_slot`` take the slot on axis 0 of the vector and axis 1 of the
+    stacked buffer, as the reference's engine does, and touch no other
+    slot."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve import pages
+
+    cfg = get_model_config("llama3.2-1b").reduced()
+
+    def init_state(self, n_slots, dtype, device):
+        return {"g": {"vec": torch.full((n_slots,), 7.0, device=device),
+                      "stack": torch.full((2, n_slots, 3), 5.0,
+                                          device=device)}}
+
+    monkeypatch.setattr(Model, "init_state", init_state)
+    monkeypatch.setitem(pages.STATE_GROUPS, cfg.family, ("g",))
+    gen = torch.Generator().manual_seed(0)
+    vec, stack = torch.randn(4, generator=gen), torch.randn(2, 4, 3,
+                                                             generator=gen)
+    cache = {"pos": torch.zeros(4, dtype=torch.int32),
+             "state": {"g": {"vec": vec.clone(), "stack": stack.clone()}}}
+
+    # Save the frozen slots' rows, let a step overwrite every row, restore.
+    rows = torch.tensor([1, 3])
+    saved = {k: pages.slot_rows(b, rows)
+             for k, b in cache["state"]["g"].items()}
+    assert saved["vec"].shape == (2,) and saved["stack"].shape == (2, 2, 3)
+    for b in cache["state"]["g"].values():
+        b.fill_(-1.0)
+    for k, b in cache["state"]["g"].items():
+        pages.set_slot_rows(b, rows, saved[k])
+    got = cache["state"]["g"]
+    torch.testing.assert_close(got["vec"][rows], vec[rows])
+    torch.testing.assert_close(got["stack"][:, rows], stack[:, rows])
+    assert (got["vec"][[0, 2]] == -1).all()
+    assert (got["stack"][:, [0, 2]] == -1).all()
+
+    # Reset slot 2 to the initial values; the others keep theirs.
+    before = {k: b.clone() for k, b in got.items()}
+    pages.reset_slot(cfg, cache, 2)
+    assert float(got["vec"][2]) == 7.0 and (got["stack"][:, 2] == 5.0).all()
+    keep = [0, 1, 3]
+    torch.testing.assert_close(got["vec"][keep], before["vec"][keep])
+    torch.testing.assert_close(got["stack"][:, keep],
+                               before["stack"][:, keep])
