@@ -119,14 +119,35 @@ Phases (each prints its results; the script exits non-zero if any fails):
      74.3 GB), seeded random weights, serving phase 4's trace with every
      paged launch on the mla body; then the card's busy share over a
      2-prompt sub-trace.
+ 18. whisper-large-v3's kernel shape (the enc_dec family):
+     ``paged_attention`` at its decoder self-attention (20 query heads
+     over 20 KV heads, group 1, D 64, the planned 16-token page): 8 decode
+     rows at ``DECODE_LENS`` and one page of prefill rows over one table;
+     bf16 (split) and float32 (simt) against the plain version, two bf16
+     runs bit-identical; then the times of split, simt, plain and gather
+     + SDPA beside the bound, and the device time of each CUDA kernel;
+ 19. whisper-large-v3 at full width cut to 2 encoder and 2 decoder
+     layers, float32: 2 slots with 1,500 and 600 encoder frames, each
+     encoded and its cross K/V installed (``encode_cross``,
+     ``reset_slot``), prefill in planned chunks and one paged decode step
+     on the card and on the CPU; logits, pool and cross state agree, and
+     the greedy tokens;
+ 20. serving: full-width, full-depth whisper-large-v3 (32 + 32 layers,
+     seeded random bf16 weights) on its own trace of 8 requests
+     (``WHISPER_FRAMES`` encoder frames, ``WHISPER_PROMPTS`` decoder
+     prompts, ``WHISPER_NEW`` new tokens each); every paged launch
+     ``split``, one per decoder layer and tick or chunk; then the
+     encoder's time per request and the card's busy share over a
+     2-request sub-trace.
 
-Phases 0-4 and 7-17 plan and serve without a tuning artifact (the port's
+Phases 0-4 and 7-20 plan and serve without a tuning artifact (the port's
 tuning path points at a file that does not exist until phase 6 writes
 one), so their numbers compare with earlier runs'.  Each phase prints its
 seconds.
 
 Output, at the end: one JSON line describing the kernels (the zamba2,
-mixtral and deepseek shapes nested under the paged and SSD entries), the
+mixtral, deepseek and whisper shapes nested under the paged and SSD
+entries), the
 card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script fails before printing results.
@@ -164,6 +185,7 @@ ZAMBA = "zamba2-1.2b"
 MIXTRAL = "mixtral-8x7b"
 XLSTM = "xlstm-1.3b"
 DEEPSEEK = "deepseek-v2-236b"
+WHISPER = "whisper-large-v3"
 DEVICE = "cuda"
 MAX_SLOTS = 8
 MAX_LEN = 4096
@@ -177,6 +199,12 @@ REPS = 50
 #: window) and the long windowed request, served at ``LONG_MAX_LEN``.
 MIXTRAL_DECODE_LENS = (0, 1, 700, 2048, 4096, 4097, 4400, 8000)
 LONG_PROMPT = 4400
+#: Phase 20's trace: encoder frames (six of Whisper's fixed 30-s window,
+#: two shorter), decoder prompts (the 4-token start-of-transcript
+#: sequence, some after previous-text prompts) and new tokens a request.
+WHISPER_FRAMES = (1500, 1500, 1000, 1500, 500, 1500, 1500, 1500)
+WHISPER_PROMPTS = (4, 4, 36, 4, 132, 4, 224, 68)
+WHISPER_NEW = 64
 LONG_MAX_LEN = 8192
 #: Card memory phase 12's depth cut leaves beside the weights and the
 #: pool: one layer's float32 draw (1.9 GB for the experts' ``wi``),
@@ -235,23 +263,39 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_us(fn, reps: int = 10) -> dict:
-    """Device microseconds per call of each CUDA kernel ``fn()`` launches,
-    from ``torch.profiler`` (mean over ``reps`` calls)."""
+def profiled_kernels(fn, reps: int, tries: int = 3) -> dict:
+    """``{kernel: (device us in all, launches recorded)}`` of ``reps``
+    calls of ``fn()`` under ``torch.profiler``.  Late in a long run the
+    profiler has been seen to record no kernel, or only some launches, of
+    a session: a session that recorded none is tried again, up to
+    ``tries`` sessions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:60]: round(e.self_device_time_total / reps, 3)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key[:60]: (e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0}
+        if out:
+            return out
+        log("    (torch.profiler recorded no kernel in this session)")
+    return out
+
+
+def kernel_us(fn, reps: int = 10) -> dict:
+    """Device microseconds per launch of each CUDA kernel ``fn()``
+    launches (``profiled_kernels``: the mean over the launches the
+    profiler recorded)."""
+    return {k: round(us / n, 3)
+            for k, (us, n) in profiled_kernels(fn, reps).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -617,26 +661,34 @@ def phase_slice(t: int) -> None:
 
 
 def serve_trace(cfg, mods: dict, warm_prompts,
-                kv_budget_bytes=None) -> tuple:
+                kv_budget_bytes=None, prompts=None,
+                max_new: int = MAX_NEW) -> tuple:
     """``ServeEngine`` on ``cfg`` (seeded random bf16 weights, paged
     batching, chunked prefill, ``MAX_SLOTS`` slots, ``MAX_LEN``, the
     engine's KV budget unless ``kv_budget_bytes`` is given) serving
-    ``PROMPT_LENS`` prompts of ``MAX_NEW`` tokens each, after a warm-up
-    engine (same weights) served ``warm_prompts`` of them.  Every launch
-    counter of ``mods`` is set to 0 just before the main path's run and
-    read just after it.  Returns ``(row, outputs, engine, prompts)``."""
+    ``prompts`` (default: ``PROMPT_LENS`` seeded token prompts) of
+    ``max_new`` tokens each, after a warm-up engine (same weights) served
+    ``warm_prompts`` of them.  Every launch counter of ``mods`` is set to 0
+    just before the main path's run and read just after it.  Returns
+    ``(row, outputs, engine, prompts)``."""
     from repro_torch.serve import ServeEngine, ServePolicy
 
     policy = ServePolicy(batching="paged", prefill="chunked",
                          max_slots=MAX_SLOTS, max_len=MAX_LEN,
-                         max_new_tokens=MAX_NEW,
+                         max_new_tokens=max_new,
                          kv_budget_bytes=kv_budget_bytes)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
-               for n in PROMPT_LENS]
+    if prompts is None:
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+                   for n in PROMPT_LENS]
+    t0 = time.perf_counter()
     warm = ServeEngine(cfg, policy, dtype=torch.bfloat16, seed=0,
                        device=DEVICE)
+    t1 = time.perf_counter()
     warm.generate([prompts[i] for i in warm_prompts], max_new_tokens=2)
+    torch.cuda.synchronize()
+    log(f"  seeded weights on the card: {t1 - t0:.1f} s; warm-up run: "
+        f"{time.perf_counter() - t1:.1f} s")
     engine = ServeEngine(cfg, policy, dtype=torch.bfloat16,
                          params=warm.params, device=DEVICE)
     del warm
@@ -685,7 +737,7 @@ def serve_trace(cfg, mods: dict, warm_prompts,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("  serve: " + json.dumps(row))
-    assert [len(o) for o in outs] == [MAX_NEW] * len(prompts), \
+    assert [len(o) for o in outs] == [max_new] * len(prompts), \
         [len(o) for o in outs]
     assert all(0 <= tok < cfg.vocab_size for o in outs for tok in o)
     assert row["pages_allocated"] == row["pages_released"]
@@ -1374,13 +1426,17 @@ def free_card() -> int:
     return torch.cuda.mem_get_info()[0]
 
 
-def run_slice(model, params, t, prompts, dev, decode_tokens=None) -> dict:
+def run_slice(model, params, t, prompts, dev, decode_tokens=None,
+              frames=None) -> dict:
     """Each of ``prompts`` prefilled into its own slot in chunks of ``t``
     tokens, then one paged decode step over all slots fed
     ``decode_tokens`` (default: each slot's greedy token), float32 on
     ``dev``: the logits, the decode step's tokens, the K/V pool (where the
-    family has one) and every state leaf, on the CPU."""
-    from repro_torch.serve.pages import init_paged_cache
+    family has one) and every state leaf, on the CPU.  An enc-dec model
+    takes each slot's encoder input from ``frames`` (``(Se, d)`` each):
+    its encoder pass and cross K/V are installed into the slot's rows
+    (``encode_cross``, ``reset_slot``) before its prompt."""
+    from repro_torch.serve.pages import init_paged_cache, reset_slot
 
     cfg = model.cfg
     n_pages = [-(-len(p) // t) + 1 for p in prompts]
@@ -1390,12 +1446,19 @@ def run_slice(model, params, t, prompts, dev, decode_tokens=None) -> dict:
     for i, n in enumerate(n_pages):
         table[i, :n] = torch.arange(at, at + n, dtype=torch.int32)
         at += n
+    enc_max = max(len(f) for f in frames) if frames else 0
     cache = init_paged_cache(cfg, len(prompts), at, t, width, torch.float32,
-                             dev)
+                             dev, enc_len=enc_max)
     cache["table"] = table.to(dev)
     firsts = []
     with torch.no_grad():
         for slot, prompt in enumerate(prompts):
+            if frames:
+                enc = torch.from_numpy(frames[slot])[None].to(dev)
+                cache = reset_slot(cfg, cache, slot, enc_len=enc.shape[1],
+                                   cross_kv=model.encode_cross(
+                                       params, {"enc_embeds": enc},
+                                       dtype=torch.float32))
             for lo in range(0, len(prompt), t):
                 logits, cache = model.prefill_chunk(
                     params, cache,
@@ -1417,7 +1480,7 @@ def run_slice(model, params, t, prompts, dev, decode_tokens=None) -> dict:
 
 
 def slice_against_cpu(cfg, t, prompts, what, params=None,
-                      chaotic=()) -> dict:
+                      chaotic=(), frames=None) -> dict:
     """``cfg`` in float32 on the card and on the CPU with the same seeded
     weights (drawn on the card unless ``params`` holds both copies): each
     of ``prompts`` prefilled into its own slot in chunks of ``t`` tokens,
@@ -1427,8 +1490,9 @@ def slice_against_cpu(cfg, t, prompts, what, params=None,
     tokens -- except the results named by a prefix in ``chaotic``: those
     are printed beside the CPU's own float32 sensitivity (the same run on
     weights moved by one float32 rounding unit, a relative 2**-24
-    N(0, 1)), and held to being finite.  Returns each compared tensor's
-    max abs error."""
+    N(0, 1)), and held to being finite.  ``frames`` are an enc-dec
+    model's encoder inputs, one a slot (``run_slice``).  Returns each
+    compared tensor's max abs error."""
     from repro_torch.models.model import Model
 
     model = Model(cfg)
@@ -1438,7 +1502,8 @@ def slice_against_cpu(cfg, t, prompts, what, params=None,
     res, toks = {}, None
     for dev in ("cpu", DEVICE):
         t0 = time.perf_counter()
-        res[dev] = run_slice(model, params[dev], t, prompts, dev, toks)
+        res[dev] = run_slice(model, params[dev], t, prompts, dev, toks,
+                             frames)
         toks = res[dev].pop("decode tokens")
         log(f"  {what} on {dev}: {time.perf_counter() - t0:.1f} s")
     floor = {}
@@ -1452,7 +1517,7 @@ def slice_against_cpu(cfg, t, prompts, what, params=None,
                 tree.shape, generator=gen))
 
         nudged = run_slice(model, nudge(params["cpu"]), t, prompts, "cpu",
-                           toks)
+                           toks, frames)
         nudged.pop("decode tokens")
         floor = {k: float((v - res["cpu"][k]).abs().max())
                  for k, v in nudged.items()}
@@ -1879,6 +1944,149 @@ def phase_deepseek_serve(pa_mod) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-20: whisper-large-v3, the enc_dec family
+# ---------------------------------------------------------------------------
+
+
+def phase_whisper_kernels(t: int) -> dict:
+    """``paged_attention`` at the shapes whisper-large-v3's decoder
+    self-attention gives it -- 20 query heads over 20 KV heads (group 1),
+    D 64, the planned page -- against its plain version: 8 decode rows at
+    ``DECODE_LENS`` and one page of prefill rows over one table; bf16 on
+    the split body, float32 on simt, two bf16 runs bit-identical; then the
+    times of split, simt, plain and gather + SDPA beside the bound, and
+    the device time of each CUDA kernel."""
+    from repro_torch.kernels import paged_attention as pa_mod
+
+    cfg = whisper_cfg()
+    log(f"  decoder self-attention: {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV heads (group "
+        f"{cfg.n_heads // cfg.n_kv_heads}), D {cfg.head_dim}, page {t}")
+    shapes = {"decode": (DECODE_LENS, False),
+              "prefill": (tuple(range(8 * t + 1, 9 * t + 1)), True)}
+    worst, bodies = paged_checks(pa_mod, shapes, t, cfg, (0,))
+    paged = {name: paged_timing(pa_mod, name, lens, shared, t, cfg)
+             for name, (lens, shared) in shapes.items()}
+    log("  phase 18 bodies: " + json.dumps(bodies))
+    log("  phase 18 max_abs_err: " + json.dumps(
+        {f"{a}/{b}": e for (a, b), e in worst.items()}))
+    return {"paged": paged, "paged_err": worst[("bfloat16", "decode")]}
+
+
+def whisper_frames(rng, cfg, n: int) -> np.ndarray:
+    """``n`` encoder frames of precomputed embeddings (Whisper's conv front
+    end is stubbed, as in the reference): seeded normal x 0.02."""
+    return (rng.standard_normal((n, cfg.d_model)) * 0.02).astype(np.float32)
+
+
+def phase_whisper_slice(t: int) -> dict:
+    """whisper-large-v3 at full width cut to 2 encoder and 2 decoder
+    layers, float32, card against CPU on the same weights: 2 slots with
+    1,500 and 600 encoder frames, each encoded and installed
+    (``encode_cross``, ``reset_slot``), its decoder prompt prefilled in
+    planned chunks, then one paged decode step; logits, the pool and the
+    cross state agree, and the greedy tokens."""
+    free_card()
+    full = whisper_cfg()
+    cfg = dataclasses.replace(full, n_layers=2, enc_dec=dataclasses.replace(
+        full.enc_dec, n_encoder_layers=2, n_decoder_layers=2))
+    rng = np.random.default_rng(0)
+    frames = [whisper_frames(rng, cfg, n) for n in (1500, 600)]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (t + 5, 4)]
+    return slice_against_cpu(cfg, t, prompts, "whisper 2+2-layer slice",
+                             frames=frames)
+
+
+def encoder_ms(engine, frames) -> dict:
+    """The admission-time encoder pass and cross projections of one
+    request (``engine.steps.encode``, bf16) at each of ``frames``' lengths:
+    host wall with the card synchronised (mean of 3), and the device time
+    of its kernels (``torch.profiler``: one pass launches ~1,300 kernels,
+    more than the card's launch queue holds, so ``cuda_ms`` cannot queue
+    it behind a sleep)."""
+    out = {}
+    for f in frames:
+        enc = torch.from_numpy(f)[None].to(DEVICE)
+
+        def run():
+            engine.steps.encode(engine.params, enc)
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+        kernels = profiled_kernels(run, reps=1)
+        out[len(f)] = {
+            "wall_ms": wall_ms,
+            "device_ms": sum(us for us, _ in kernels.values()) / 1e3,
+            "launches": sum(n for _, n in kernels.values())}
+    log("  encoder pass per request (bf16): " + json.dumps(out))
+    return out
+
+
+def phase_whisper_serve(pa_mod) -> dict:
+    """Full-width, full-depth whisper-large-v3 (32 encoder and 32 decoder
+    layers, seeded random bf16 weights), 8 slots, serving
+    ``WHISPER_FRAMES`` encoder inputs with ``WHISPER_PROMPTS`` decoder
+    prompts and ``WHISPER_NEW`` new tokens each; every paged launch on the
+    split body, one per decoder layer and tick or chunk.  Then the
+    encoder's time per request, and the card's busy share over a
+    2-request sub-trace."""
+    from repro_torch.models.model import Model
+
+    free = free_card()
+    cfg = whisper_cfg()
+    weights = tree_bytes(Model(cfg).param_specs(), 2)
+    log(f"  {cfg.enc_dec.n_encoder_layers} encoder + "
+        f"{cfg.enc_dec.n_decoder_layers} decoder layers: {weights / 1e9:.2f}"
+        f" GB of bf16 weights (param_count() says "
+        f"{cfg.param_count() * 2 / 1e9:.2f}), {free / 1e9:.2f} GB free")
+    rng = np.random.default_rng(0)
+    prompts = [{"enc_embeds": whisper_frames(rng, cfg, se),
+                "tokens": rng.integers(0, cfg.vocab_size, n,
+                                       dtype=np.int32)}
+               for se, n in zip(WHISPER_FRAMES, WHISPER_PROMPTS)]
+    row, outs, engine, _ = serve_trace(cfg, {"paged": pa_mod}, (0,),
+                                       prompts=prompts, max_new=WHISPER_NEW)
+    pa = row["launches"]["paged"]
+    steps, chunks = row["decode_steps"], row["prefill_chunks"]
+    nd = cfg.enc_dec.n_decoder_layers
+    log(f"  launches: {json.dumps(pa)} (want {nd} decoder layers x "
+        f"({steps} ticks + {chunks} chunks), all split)")
+    assert pa["LAUNCHES"] > 0, "the main path never launched the kernel"
+    assert pa["LAUNCHES"] == pa["LAUNCHES_SPLIT"] == nd * (steps + chunks), \
+        pa
+    t0 = time.perf_counter()
+    row.update(weight_gb=weights / 1e9, free_gb=free / 1e9,
+               encoder=encoder_ms(engine, [prompts[i]["enc_embeds"]
+                                           for i in (0, 2, 4)]))
+    log(f"  encoder timing: {time.perf_counter() - t0:.1f} s")
+
+    # The card's busy share over a sub-trace (2 requests, 8 new tokens).
+    sub = [prompts[0], prompts[4]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate(sub, max_new_tokens=8)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    row["busy_share_profiled"], row["busy_share"] = profile_serve(
+        engine, sub, t1 - t0, max_new=8)
+    log(f"  sub-trace and its profile: {time.perf_counter() - t0:.1f} s")
+    log(f"  whisper: wall {row['wall_s']:.2f} s for the trace; device busy "
+        f"share {row['busy_share']:.3f} of the sub-trace's unprofiled wall")
+    return row
+
+
+def whisper_cfg():
+    from repro_torch.configs import get_model_config
+
+    return get_model_config(WHISPER)
+
+
 def zamba_cfg():
     from repro_torch.configs import get_model_config
 
@@ -1996,7 +2204,7 @@ def main() -> int:
         f"per layer page, SMEM budget {plan.level('SMEM').budget_bytes} B, "
         f"{plan.page_plan()['source']})")
     kern = serve = tk = tune = zk = zserve = mk = mserve = xserve = None
-    dk = dserve = None
+    dk = dserve = wk = wserve = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -2067,8 +2275,23 @@ def main() -> int:
         log("[17] serving full-width deepseek-v2-236b cut in depth, bf16")
         dserve = phase("phase 17 deepseek serve", phase_deepseek_serve,
                        pa_mod)
+        free_card()
+        wplan = plan_decode(whisper_cfg(), max_len=MAX_LEN, batch=MAX_SLOTS,
+                            dtype_bytes=2)
+        wt = wplan.page_plan()["page_tokens"]
+        log(f"  whisper-large-v3 planned page: {wt} tokens, "
+            f"{wplan.page_table()['pages_per_slot']} pages a slot "
+            f"({wplan.page_plan()['source']})")
+        log(f"[18] whisper-large-v3's decoder shapes: paged attention "
+            f"(group 1, 20 KV heads, page {wt}), against its plain version")
+        wk = phase("phase 18 whisper kernels", phase_whisper_kernels, wt)
+        log("[19] whisper-large-v3 at full width cut to 2 encoder and 2 "
+            "decoder layers, cuda against cpu, float32")
+        phase("phase 19 whisper slice", phase_whisper_slice, wt)
+        log("[20] serving full-width, full-depth whisper-large-v3, bf16")
+        wserve = phase("phase 20 whisper serve", phase_whisper_serve, pa_mod)
     if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
-                          xserve, dk, dserve):
+                          xserve, dk, dserve, wk, wserve):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -2133,6 +2356,15 @@ def main() -> int:
         "max_abs_err": dk["paged_err"], "sass_mla": dk["sass"],
         **{name: {k: row[k] for k in keys}
            for name, row in dk["paged"].items()}}
+    # whisper-large-v3: the paged kernel's serving launches (phase 20) and
+    # its times and bounds at 20 over 20 heads, D 64, page 16 (phase 18).
+    wl = wserve["launches"]["paged"]
+    kernels[0]["whisper"] = {
+        "launches": wl["LAUNCHES"],
+        "launches_split": wl["LAUNCHES_SPLIT"],
+        "max_abs_err": wk["paged_err"],
+        **{name: {k: row[k] for k in keys}
+           for name, row in wk["paged"].items()}}
     ssd = kernels[3]
     ssd["launches_tune"] = ssd["launches"]
     ssd["launches"] = zl["ssd"]["LAUNCHES"]

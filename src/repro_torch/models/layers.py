@@ -1,6 +1,8 @@
 """Transformer layers of the dense GQA family, ported from
-``repro.models.layers``: norms, RoPE, SwiGLU, embeddings, the LM head, and
-the two paged attention blocks the serving engine runs.
+``repro.models.layers``: norms, RoPE, SwiGLU, embeddings, the LM head, the
+two paged attention blocks the serving engine runs, and the unpaged
+attention the enc-dec family's encoder and cross-attention run
+(``attn_mask``, ``full_attention``, ``attention_op``, ``attention_block``).
 
 The JAX package's tensor-parallel projections (``tp_matmul`` /
 ``fused_column_matmul``) are plain ``torch.matmul`` here: the port runs on
@@ -11,6 +13,8 @@ plain PyTorch version on the CPU.
 
 Unlike the pure JAX functions, the paged blocks write the new K/V into the
 page pool IN PLACE (``index_put_``); they return only the attention output.
+The unpaged attention is plain torch ops (einsum, softmax), as the
+reference's is jnp outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -139,6 +143,98 @@ def lm_logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, NEG_INF)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Unpaged attention (the enc-dec encoder and cross-attention)
+# ---------------------------------------------------------------------------
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, KV * n_rep, D) by broadcast (GQA)."""
+    if n_rep == 1:
+        return k
+    b, s, kv, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, d).reshape(
+        b, s, kv * n_rep, d)
+
+
+def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool = True,
+              window: int = 0,
+              kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row attention mask, shaped ``(B | 1, 1, Sq, Sk)``, True where
+    attention is allowed.
+
+    ``q_pos`` is ``(Sq,)`` or ``(B, Sq)``, ``k_pos`` ``(Sk,)`` or ``(B,
+    Sk)``, and ``kv_len`` (the valid key length) a scalar or ``(B,)``: the
+    paged enc-dec decode gives every row its own encoder length.  A
+    negative ``k_pos`` always masks."""
+    qp = q_pos[..., :, None]                       # (..., Sq, 1)
+    kp = k_pos[..., None, :]                       # (..., 1, Sk)
+    m = kp >= 0
+    if causal or window:
+        m = m & (kp <= qp)
+        if window:
+            m = m & (kp > qp - window)
+    else:
+        m = m & torch.ones_like(qp, dtype=torch.bool)   # to (.., Sq, Sk)
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=kp.device)
+        m = m & (kp < kl[..., None, None])
+    while m.dim() < 3:
+        m = m[None]
+    return m[:, None]                              # head axis
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_pos: torch.Tensor, k_pos: torch.Tensor,
+                   causal: bool = True, window: int = 0,
+                   kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over whole (already GQA-repeated) K/V: q ``(B, Sq, H,
+    D)``, k and v ``(B, Sk, H, D)``.  The logits are cast to float32 after
+    the product and masked with the finite ``NEG_INF``, so a row with no
+    valid key softmaxes uniformly (over zero-padded V: zeros), not NaN."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    mask = attn_mask(q_pos, k_pos, causal=causal, window=window,
+                     kv_len=kv_len)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_pos: torch.Tensor, k_pos: torch.Tensor, cfg,
+                 causal: bool = True,
+                 kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's dispatch on one card: K/V repeated to the query
+    heads, then ``full_attention`` when a valid length is given, the keys
+    are at most ``cfg.attn_blockwise_threshold`` or the query is one
+    token.  The blockwise branch waits for the cohort engine's slice."""
+    n_rep = q.shape[2] // k.shape[2]
+    k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    if (kv_len is not None or k.shape[1] <= cfg.attn_blockwise_threshold
+            or q.shape[1] == 1):
+        return full_attention(q, k, v, q_pos, k_pos, causal=causal,
+                              window=cfg.sliding_window, kv_len=kv_len)
+    raise NotImplementedError(
+        f"blockwise attention over {k.shape[1]} keys (past "
+        f"attn_blockwise_threshold {cfg.attn_blockwise_threshold}) waits "
+        f"for the cohort engine's slice")
+
+
+def attention_block(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
+                    cfg, causal: bool = True) -> torch.Tensor:
+    """The reference's ``attention_block`` without a cache: the Q/K/V
+    projections, RoPE at ``q_pos`` on q and k (the reference ropes here
+    even in the non-causal encoder), attention within ``x`` and the output
+    projection.  ``x`` ``(B, S, d)`` -> ``(B, S, d)``."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, x, cfg)
+    q = apply_rope(q, q_pos, cfg.rope_theta)
+    k = apply_rope(k, q_pos, cfg.rope_theta)
+    out = attention_op(q, k, v, q_pos, q_pos, cfg, causal=causal)
+    return out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

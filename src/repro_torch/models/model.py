@@ -1,5 +1,5 @@
-"""Model assembly for the dense, moe, mla_moe, hybrid_ssm and xlstm
-families (the port of the paged paths of ``repro.models.model``).
+"""Model assembly for the dense, moe, mla_moe, hybrid_ssm, xlstm and
+enc_dec families (the port of the paged paths of ``repro.models.model``).
 
 ``Model`` declares the parameter tree (same paths and shapes as the JAX
 package), the per-slot recurrent state (``init_state``, the state part of
@@ -23,7 +23,15 @@ the page pool, and each mixer owns its rows of ``state["mamba"]`` (conv
 and SSM state per slot).  ``xlstm`` is token-free: periods of
 ``slstm_every - 1`` mLSTM blocks and one sLSTM block, whose per-slot
 states (``state["mlstm"]``, ``state["slstm"]``) are its whole cache.
-Other families raise ``NotImplementedError`` until their slice lands.
+
+``enc_dec`` (Whisper) runs its bidirectional encoder once per request
+(``encode_cross``: ``_tf_layer`` over ``enc_layers`` with a non-causal
+hook, the final norm, then every decoder layer's cross K/V); the serving
+steps run ``_dec_layer`` over ``dec_layers``: paged self-attention (pool
+layer ``i`` for decoder layer ``i``), then cross-attention against the
+slot's rows of ``state["cross_k"/"cross_v"]``, each row masked to its own
+``state["enc_len"]``.  Its training forward waits for the cohort slice.
+Other families (``vlm``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from repro_torch.models.params import ParamSpec, init_params
 PyTree = Any
 
 #: Families this port can run so far.
-FAMILIES = ("dense", "moe", "mla_moe", "hybrid_ssm", "xlstm")
+FAMILIES = ("dense", "moe", "mla_moe", "hybrid_ssm", "xlstm", "enc_dec")
 
 #: The MoE decode step's capacity factor (the reference ``Model``'s
 #: default); prefill chunks dispatch dropless.
@@ -91,9 +99,25 @@ def _tf_layer(lp: dict, x: torch.Tensor, cfg,
     return x + L.swiglu_ffn(lp["ffn"], h)
 
 
+def _dec_layer(lp: dict, x: torch.Tensor, cfg,
+               self_attn: Callable[[dict, torch.Tensor], torch.Tensor],
+               cross_attn: Callable[[dict, torch.Tensor], torch.Tensor]
+               ) -> torch.Tensor:
+    """The enc-dec decoder-layer body of every serving mode: pre-norm
+    self-attention (``self_attn(lp["attn"], h)``: the paged hook),
+    pre-norm cross-attention (``cross_attn(lp["cross"], h)``) and pre-norm
+    SwiGLU, each with a residual."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + self_attn(lp["attn"], h)
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    x = x + cross_attn(lp["cross"], h)
+    h = L.rms_norm(x, lp["ln3"], cfg.norm_eps)
+    return x + L.swiglu_ffn(lp["ffn"], h)
+
+
 class Model:
-    """The dense, MoE and MLA-MoE decoders, the Zamba2 hybrid and xLSTM;
-    see the module docstring."""
+    """The dense, MoE and MLA-MoE decoders, the Zamba2 hybrid, xLSTM and
+    the Whisper encoder-decoder; see the module docstring."""
 
     def __init__(self, cfg):
         if cfg.family not in FAMILIES:
@@ -123,6 +147,18 @@ class Model:
             specs["slstm_layers"] = XL.slstm_param_specs(cfg, n_s)
             specs["slstm_ln"] = _norm_spec(cfg, n_s)
             return specs
+        if cfg.family == "enc_dec":
+            ne, nd = cfg.enc_dec.n_encoder_layers, cfg.enc_dec.n_decoder_layers
+            specs["enc_layers"] = _tf_layer_specs(cfg, ne, "dense")
+            specs["dec_layers"] = {
+                "ln1": _norm_spec(cfg, nd), "ln2": _norm_spec(cfg, nd),
+                "ln3": _norm_spec(cfg, nd),
+                "attn": L.attention_param_specs(cfg, nd),
+                "cross": L.attention_param_specs(cfg, nd),
+                "ffn": L.ffn_param_specs(cfg, layers=nd),
+            }
+            specs["enc_final_norm"] = _norm_spec(cfg)
+            return specs
         if cfg.family == "mla_moe":
             kd = cfg.moe.first_k_dense
             if kd:
@@ -151,7 +187,9 @@ class Model:
         H, P, N) f32}}``; xlstm ``{"mlstm": {conv, C, n, m}, "slstm": {c,
         n, h, m}}``, all zeros except the stabilisers ``m`` at ``NEG``
         (the running max starts at its floor), conv in dtype, the rest
-        f32.  Families without state: ``{}``."""
+        f32.  Families without state: ``{}`` (enc_dec's cross K/V is sized
+        by the trace's longest encoder: ``serve.pages.init_paged_cache``
+        lays it out)."""
         cfg = self.cfg
         f32 = dict(dtype=torch.float32, device=device)
         if cfg.family == "hybrid_ssm":
@@ -242,9 +280,18 @@ class Model:
     def _layers(self, params: PyTree, x: torch.Tensor,
                 attn: Callable[[int], Callable],
                 rows: Callable[[str, int], dict],
-                capacity_factor: Optional[float]) -> torch.Tensor:
-        """The family's stack between the embedding and the LM head."""
+                capacity_factor: Optional[float],
+                cross: Optional[Callable[[int], Callable]] = None
+                ) -> torch.Tensor:
+        """The family's stack between the embedding and the LM head;
+        ``cross(i)`` is enc_dec's cross-attention hook for decoder layer
+        ``i``."""
         cfg = self.cfg
+        if cfg.family == "enc_dec":
+            for i in range(cfg.enc_dec.n_decoder_layers):
+                x = _dec_layer(_layer_params(params["dec_layers"], i), x,
+                               cfg, attn(i), cross(i))
+            return x
         if cfg.family == "hybrid_ssm":
             return self._hybrid_stack(params, x, attn, rows)
         if cfg.family == "xlstm":
@@ -263,6 +310,76 @@ class Model:
                           attn(i), cfg.family, capacity_factor)
         return x
 
+    # ------------------------------------------------------------ enc-dec
+    def _encode(self, params: PyTree, enc_embeds: torch.Tensor,
+                dtype) -> torch.Tensor:
+        """The encoder stack: ``_tf_layer`` over ``enc_layers`` with a
+        non-causal attention hook (RoPE at the frame positions, as the
+        reference), then the final norm.  ``enc_embeds`` ``(B, Se, d)``
+        -> ``(B, Se, d)``."""
+        cfg = self.cfg
+        enc = enc_embeds.to(dtype)
+        enc_pos = torch.arange(enc.shape[1], device=enc.device)
+
+        def attn(ap, h):
+            return L.attention_block(ap, h, enc_pos, cfg, causal=False)
+
+        for i in range(cfg.enc_dec.n_encoder_layers):
+            enc = _tf_layer(_layer_params(params["enc_layers"], i), enc, cfg,
+                            attn)
+        return L.rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
+
+    def cross_kv(self, params: PyTree, enc: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every decoder layer's cross K/V from the encoder output, ``(nd,
+        B, Se, KV, D)`` each: one batched product over the stacked
+        ``cross`` weights.  Computed once per request (it never grows)."""
+        cfg = self.cfg
+        b, se = enc.shape[0], enc.shape[1]
+        cp = params["dec_layers"]["cross"]
+        shape = (-1, b, se, cfg.n_kv_heads, cfg.head_dim)
+        k = enc[None] @ cp["wk"].to(enc.dtype)[:, None]
+        v = enc[None] @ cp["wv"].to(enc.dtype)[:, None]
+        return k.reshape(shape), v.reshape(shape)
+
+    def encode_cross(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                     dtype=torch.bfloat16
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The encoder pass and every decoder layer's cross K/V: the paged
+        engine's admission-time install for an enc-dec request."""
+        return self.cross_kv(params,
+                             self._encode(params, batch["enc_embeds"], dtype))
+
+    def _cross_attn(self, cp: dict, x: torch.Tensor, q_pos: torch.Tensor,
+                    k_pos: torch.Tensor, kv: Tuple[torch.Tensor, torch.Tensor],
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Cross-attention of ``x`` ``(B, S, d)`` over the encoder's
+        pre-projected K/V (``kv``: ``cross_kv``'s rows, as the serving
+        steps keep them), masked past ``kv_len`` (a scalar or one length a
+        row).  No RoPE: the reference ropes no cross-attention.  (The
+        reference's branch that projects K/V from the encoder output
+        serves its training forward, which waits for the cohort slice.)"""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q = (x @ cp["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads,
+                                                cfg.head_dim)
+        k, v = kv
+        out = L.attention_op(q, k.to(x.dtype), v.to(x.dtype), q_pos, k_pos,
+                             cfg, causal=False, kv_len=kv_len)
+        return out.reshape(b, s, -1) @ cp["wo"].to(x.dtype)
+
+    def _cross_hook(self, state: PyTree, q_pos: torch.Tensor, rows: slice
+                    ) -> Callable[[int], Callable]:
+        """enc_dec's cross-attention hook for decoder layer ``i`` of a
+        serving step: queries at ``q_pos`` against the ``rows`` (slots) of
+        ``state["cross_k"/"cross_v"]``, each row masked to its own
+        ``state["enc_len"]``."""
+        ck, cv = state["cross_k"], state["cross_v"]
+        enc_pos = torch.arange(ck.shape[2], device=ck.device)
+        kv_len = state["enc_len"][rows]
+        return lambda i: lambda cp, h: self._cross_attn(
+            cp, h, q_pos, enc_pos, (ck[i, rows], cv[i, rows]), kv_len)
+
     # ------------------------------------------------------- paged decode
     def decode_step_paged(self, params: PyTree, cache: PyTree,
                           batch: Dict[str, torch.Tensor],
@@ -275,7 +392,9 @@ class Model:
         ``lat`` of ``(L, P, T, 1, R + dr)``; none for xlstm),
         ``table`` (the ``(S, NP)`` int32 page table), ``pos`` (the
         per-slot position vector) and ``state`` (``Model.init_state``'s
-        groups, the slot on axis 1).  ``batch["tokens"]`` is ``(S, 1)``.
+        groups, the slot on axis 1; enc_dec's ``cross_k``/``cross_v``
+        ``(nd, S, Se_max, KV, D)`` and ``enc_len`` ``(S,)``, read only).
+        ``batch["tokens"]`` is ``(S, 1)``.
         Every row carries its own RoPE offset and length mask, so slots at
         different depths decode as one batch; empty slots (``pos == 0``,
         null table row) decode garbage the engine ignores.  MoE decode
@@ -299,7 +418,9 @@ class Model:
         def rows(group, i):
             return {k: buf[i] for k, buf in cache["state"][group].items()}
 
-        x = self._layers(params, x, attn, rows, CAPACITY_FACTOR)
+        cross = (self._cross_hook(cache["state"], pos[:, None], slice(None))
+                 if cfg.family == "enc_dec" else None)
+        x = self._layers(params, x, attn, rows, CAPACITY_FACTOR, cross)
         new_cache = dict(cache)
         new_cache["pos"] = pos + 1
         logits = L.lm_logits(params, x, cfg)
@@ -316,8 +437,10 @@ class Model:
         slot's pool pages through its table row (in place).  Returns the
         chunk's last-token logits ``(1, V)`` (meaningful on the final
         chunk) and the cache.  Recurrent blocks start from the slot's
-        state rows and leave the next chunk's there.  MoE dispatches
-        dropless, so any chunking of a prompt gives the same tokens.
+        state rows and leave the next chunk's there; enc_dec's
+        cross-attention reads the slot's cross rows up to its
+        ``enc_len``.  MoE dispatches dropless, so any chunking of a prompt
+        gives the same tokens.
         """
         cfg = self.cfg
         slot, pos0 = int(batch["slot"]), int(batch["pos0"])
@@ -339,7 +462,10 @@ class Model:
             return {k: buf[i, slot:slot + 1]
                     for k, buf in cache["state"][group].items()}
 
-        x = self._layers(params, x, attn, rows, None)
+        cross = (self._cross_hook(cache["state"], positions,
+                                  slice(slot, slot + 1))
+                 if cfg.family == "enc_dec" else None)
+        x = self._layers(params, x, attn, rows, None, cross)
         logits = L.lm_logits(params, x[:, -1:], cfg)
         return logits[:, -1], dict(cache)
 

@@ -18,9 +18,13 @@
     ``pos - window`` behind the chunk front and after every token; a
     token-free family (xLSTM) holds no pages and chunks its prompts at
     ``kvcache.DEFAULT_PAGE_TOKENS``.
+  * An enc-dec request (Whisper) is a dict prompt ``{"enc_embeds": (Se,
+    d) frames, "tokens": decoder prompt}``: at admission its encoder runs
+    once and its cross K/V is installed into the slot's state rows,
+    zero-padded to the trace's longest encoder.
 
 It serves ``serve.pages.PAGED_FAMILIES`` (dense, moe, mla_moe, hybrid_ssm,
-xlstm).
+xlstm, enc_dec).
 ``batching="cohort"`` and ``prefix_cache="radix"`` wait for later slices
 and raise ``NotImplementedError``.
 """
@@ -48,6 +52,7 @@ from repro_torch.serve.kvcache import (
 )
 from repro_torch.serve.pages import (
     PAGED_FAMILIES,
+    STATE_GROUPS,
     PagePool,
     PagedScheduler,
     init_paged_cache,
@@ -279,14 +284,36 @@ class ServeEngine:
         }
 
     # --------------------------------------------------------------- requests
+    @staticmethod
+    def _normalize_prompt(prompt) -> Dict[str, np.ndarray]:
+        """A prompt's features as host arrays: a dict prompt's entries
+        (enc-dec: ``enc_embeds`` and ``tokens``), else ``{"tokens": ...}``
+        of the token ids."""
+        if isinstance(prompt, dict):
+            return {k: np.asarray(v) for k, v in prompt.items()}
+        return {"tokens": np.asarray(prompt, dtype=np.int32).reshape(-1)}
+
     def _make_request(self, prompt, max_new: int) -> Request:
-        toks = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        feats = self._normalize_prompt(prompt)
+        plen = int(feats["tokens"].shape[-1])
+        enc_len = (int(feats["enc_embeds"].shape[0])
+                   if "enc_embeds" in feats else 0)
         rid = self._next_rid
         self._next_rid += 1
-        return Request(rid=rid, prompt_len=int(toks.shape[0]),
-                       max_new=max_new, features={"tokens": toks},
+        return Request(rid=rid, prompt_len=plen, max_new=max_new,
+                       features=feats, group=(plen, enc_len),
                        state_bytes=request_state_bytes(
-                           self.cfg, 0, self._dtype_bytes))
+                           self.cfg, enc_len, self._dtype_bytes))
+
+    def _encode_req(self, req: Request):
+        """Enc-dec admission: the encoder pass and the cross projections,
+        once for this request (``(nd, 1, Se, KV, D)`` each).  None for
+        every other family."""
+        if self.steps.encode is None:
+            return None
+        enc = torch.from_numpy(np.asarray(req.features["enc_embeds"],
+                                          dtype=np.float32))
+        return self.steps.encode(self.params, enc[None].to(self.device))
 
     # --------------------------------------------------------------- generate
     def generate(
@@ -295,8 +322,9 @@ class ServeEngine:
         max_new_tokens=None,
         sampling: Optional[SamplingConfig] = None,
     ) -> List[List[int]]:
-        """Serve ``prompts`` (token-id sequences), returning each request's
-        generated token ids in submission order.  ``max_new_tokens`` is one
+        """Serve ``prompts`` (token-id sequences; for enc_dec, dicts of
+        ``enc_embeds`` and ``tokens``), returning each request's generated
+        token ids in submission order.  ``max_new_tokens`` is one
         int for all requests or a per-request sequence."""
         scfg = sampling or self.policy.sampling
         max_new = (max_new_tokens if max_new_tokens is not None
@@ -357,10 +385,11 @@ class ServeEngine:
         page = self.page
         window = self.cfg.sliding_window
         pages_per_slot, pages_total = self._paged_geometry(reqs, n_slots)
+        enc_max = max(r.group[1] for r in reqs)   # longest encoder (enc_dec)
         pool = PagePool(pages_total, obs=self.obs, tracer=self.tracer)
         cache = init_paged_cache(self.cfg, n_slots, pages_total,
                                  page.page_tokens, pages_per_slot,
-                                 self.dtype, dev)
+                                 self.dtype, dev, enc_len=enc_max)
         sched = PagedScheduler(pool, page, n_slots, pages_per_slot,
                                window=window)
         self._live_pool = pool          # stats() reads these while
@@ -479,7 +508,9 @@ class ServeEngine:
                     preempt(victim)
 
             # Admission: a slot + its first page; the prompt streams in
-            # below, one chunk per tick, straight into pool pages.
+            # below, one chunk per tick, straight into pool pages.  Enc-dec
+            # runs its encoder once here and installs the cross K/V into
+            # the slot's state rows.
             for slot, req, _pages in sched.admit():
                 now = time.monotonic()
                 t_sub = self._t_submit.get(req.rid, t0)
@@ -487,7 +518,9 @@ class ServeEngine:
                                      tid=req.rid + 1,
                                      args={"rid": req.rid, "slot": slot})
                 self.obs.observe("queue_wait_s", now - t_sub)
-                cache = reset_slot(self.cfg, cache, slot)
+                cache = reset_slot(self.cfg, cache, slot,
+                                   cross_kv=self._encode_req(req),
+                                   enc_len=req.group[1])
                 table_np[slot] = 0
                 push_table(slot)
                 pos_np[slot] = sched.slots[slot].pos
@@ -574,19 +607,21 @@ class ServeEngine:
                 # Stalled AND prefilling slots ride through the decode
                 # batch: their KV writes land on the null page or at the
                 # chunk front (overwritten by the next chunk), but their
-                # recurrent state (every buffer of every state group:
-                # Mamba, mLSTM, sLSTM) would advance on the discarded
-                # tick, so their state rows are saved before the step and
-                # put back after it (``slot_rows``: the slot is axis 1 of
-                # a layer-stacked buffer, axis 0 of a per-slot vector).
+                # recurrent state (every buffer of the family's
+                # ``STATE_GROUPS``: Mamba, mLSTM, sLSTM) would advance on
+                # the discarded tick, so those rows are saved before the
+                # step and put back after it (``slot_rows``: the slot is
+                # axis 1 of a layer-stacked buffer, axis 0 of a per-slot
+                # vector).  State a step only reads (enc-dec's cross K/V)
+                # is not copied.
                 frozen = sorted(i for i in stalled | set(prefills)
                                 if sched.slots[i] is not None)
+                groups = STATE_GROUPS.get(self.cfg.family, ())
                 saved = None
-                if frozen and cache["state"]:
+                if frozen and groups:
                     rows = torch.tensor(frozen, device=dev)
-                    saved = [(buf, slot_rows(buf, rows))
-                             for group in cache["state"].values()
-                             for buf in group.values()]
+                    saved = [(buf, slot_rows(buf, rows)) for g in groups
+                             for buf in cache["state"][g].values()]
                 td0 = time.monotonic()
                 logits, cache = steps.decode(
                     self.params, cache,

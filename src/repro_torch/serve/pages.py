@@ -1,6 +1,6 @@
 """The global KV page pool: plan-sized pages, per-slot tables, slot-level
 admission (the port of ``repro.serve.pages`` for the dense, moe,
-mla_moe, hybrid_ssm and xlstm families).
+mla_moe, hybrid_ssm, xlstm and enc_dec families).
 
   * ``PagePool`` -- the physical pool: ``pages_total`` pages of
     ``page_plan()["page_tokens"]`` tokens each, a refcounted free list and
@@ -19,9 +19,10 @@ mla_moe, hybrid_ssm and xlstm families).
     ``pool`` (``k``/``v``, each ``(L, P, T, KV, D)``, or mla_moe's latent
     ``lat``, ``(L, P, T, 1, R + dr)``), ``table`` (the per-slot page
     table), ``pos`` (the per-slot position vector) and ``state`` (per-slot
-    recurrent buffers: the slot on axis 1 of a layer-stacked buffer, on
-    axis 0 of a per-slot vector); ``reset_slot`` puts one slot's state
-    back to ``Model.init_state``'s values.
+    recurrent buffers, and enc_dec's cross K/V: the slot on axis 1 of a
+    layer-stacked buffer, on axis 0 of a per-slot vector); ``reset_slot``
+    puts one slot's state back to ``Model.init_state``'s values and
+    installs an enc-dec request's cross K/V.
 
 Page export/install and the prefix cache's hooks wait for the prefix
 slice.
@@ -41,10 +42,14 @@ from repro_torch.serve.scheduler import Request
 
 PyTree = Any
 
-#: Families with a per-slot paged decode path in the port.
-PAGED_FAMILIES = ("dense", "moe", "mla_moe", "hybrid_ssm", "xlstm")
+#: Families with a per-slot paged decode path in the port.  enc-dec pages
+#: its decoder self-attention K/V; its cross K/V is per-slot state.
+PAGED_FAMILIES = ("dense", "moe", "mla_moe", "hybrid_ssm", "xlstm",
+                  "enc_dec")
 
-#: Per-slot recurrent-state groups per family (reset at admission).
+#: Per-slot recurrent-state groups per family: the buffers a decode step
+#: writes (reset at admission).  enc_dec's flat cross state is written only
+#: at admission and read by every step.
 STATE_GROUPS = {"hybrid_ssm": ("mamba",), "xlstm": ("mlstm", "slstm")}
 
 
@@ -340,7 +345,7 @@ class PagedScheduler:
 
 def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
                      page_tokens: int, n_logical_pages: int, dtype,
-                     device) -> PyTree:
+                     device, enc_len: int = 0) -> PyTree:
     """The pooled cache ``Model.decode_step_paged`` consumes, on
     ``device``: ``pool`` holds one ``(L, n_pages, page_tokens, KV, D)``
     buffer each for K and V, ``table`` the ``(n_slots, n_logical_pages)``
@@ -353,6 +358,10 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     pool layer per application of the shared attention block, and
     ``state["mamba"]``.  xlstm is token-free: no pool, and
     ``state["mlstm"]`` and ``state["slstm"]`` are its whole cache.
+    enc_dec: one pool layer per decoder layer, and the flat state
+    ``cross_k``/``cross_v`` ``(nd, n_slots, enc_len, KV, D)`` in ``dtype``
+    (``enc_len``: the longest encoder the run serves) and ``enc_len``
+    ``(n_slots,)`` int32.
     """
     from repro_torch.models.model import Model
 
@@ -361,6 +370,8 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
             f"paged serving is not implemented for family {cfg.family!r}")
     pool_layers = {"dense": cfg.n_layers, "moe": cfg.n_layers,
                    "hybrid_ssm": attn_apps(cfg)}.get(cfg.family, 0)
+    if cfg.family == "enc_dec":
+        pool_layers = cfg.enc_dec.n_decoder_layers
     cache = {
         "table": torch.zeros((n_slots, n_logical_pages), dtype=torch.int32,
                              device=device),
@@ -378,15 +389,27 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
                  cfg.head_dim)
         cache["pool"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
                          "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family == "enc_dec":
+        shape = (pool_layers, n_slots, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        cache["state"] = {
+            "cross_k": torch.zeros(shape, dtype=dtype, device=device),
+            "cross_v": torch.zeros(shape, dtype=dtype, device=device),
+            "enc_len": torch.zeros((n_slots,), dtype=torch.int32,
+                                   device=device),
+        }
     return cache
 
 
-def reset_slot(cfg: ModelConfig, cache: PyTree, slot: int) -> PyTree:
+def reset_slot(cfg: ModelConfig, cache: PyTree, slot: int,
+               cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               enc_len: int = 0) -> PyTree:
     """Reset one slot's per-slot state rows for a fresh (chunked) prefill
     to the family's ``Model.init_state`` values -- not zeros: xLSTM's
-    stabiliser rows start at the running max's floor.  The pool needs no
-    reset: chunk writes land exactly on the slot's allocated pages.  In
-    place; returns the cache.
+    stabiliser rows start at the running max's floor -- and, for enc_dec,
+    install the request's cross K/V (``cross_kv``: ``(nd, 1, Se, KV, D)``
+    each) into the slot's rows, zero the rows past its ``Se`` and set
+    ``enc_len[slot]``.  The pool needs no reset: chunk writes land exactly
+    on the slot's allocated pages.  In place; returns the cache.
     """
     from repro_torch.models.model import Model
 
@@ -400,6 +423,13 @@ def reset_slot(cfg: ModelConfig, cache: PyTree, slot: int) -> PyTree:
         for g in groups:
             for k, buf in cache["state"][g].items():
                 set_slot_rows(buf, slot, slot_rows(fresh[g][k], 0))
+    if cfg.family == "enc_dec":
+        state = cache["state"]
+        for name, src in zip(("cross_k", "cross_v"), cross_kv):
+            row = slot_rows(state[name], slot)        # (nd, Se_max, KV, D)
+            row[:, :src.shape[2]] = src[:, 0]
+            row[:, src.shape[2]:] = 0
+        set_slot_rows(state["enc_len"], slot, enc_len)
     return cache
 
 
@@ -411,9 +441,10 @@ def slot_rows(buf: torch.Tensor, slots) -> torch.Tensor:
     return buf[:, slots] if buf.dim() >= 2 else buf[slots]
 
 
-def set_slot_rows(buf: torch.Tensor, slots, value: torch.Tensor) -> None:
-    """Write ``value`` into the rows of ``slots`` of a per-slot state
-    buffer (the axis as in ``slot_rows``), in place, cast to its dtype."""
+def set_slot_rows(buf: torch.Tensor, slots, value) -> None:
+    """Write ``value`` (a tensor or a scalar) into the rows of ``slots`` of
+    a per-slot state buffer (the axis as in ``slot_rows``), in place, cast
+    to its dtype."""
     if buf.dim() >= 2:
         buf[:, slots] = value
     else:

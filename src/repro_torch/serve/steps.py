@@ -1,11 +1,12 @@
 """The paged serving steps (the port of ``repro.serve.steps.
-make_paged_steps``): two plain callables around the model's paged decode
-step and chunked prefill, run eagerly without autograd."""
+make_paged_steps``): plain callables around the model's paged decode
+step, chunked prefill and (enc_dec) admission-time encoder pass, run
+eagerly without autograd."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -17,11 +18,14 @@ PyTree = Any
 @dataclass(frozen=True)
 class PagedServeSteps:
     """``decode(params, cache, batch)`` and ``prefill_chunk(params, cache,
-    tokens, pos0, slot)``, each returning ``(logits, cache)``."""
+    tokens, pos0, slot)``, each returning ``(logits, cache)``; for enc_dec,
+    ``encode(params, enc_embeds)`` returning the request's cross K/V
+    (``Model.encode_cross``), else None."""
 
     decode: Callable
     prefill_chunk: Callable
     model: Model
+    encode: Optional[Callable] = None
 
 
 def make_paged_steps(model: Model, dtype=torch.bfloat16) -> PagedServeSteps:
@@ -37,5 +41,12 @@ def make_paged_steps(model: Model, dtype=torch.bfloat16) -> PagedServeSteps:
                 params, cache, {"tokens": tokens, "pos0": pos0,
                                 "slot": slot}, dtype=dtype)
 
+    encode = None
+    if model.cfg.family == "enc_dec":
+        def encode(params: PyTree, enc_embeds):
+            with torch.no_grad():
+                return model.encode_cross(
+                    params, {"enc_embeds": enc_embeds}, dtype=dtype)
+
     return PagedServeSteps(decode=decode, prefill_chunk=prefill_chunk,
-                           model=model)
+                           model=model, encode=encode)

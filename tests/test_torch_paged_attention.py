@@ -394,20 +394,15 @@ def test_cuda_split_body(d, t, group, window):
         assert not out[0].float().abs().any()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", ["decode", "prefill"])
-def test_cuda_zamba2_shared_attention_shapes(dtype, shape):
-    """zamba2-1.2b's shared attention block: 32 query heads over 32 KV
-    heads (group 1, the m16 tile 15/16 padding), D 64, the planned 8-token
-    page, over the engine's 512-page table; decode rows of ragged lengths
-    and one 8-row prefill chunk over one table row.  bf16 takes the split
-    body, float32 simt; both agree with the plain version and two bf16
-    runs are bit-identical."""
+def _check_group1_shape(dtype, shape, t, h, kv, d, n_logical, seed):
+    """The split body (bf16) or simt (float32) at one group-1 serving
+    shape, over the engine's ``n_logical``-page table: decode rows of
+    ragged lengths, or one page of prefill rows over one table row.  Both
+    agree with the plain version, empty rows are zero, and two bf16 runs
+    are bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    t, h, kv, d, n_logical = 8, 32, 32, 64, 512
-    gen = torch.Generator().manual_seed(8)
+    gen = torch.Generator().manual_seed(seed)
     if shape == "decode":
         lengths = [0, 1, 8, 57, 300, 1000, 1056, 64]
         need = [-(-n // t) for n in lengths]
@@ -443,6 +438,30 @@ def test_cuda_zamba2_shared_attention_shapes(dtype, shape):
     live = lens > 0
     torch.testing.assert_close(out.float()[live], ref[live], **TOL[dtype])
     assert not out[~live].float().abs().any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ["decode", "prefill"])
+def test_cuda_zamba2_shared_attention_shapes(dtype, shape):
+    """zamba2-1.2b's shared attention block: 32 query heads over 32 KV
+    heads (group 1, the m16 tile 15/16 padding), D 64, the planned 8-token
+    page, over the engine's 512-page table; decode rows of ragged lengths
+    and one 8-row prefill chunk over one table row."""
+    _check_group1_shape(dtype, shape, t=8, h=32, kv=32, d=64, n_logical=512,
+                        seed=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ["decode", "prefill"])
+def test_cuda_whisper_decoder_shapes(dtype, shape):
+    """whisper-large-v3's decoder self-attention: 20 query heads over 20
+    KV heads (group 1), D 64, the planned 16-token page, over the engine's
+    256-page table; decode rows of ragged lengths and one 16-row prefill
+    chunk over one table row."""
+    _check_group1_shape(dtype, shape, t=16, h=20, kv=20, d=64, n_logical=256,
+                        seed=18)
 
 
 @pytest.mark.gpu

@@ -129,11 +129,11 @@ def test_unported_paths_raise():
         ServeEngine(cfg, ServePolicy(batching="cohort"), device="cpu")
     with pytest.raises(NotImplementedError, match="prefix"):
         ServeEngine(cfg, ServePolicy(prefix_cache="radix"), device="cpu")
-    with pytest.raises(NotImplementedError, match="enc_dec"):
-        ServeEngine(get_model_config("whisper-large-v3").reduced(),
+    with pytest.raises(NotImplementedError, match="vlm"):
+        ServeEngine(get_model_config("qwen2-vl-7b").reduced(),
                     device="cpu")
-    for arch in ("mixtral-8x7b", "xlstm-1.3b",
-                 "deepseek-v2-236b"):                 # served: no raise
+    for arch in ("mixtral-8x7b", "xlstm-1.3b", "deepseek-v2-236b",
+                 "whisper-large-v3"):                 # served: no raise
         ServeEngine(get_model_config(arch).reduced(), device="cpu")
 
 
