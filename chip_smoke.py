@@ -139,15 +139,43 @@ Phases (each prints its results; the script exits non-zero if any fails):
      ``split``, one per decoder layer and tick or chunk; then the
      encoder's time per request and the card's busy share over a
      2-request sub-trace.
+ 21. qwen2-vl-7b (the vlm family, served by the cohort engine only) at
+     full width cut to 2 layers, float32: a cohort of 2 requests, each a
+     16 x 16 patch grid (256 ``embeds`` at M-RoPE positions (0, row, col))
+     then 32 text rows at positions 16..47 on all three streams,
+     ``Model.prefill`` into a contiguous cache and 4 ``decode_step``s, on
+     the card and on the CPU with the same weights; logits and the K/V
+     cache agree within ``SLICE_TOL``, and the greedy tokens;
+ 22. the cohort engine against the paged engine on the card, float32:
+     llama3.2-1b at full width cut to 4 layers and zamba2-1.2b cut to 8
+     mixers serve ``AB_LENS`` prompts with ``AB_NEWS`` new tokens over 4
+     slots (cohort caches grow and compact, the paged engine backfills);
+     greedy tokens equal, and both engines' slot utilization printed;
+ 23. ``ssd_scan`` at zamba2-1.2b's cohort prefill shapes on phase 24's
+     trace (batch 4 x 288, 2 x 1,088 and 2 x 64 tokens, 64 heads of 64,
+     state 64; ``COHORT_SSD_SHAPES``), from the zero state
+     with the final state out: bf16 (tc) and float32 (simt) against the
+     plain version, two bf16 runs bit-identical, then tc, simt and plain
+     timed beside the bound;
+ 24. cohort serving at full width and depth, bf16, seeded random weights,
+     8 slots: qwen2-vl-7b (28 layers) on ``COHORT_TRACE`` (4 requests of a
+     16 x 16 image and 32 text rows, 2 of a 32 x 32 image and 64, 2 of 64
+     text tokens: three cohorts, 64 new tokens each; no hand-written
+     kernel on this path), then zamba2-1.2b on the same lengths as token
+     prompts, whose every cohort prefill launches ``ssd_scan`` on tc once
+     a mixer; wall, decode rate, TTFT, peak memory, cohorts, capacities
+     grown, slot utilization and the busy share over a 2-request
+     sub-trace for each.
 
-Phases 0-4 and 7-20 plan and serve without a tuning artifact (the port's
+Phases 0-4 and 7-24 plan and serve without a tuning artifact (the port's
 tuning path points at a file that does not exist until phase 6 writes
 one), so their numbers compare with earlier runs'.  Each phase prints its
 seconds.
 
 Output, at the end: one JSON line describing the kernels (the zamba2,
 mixtral, deepseek and whisper shapes nested under the paged and SSD
-entries), the
+entries, and the cohort engine's ``ssd_scan`` launches and shapes under
+``cohort``), the
 card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script fails before printing results.
@@ -186,6 +214,7 @@ MIXTRAL = "mixtral-8x7b"
 XLSTM = "xlstm-1.3b"
 DEEPSEEK = "deepseek-v2-236b"
 WHISPER = "whisper-large-v3"
+QWEN = "qwen2-vl-7b"
 DEVICE = "cuda"
 MAX_SLOTS = 8
 MAX_LEN = 4096
@@ -1179,6 +1208,45 @@ def ssd_state_case(gen, s, dtype, cfg):
     return args, init
 
 
+def ssd_timing(ssd_mod, args, init, kc: int, what: str,
+               max_abs_err: float) -> dict:
+    """Times of ``ssd_scan`` on the bf16 inputs ``args`` from ``init`` at
+    the model's chunk ``kc``, final state out: the routed body, the simt
+    body (``ms_simt``), the plain version beside the bound (``ssd_work``),
+    and the device time of each CUDA kernel; no library call computes
+    the scan (``library_ms`` null)."""
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.kernels.ssd_scan import call_chunk, ssd_scan
+
+    b, s, h, p = args[0].shape
+    n = args[3].shape[-1]
+    q = call_chunk(torch.bfloat16, kc, s, p, n)
+
+    def run(i, path=None):
+        ssd_scan(*args, chunk=kc, init_state=init, return_final=True,
+                 path=path)
+
+    nbytes, ops = ssd_work(b, s, h, p, n, min(q, s), 2, True)
+    bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
+    before = counters(ssd_mod, ("tc", "simt"))
+    row = {"ms": cuda_ms(run), "path": body(ssd_mod, before, "ssd"),
+           "ms_simt": cuda_ms(lambda i: run(i, "simt")),
+           "plain_ms": cuda_ms(lambda i: ssd_ref(
+               *args, init_state=init, return_final=True),
+               reps=10 if s <= 8 else 1),
+           "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+           "bytes": nbytes, "ops": ops, "chunk": q,
+           "max_abs_err": max_abs_err}
+    row["kernels_us"] = kernel_us(lambda: run(0))
+    log(f"  time bf16 ssd_scan {what} ({row['path']}, chunk {q}): "
+        f"kernel_ms={row['ms']:.4f} ms_simt={row['ms_simt']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} library_ms=null "
+        f"bound_ms={bound:.5f} ({bound_by}, {nbytes} B, {ops} flop) "
+        f"share_of_bound={bound / row['ms']:.3f}; kernels (us): "
+        + json.dumps(row["kernels_us"]))
+    return row
+
+
 def phase_zamba_kernels(t: int) -> dict:
     """Paged attention and the SSD scan at the shapes zamba2-1.2b's serving
     path gives them, against their plain versions, then their times."""
@@ -1251,34 +1319,10 @@ def phase_zamba_kernels(t: int) -> dict:
     assert all(b == ("tc" if k.startswith("bfloat16") else "simt")
                for k, b in ssd_bodies.items()), ssd_bodies
 
-    ssd = {}
-    for s, (args, init, kc) in cases.items():
-        q = call_chunk(torch.bfloat16, kc, s, p, n)
-
-        def run(i, path=None):
-            ssd_scan(*args, chunk=kc, init_state=init, return_final=True,
-                     path=path)
-
-        nbytes, ops = ssd_work(1, s, args[0].shape[2], p, n, min(q, s), 2,
-                               True)
-        bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
-        before = counters(ssd_mod, ("tc", "simt"))
-        row = {"ms": cuda_ms(run), "path": body(ssd_mod, before, "ssd"),
-               "ms_simt": cuda_ms(lambda i: run(i, "simt")),
-               "plain_ms": cuda_ms(lambda i: ssd_ref(
-                   *args, init_state=init, return_final=True),
-                   reps=10 if s <= 8 else 1),
-               "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
-               "bytes": nbytes, "ops": ops, "chunk": q,
-               "max_abs_err": max(ssd_err[f"bfloat16 S={s}"].values())}
-        row["kernels_us"] = kernel_us(lambda: run(0))
-        ssd[f"S={s}"] = row
-        log(f"  time bf16 ssd_scan S={s} with state ({row['path']}, chunk "
-            f"{q}): kernel_ms={row['ms']:.4f} ms_simt={row['ms_simt']:.4f} "
-            f"plain_ms={row['plain_ms']:.4f} library_ms=null "
-            f"bound_ms={bound:.5f} ({bound_by}, {nbytes} B, {ops} flop) "
-            f"share_of_bound={bound / row['ms']:.3f}; kernels (us): "
-            + json.dumps(row["kernels_us"]))
+    ssd = {f"S={s}": ssd_timing(
+        ssd_mod, args, init, kc, f"S={s} with state",
+        max(ssd_err[f"bfloat16 S={s}"].values()))
+        for s, (args, init, kc) in cases.items()}
     log("  phase 7 paged bodies: " + json.dumps(bodies))
     log("  phase 7 paged max_abs_err: " + json.dumps(
         {f"{a}/{b}": e for (a, b), e in worst.items()}))
@@ -2081,6 +2125,359 @@ def phase_whisper_serve(pa_mod) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phases 21-24: the cohort engine over contiguous caches; qwen2-vl-7b
+# ---------------------------------------------------------------------------
+
+
+def vlm_request(rng, cfg, grid: int, text: int) -> dict:
+    """One qwen2-vl request as the stubbed vision tower hands it over: a
+    ``grid`` x ``grid`` patch grid at positions (0, row, col), then
+    ``text`` text rows at ``grid``, ``grid + 1``, ... on all three
+    streams; the embeddings seeded normal x 0.02."""
+    g = np.arange(grid * grid)
+    pos = np.concatenate(
+        [np.stack([np.zeros_like(g), g // grid, g % grid]),
+         np.tile(np.arange(grid, grid + text), (3, 1))], axis=1)
+    emb = rng.standard_normal((grid * grid + text, cfg.d_model)) * 0.02
+    return {"embeds": emb.astype(np.float32),
+            "positions_3d": pos.astype(np.int32)}
+
+
+def phase_qwen_slice() -> dict:
+    """qwen2-vl-7b at full width cut to 2 layers, float32, card against CPU
+    on the same weights: a cohort of 2 requests (a 16 x 16 patch grid and
+    32 text rows each, ``vlm_request``) prefilled into a contiguous cache,
+    then 4 ``decode_step``s fed the CPU's greedy tokens on both, at the
+    reference engine's decode positions (all three streams at the cache
+    position); logits and the K/V cache agree within ``SLICE_TOL``, and so
+    do the greedy tokens."""
+    from repro_torch.models.model import Model
+
+    free_card()
+    cfg = dataclasses.replace(qwen_cfg(), n_layers=2)
+    model = Model(cfg)
+    params = {DEVICE: model.init(seed=0, device=DEVICE)}
+    params["cpu"] = tree_to(params[DEVICE], "cpu")
+    rng = np.random.default_rng(0)
+    reqs = [vlm_request(rng, cfg, 16, 32) for _ in range(2)]
+    batch = {"embeds": np.stack([r["embeds"] for r in reqs]),
+             "positions_3d": np.stack([r["positions_3d"] for r in reqs], 1)}
+    b, s = batch["embeds"].shape[:2]
+    res, feed = {}, None
+    for dev in ("cpu", DEVICE):
+        t0 = time.perf_counter()
+        out, toks = {}, []
+        with torch.no_grad():
+            logits, cache = model.prefill(
+                params[dev], {k: torch.from_numpy(v).to(dev)
+                              for k, v in batch.items()}, s + 8,
+                dtype=torch.float32)
+            out["prefill logits"] = logits
+            for i in range(4):
+                tok = (logits.argmax(-1)[:, None] if feed is None
+                       else feed[i].to(dev))
+                toks.append(tok.cpu())
+                pos3d = torch.full((3, b, 1), int(cache["pos"]),
+                                   dtype=torch.int64, device=dev)
+                logits, cache = model.decode_step(
+                    params[dev], cache,
+                    {"tokens": tok, "positions_3d": pos3d},
+                    dtype=torch.float32)
+                out[f"decode {i} logits"] = logits
+        out["cache.k"] = cache["layers"]["k"]
+        out["cache.v"] = cache["layers"]["v"]
+        res[dev] = {k: v.cpu() for k, v in out.items()}
+        feed = toks
+        log(f"  qwen2-vl 2-layer slice on {dev}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    errs = {}
+    for name, want in res["cpu"].items():
+        got = res[DEVICE][name]
+        errs[name] = float((got - want).abs().max())
+        log(f"  {name}: max_abs_err={errs[name]:.3e} (shape "
+            f"{tuple(got.shape)})")
+        assert torch.isfinite(got).all(), name
+        torch.testing.assert_close(got, want, **SLICE_TOL)
+    tok = {d: [res[d][k].argmax(-1).tolist() for k in res[d]
+               if k.endswith("logits")] for d in res}
+    log(f"  greedy tokens cuda={tok[DEVICE]} cpu={tok['cpu']}")
+    assert tok[DEVICE] == tok["cpu"], \
+        "greedy tokens differ between cuda and cpu"
+    return errs
+
+
+#: Phase 22's trace: two prompts of 64 (one finishing early: compaction),
+#: three of 200 (more than the 4 slots hold in a cohort with the others:
+#: the paged engine backfills) and one of 512.
+AB_LENS = (64, 64, 200, 200, 200, 512)
+AB_NEWS = (32, 8, 32, 16, 32, 24)
+AB_SLOTS = 4
+
+
+def cohort_against_paged(cfg) -> dict:
+    """``cfg`` in float32 on the card, seeded weights, ``AB_SLOTS``
+    slots: the cohort engine and the paged engine (same weights) serve
+    ``AB_LENS`` with ``AB_NEWS`` new tokens; their greedy tokens agree."""
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in AB_LENS]
+    row, outs, params = {"arch": cfg.arch, "layers": cfg.n_layers}, {}, None
+    for batching in ("cohort", "paged"):
+        engine = ServeEngine(
+            cfg, ServePolicy(batching=batching, max_slots=AB_SLOTS,
+                             max_len=MAX_LEN), dtype=torch.float32,
+            params=params, seed=0, device=DEVICE)
+        params = engine.params
+        t0 = time.perf_counter()
+        outs[batching] = engine.generate(prompts,
+                                         max_new_tokens=list(AB_NEWS))
+        torch.cuda.synchronize()
+        m = engine.metrics
+        row[batching] = {
+            "wall_s": time.perf_counter() - t0,
+            "slot_utilization": m["slot_utilization"],
+            "decode_steps": int(m["decode_steps"]),
+            "cohorts": int(m["cohorts"]),
+            "capacities": list(m["capacities"]),
+            "backfills": int(m["backfills"]),
+            "pages_allocated": int(m["pages_allocated"]),
+            "pages_released": int(m["pages_released"])}
+    log(f"  {cfg.arch} ({cfg.n_layers} layers): " + json.dumps(row))
+    c, p = row["cohort"], row["paged"]
+    assert [len(o) for o in outs["cohort"]] == list(AB_NEWS)
+    assert outs["cohort"] == outs["paged"], \
+        "greedy tokens differ between the cohort and paged engines"
+    assert len(c["capacities"]) > c["cohorts"], "no cohort cache grew"
+    assert p["backfills"] >= 1, "the paged engine never backfilled"
+    assert c["pages_allocated"] == c["pages_released"]
+    log(f"  {cfg.arch}: tokens equal; slot_utilization cohort "
+        f"{c['slot_utilization']:.3f}, paged {p['slot_utilization']:.3f}")
+    return row
+
+
+def phase_cohort_vs_paged() -> dict:
+    """llama3.2-1b at full width cut to 4 layers and zamba2-1.2b at full
+    width cut to 8 mixers, float32: ``cohort_against_paged``."""
+    free_card()
+    return {name: cohort_against_paged(dataclasses.replace(cfg, n_layers=n))
+            for name, cfg, n in (("llama", get_cfg(), 4),
+                                 ("zamba2", zamba_cfg(), 8))}
+
+
+#: Phase 24's trace, one request a line: (image grid, text rows); a grid
+#: of 0 is a text-only request of token ids.
+COHORT_TRACE = ((16, 32),) * 4 + ((32, 64),) * 2 + ((0, 64),) * 2
+COHORT_NEW = 64
+
+
+def cohort_shapes(trace) -> tuple:
+    """The (batch, prompt) of each cohort the engine makes of ``trace``:
+    the requests of one prompt length, in order of first arrival (each
+    group fits ``MAX_SLOTS``, so it is one cohort)."""
+    count = {}
+    for g, t in trace:
+        count[g * g + t] = count.get(g * g + t, 0) + 1
+    assert max(count.values()) <= MAX_SLOTS, count
+    return tuple((n, s) for s, n in count.items())
+
+
+#: Phase 23: zamba2's cohort prefill shapes on phase 24's trace, (4, 288),
+#: (2, 1088) and (2, 64).
+COHORT_SSD_SHAPES = cohort_shapes(COHORT_TRACE)
+
+
+def phase_cohort_ssd(ssd_mod) -> dict:
+    """``ssd_scan`` at the shapes zamba2-1.2b's cohort prefill gives it --
+    its mixer (64 heads of 64, state 64) over a whole cohort's prompts,
+    from the zero state a fresh cohort cache holds, final state out, at
+    the chunk the model picks -- against its plain version: bf16 on tc,
+    float32 on simt, two bf16 runs bit-identical; then the times of tc,
+    simt and plain beside the bound."""
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.kernels.ssd_scan import call_chunk, ssd_scan
+    from repro_torch.models.mamba2 import kernel_chunk
+
+    sc = zamba_cfg().ssm
+    h = sc.expand * zamba_cfg().d_model // sc.head_dim
+    p, n = sc.head_dim, sc.state_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    out = {}
+    for b, s in COHORT_SSD_SHAPES:
+        errs, cases = {}, {}
+        for dtype in (torch.bfloat16, torch.float32):
+            args = ssd_inputs(gen, b, s, h, p, n, dtype)
+            init = torch.zeros((b, h, p, n), device=DEVICE)
+            kc = kernel_chunk(sc.chunk, p, n, dtype.itemsize)
+            before = counters(ssd_mod, ("tc", "simt"))
+            y, fin = ssd_scan(*args, chunk=kc, init_state=init,
+                              return_final=True)
+            y2, fin2 = ssd_scan(*args, chunk=kc, init_state=init,
+                                return_final=True)
+            torch.cuda.synchronize()
+            ran = body(ssd_mod, before, f"ssd_scan B={b} S={s}")
+            assert ran == ("tc" if dtype == torch.bfloat16 else "simt"), ran
+            assert torch.equal(y, y2) and torch.equal(fin, fin2), \
+                f"ssd_scan B={b} S={s}: two runs differ"
+            ry, rfin = ssd_ref(*args, init_state=init, return_final=True)
+            what = (f"ssd_scan {str(dtype)[6:]} B={b} S={s} chunk "
+                    f"{call_chunk(dtype, kc, s, p, n)} {ran}")
+            errs[str(dtype)[6:]] = {
+                "y": held_to(y, ry, SSD_TOL[dtype], what + ": y"),
+                "final": held_to(fin, rfin, SSD_TOL[dtype],
+                                 what + ": final state")}
+            cases[dtype] = (args, init, kc)
+        args, init, kc = cases[torch.bfloat16]
+        row = ssd_timing(ssd_mod, args, init, kc,
+                         f"B={b} S={s} from zero state",
+                         max(errs["bfloat16"].values()))
+        row["errors"] = errs
+        out[f"B={b} S={s}"] = row
+    return out
+
+
+def serve_cohort(cfg, prompts, max_new: int, mods: dict) -> dict:
+    """``ServeEngine`` on ``cfg`` with cohort batching (seeded random bf16
+    weights, ``MAX_SLOTS``, ``MAX_LEN``) serving ``prompts`` of
+    ``max_new`` tokens each, after a warm-up engine (same weights) served
+    the last two of them for 2 tokens.  Every launch counter of ``mods``
+    is set to 0 just before the main path's run and read just after it.
+    Then the card's busy share over a 2-request sub-trace of 8 new tokens
+    (``profile_serve``).  Returns the row of figures."""
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    policy = ServePolicy(batching="cohort", max_slots=MAX_SLOTS,
+                         max_len=MAX_LEN, max_new_tokens=max_new)
+    t0 = time.perf_counter()
+    warm = ServeEngine(cfg, policy, dtype=torch.bfloat16, seed=0,
+                       device=DEVICE)
+    t1 = time.perf_counter()
+    warm.generate(prompts[-2:], max_new_tokens=2)
+    torch.cuda.synchronize()
+    log(f"  seeded weights on the card: {t1 - t0:.1f} s; warm-up run: "
+        f"{time.perf_counter() - t1:.1f} s")
+    engine = ServeEngine(cfg, policy, dtype=torch.bfloat16,
+                         params=warm.params, device=DEVICE)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    names = ("LAUNCHES", "LAUNCHES_SPLIT", "LAUNCHES_MLA", "LAUNCHES_TC",
+             "LAUNCHES_SIMT")
+    for mod in mods.values():       # the main path's run starts here
+        for name in names:
+            if hasattr(mod, name):
+                setattr(mod, name, 0)
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: {n: getattr(mod, n) for n in names if hasattr(mod, n)}
+                for k, mod in mods.items()}           # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    m = engine.metrics
+    events = engine.tracer.export_events()
+    submit = {e["tid"]: e["ts"] for e in events if e["name"] == "submit"}
+    ttft = sorted((e["ts"] - submit[e["tid"]]) / 1e6 for e in events
+                  if e["name"] == "first_token")
+    ticks = [e for e in events if e["name"] == "decode_tick"]
+    prefills = [e for e in events if e["name"] == "prefill"]
+    row = {
+        "arch": cfg.arch, "layers": cfg.n_layers, "batching": "cohort",
+        "tokens": int(m["tokens"]), "wall_s": wall,
+        "decode_steps": int(m["decode_steps"]), "cohorts": int(m["cohorts"]),
+        "prefill_s": [e["dur"] / 1e6 for e in prefills],
+        "decode_tok_s": (sum(e["args"]["active"] for e in ticks)
+                         / (sum(e["dur"] for e in ticks) / 1e6)),
+        "decode_step_ms_p50": float(np.median([e["dur"] / 1e3
+                                               for e in ticks])),
+        "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
+        "page_tokens": int(m["page_tokens"]),
+        "capacities": list(m["capacities"]),
+        "capacities_grown": len(m["capacities"]) - int(m["cohorts"]),
+        "slot_utilization": m["slot_utilization"],
+        "evictions": int(m["evictions"]),
+        "pages_allocated": int(m["pages_allocated"]),
+        "pages_released": int(m["pages_released"]),
+        "launches": launches, "peak_mem_gb": peak,
+    }
+    log("  serve: " + json.dumps(row))
+    assert [len(o) for o in outs] == [max_new] * len(prompts), \
+        [len(o) for o in outs]
+    assert all(0 <= tok < cfg.vocab_size for o in outs for tok in o)
+    assert row["pages_allocated"] == row["pages_released"]
+    sub = prompts[:1] + prompts[-1:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate(sub, max_new_tokens=8)
+    torch.cuda.synchronize()
+    row["busy_share_profiled"], row["busy_share"] = profile_serve(
+        engine, sub, time.perf_counter() - t0, max_new=8)
+    return row
+
+
+def phase_cohort_serve(pa_mod, ssd_mod, zserve) -> dict:
+    """Cohort serving at full width and depth, bf16, seeded random weights:
+    qwen2-vl-7b (28 layers, 15.23 GB) on ``COHORT_TRACE`` -- 4 requests of
+    a 16 x 16 image and 32 text rows (288), 2 of a 32 x 32 image and 64
+    (1,088), 2 of 64 text tokens: three cohorts -- then zamba2-1.2b on
+    the same lengths as token prompts, whose cohort prefills run
+    ``ssd_scan`` on tc once a mixer (38 x 3 launches), beside phase 9's
+    paged run."""
+    free = free_card()
+    cfg = qwen_cfg()
+    weights = cfg.param_count() * 2 / 1e9
+    log(f"  {cfg.arch}: {cfg.n_layers} layers, {weights:.2f} GB of bf16 "
+        f"weights, {free / 1e9:.2f} GB free")
+    rng = np.random.default_rng(0)
+    prompts = [vlm_request(rng, cfg, g, t) if g else
+               rng.integers(0, cfg.vocab_size, t, dtype=np.int32)
+               for g, t in COHORT_TRACE]
+    mods = {"paged": pa_mod, "ssd": ssd_mod}
+    qwen = serve_cohort(cfg, prompts, COHORT_NEW, mods)
+    assert qwen["cohorts"] == 3, qwen["cohorts"]
+    assert all(n == 0 for d in qwen["launches"].values()
+               for n in d.values()), qwen["launches"]
+    log(f"  qwen2-vl: wall {qwen['wall_s']:.2f} s, decode "
+        f"{qwen['decode_tok_s']:.1f} tok/s, TTFT p50 "
+        f"{qwen['ttft_p50_s']:.3f} s / max {qwen['ttft_max_s']:.3f} s, peak "
+        f"{qwen['peak_mem_gb']:.2f} GB, busy share {qwen['busy_share']:.3f};"
+        f" no hand-written kernel on this path (launches "
+        f"{json.dumps(qwen['launches'])})")
+
+    free_card()
+    zcfg = zamba_cfg()
+    rng = np.random.default_rng(0)
+    lens = [g * g + t for g, t in COHORT_TRACE]
+    zprompts = [rng.integers(0, zcfg.vocab_size, n, dtype=np.int32)
+                for n in lens]
+    zamba = serve_cohort(zcfg, zprompts, COHORT_NEW, mods)
+    assert zamba["cohorts"] == len(COHORT_SSD_SHAPES), zamba["cohorts"]
+    sd = zamba["launches"]["ssd"]
+    want = zcfg.n_layers * zamba["cohorts"]
+    log(f"  zamba2 cohort: ssd_scan launches {json.dumps(sd)} (want "
+        f"{zcfg.n_layers} mixers x {zamba['cohorts']} cohort prefills = "
+        f"{want}, all tc); paged launches "
+        f"{json.dumps(zamba['launches']['paged'])}")
+    assert sd["LAUNCHES"] > 0, "the main path never launched ssd_scan"
+    assert sd["LAUNCHES"] == sd["LAUNCHES_TC"] == want, sd
+    assert zamba["launches"]["paged"]["LAUNCHES"] == 0
+    if zserve is not None:
+        log("  zamba2 cohort beside phase 9's paged run: " + json.dumps({
+            k: {"cohort": zamba.get(k), "paged (its own trace)":
+                zserve.get(k)}
+            for k in ("wall_s", "decode_tok_s", "ttft_p50_s", "ttft_max_s",
+                      "peak_mem_gb", "decode_steps", "tokens")}))
+    return {"qwen2_vl": qwen, "zamba2": zamba}
+
+
+def qwen_cfg():
+    from repro_torch.configs import get_model_config
+
+    return get_model_config(QWEN)
+
+
 def whisper_cfg():
     from repro_torch.configs import get_model_config
 
@@ -2204,7 +2601,7 @@ def main() -> int:
         f"per layer page, SMEM budget {plan.level('SMEM').budget_bytes} B, "
         f"{plan.page_plan()['source']})")
     kern = serve = tk = tune = zk = zserve = mk = mserve = xserve = None
-    dk = dserve = wk = wserve = None
+    dk = dserve = wk = wserve = qslice = ab = cssd = cserve = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -2290,8 +2687,22 @@ def main() -> int:
         phase("phase 19 whisper slice", phase_whisper_slice, wt)
         log("[20] serving full-width, full-depth whisper-large-v3, bf16")
         wserve = phase("phase 20 whisper serve", phase_whisper_serve, pa_mod)
+        log("[21] qwen2-vl-7b at full width cut to 2 layers: a cohort of 2 "
+            "image + text requests, cuda against cpu, float32")
+        qslice = phase("phase 21 qwen2-vl slice", phase_qwen_slice)
+        log("[22] the cohort engine against the paged engine on the card, "
+            "float32: llama3.2-1b (4 layers), zamba2-1.2b (8 mixers)")
+        ab = phase("phase 22 cohort vs paged", phase_cohort_vs_paged)
+        log("[23] ssd_scan at zamba2-1.2b's cohort prefill shapes, against "
+            "its plain version")
+        cssd = phase("phase 23 cohort ssd_scan", phase_cohort_ssd, ssd_mod)
+        log("[24] cohort serving at full width and depth, bf16: qwen2-vl-7b "
+            "and zamba2-1.2b")
+        cserve = phase("phase 24 cohort serve", phase_cohort_serve, pa_mod,
+                       ssd_mod, zserve)
     if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
-                          xserve, dk, dserve, wk, wserve):
+                          xserve, dk, dserve, wk, wserve, qslice, ab, cssd,
+                          cserve):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -2374,6 +2785,23 @@ def main() -> int:
         "max_abs_err": zk["ssd_err"],
         **{name: {k: row[k] for k in keys + ("chunk",)}
            for name, row in zk["ssd"].items()}}
+    # The cohort engine: zamba2-1.2b's cohort prefills (phase 24) launch
+    # ssd_scan once a mixer, on tc; its times at their shapes (phase 23).
+    zc = cserve["zamba2"]["launches"]["ssd"]
+    ssd["cohort"] = {
+        "launches": zc["LAUNCHES"], "launches_tc": zc["LAUNCHES_TC"],
+        "launches_simt": zc["LAUNCHES_SIMT"],
+        "max_abs_err": max(row["max_abs_err"] for row in cssd.values()),
+        **{name: {k: row[k] for k in keys + ("chunk",)}
+           for name, row in cssd.items()}}
+    # Phase 24's figures again at the end of the output, where the
+    # profiler tables above do not push them out of a short tail.
+    log("cohort serving: " + json.dumps({
+        name: {k: row[k] for k in (
+            "wall_s", "decode_tok_s", "ttft_p50_s", "ttft_max_s",
+            "peak_mem_gb", "decode_steps", "cohorts", "slot_utilization",
+            "busy_share")}
+        for name, row in cserve.items()}))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         log(f"FAILED: the main path never launched {missing}")

@@ -6,9 +6,11 @@ The port imports ``torch`` and never ``jax``, and nothing of ``repro``: what
 it needs from there (configs, the planner walk, obs) it keeps as its own
 copy.
 
-It serves the dense, moe (Mixtral), hybrid_ssm (Zamba2) and xlstm
-families with the paged engine; its hand-written Hopper kernels live in ``csrc/`` and are wrapped
-by ``kernels`` (paged attention and the SSD scan on the serving path,
+It serves every registered family: dense, moe (Mixtral), mla_moe
+(DeepSeek-V2), hybrid_ssm (Zamba2), xlstm and enc_dec (Whisper) with the
+paged engine, and those and vlm (Qwen2-VL) with the cohort engine; its
+hand-written Hopper kernels live in ``csrc/`` and are wrapped by
+``kernels`` (paged attention and the SSD scan on the serving path,
 ``matmul_cc`` and flash attention on the tuning path).
 Entry points take ``device=None``, meaning ``"cuda"``; pass ``"cpu"`` to run
 the plain PyTorch versions of the kernels instead (the CPU tests do).

@@ -1,6 +1,5 @@
 """The 10 architectures, exact published configurations (a copy of
-``repro.configs.archs``; the port serves the ``dense``, ``moe``,
-``hybrid_ssm`` and ``xlstm`` families so far).
+``repro.configs.archs``; the port serves every family among them).
 
 ``ModelConfig.reduced()`` gives the small variant the CPU tests use.
 """

@@ -1,8 +1,9 @@
-"""Transformer layers of the dense GQA family, ported from
-``repro.models.layers``: norms, RoPE, SwiGLU, embeddings, the LM head, the
-two paged attention blocks the serving engine runs, and the unpaged
-attention the enc-dec family's encoder and cross-attention run
-(``attn_mask``, ``full_attention``, ``attention_op``, ``attention_block``).
+"""Transformer layers, ported from ``repro.models.layers``: norms, RoPE
+and Qwen2-VL's multimodal RoPE, SwiGLU, embeddings, the LM head, the two
+paged attention blocks the paged engine runs, and the unpaged attention
+(``attn_mask``, ``full_attention``, ``blockwise_attention``,
+``attention_op``) with the cached ``attention_block`` the cohort engine,
+the enc-dec encoder and cross-attention run.
 
 The JAX package's tensor-parallel projections (``tp_matmul`` /
 ``fused_column_matmul``) are plain ``torch.matmul`` here: the port runs on
@@ -12,15 +13,19 @@ Pallas kernel.  Attention against the page pool goes through
 plain PyTorch version on the CPU.
 
 Unlike the pure JAX functions, the paged blocks write the new K/V into the
-page pool IN PLACE (``index_put_``); they return only the attention output.
-The unpaged attention is plain torch ops (einsum, softmax), as the
-reference's is jnp outside any Pallas kernel.
+page pool IN PLACE (``index_put_``), and the cached ``attention_block``
+writes it into its contiguous cache buffer in place (and advances the
+cache's host-side ``len``); they return only the attention output.  The
+unpaged attention is plain torch ops (einsum, softmax), as the reference's
+is jnp outside any Pallas kernel: its blockwise form streams KV blocks
+with a running softmax and is not routed to the port's flash kernel, as
+the reference's model never calls its own.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +62,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(d, theta, x.device)                     # (D/2,)
     angles = positions[..., None].float() * freqs              # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                theta: float = 1e6,
+                sections: Optional[Tuple[int, int, int]] = None
+                ) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: the ``D/2`` frequency slots of ``x``
+    ``(B, S, H, D)`` are split into (temporal, height, width) sections,
+    each rotated by its own stream of ``positions`` ``(3, B, S)``.  The
+    default sections are Qwen2-VL's (16, 24, 24) of 64 slots, scaled to
+    ``D``."""
+    d = x.shape[-1]
+    if sections is None:
+        t = d // 8
+        h = (d // 2 - t) // 2
+        sections = (t, h, d // 2 - t - h)
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to D/2 = "
+                         f"{d // 2}")
+    freqs = rope_freqs(d, theta, x.device)                     # (D/2,)
+    # The stream that drives each frequency slot: (B, S, D/2).
+    pos = torch.cat([positions[i, ..., None].expand(*positions.shape[1:], n)
+                     for i, n in enumerate(sections)], dim=-1)
+    angles = pos.float() * freqs
+    cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -146,7 +180,8 @@ def lm_logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Unpaged attention (the enc-dec encoder and cross-attention)
+# Unpaged attention (the cohort engine, the enc-dec encoder and
+# cross-attention)
 # ---------------------------------------------------------------------------
 
 
@@ -203,6 +238,59 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_pos: torch.Tensor, k_pos: torch.Tensor,
+                        block_q: int, block_kv: int, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Attention over whole (already GQA-repeated) K/V without the ``(Sq,
+    Sk)`` logits: ``block_kv`` keys at a time with a running (max, sum,
+    acc) softmax, ``block_q`` queries at a time -- the reference's pure-JAX
+    flash attention, step for step (q ``(B, Sq, H, D)``, k and v ``(B, Sk,
+    H, D)``, positions ``(Sq,)`` and ``(Sk,)``).
+
+    As in the reference, the queries are padded at position -1 and the
+    keys at ``2**30`` up to whole blocks; a causal or windowed mask hides
+    the padded keys, and without one they take part (zero logits over
+    zero values), as the reference's do."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    nq, nk = -(-sq // block_q), -(-sk // block_kv)
+    pq, pk = nq * block_q - sq, nk * block_kv - sk
+    qp = F.pad(q, (0, 0, 0, 0, 0, pq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pk))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pk))
+    qpos = F.pad(q_pos, (0, pq), value=-1)
+    kpos = F.pad(k_pos, (0, pk), value=2 ** 30)
+    outs = []
+    for i in range(nq):
+        qi = qp[:, i * block_q:(i + 1) * block_q]
+        qpos_i = qpos[i * block_q:(i + 1) * block_q]
+        m = q.new_full((b, h, block_q), NEG_INF, dtype=torch.float32)
+        l = q.new_zeros((b, h, block_q), dtype=torch.float32)
+        acc = q.new_zeros((b, h, block_q, d), dtype=torch.float32)
+        for j in range(nk):
+            kj = kp[:, j * block_kv:(j + 1) * block_kv]
+            vj = vp[:, j * block_kv:(j + 1) * block_kv]
+            logits = torch.einsum("bqhd,bkhd->bhqk", qi, kj).float() * scale
+            if causal or window:
+                kpos_j = kpos[j * block_kv:(j + 1) * block_kv]
+                mask = kpos_j[None, :] <= qpos_i[:, None]
+                if window:
+                    mask = mask & (kpos_j[None, :] > qpos_i[:, None] - window)
+                logits = logits.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(qi.dtype), vj).float()
+            m = m_new
+        out = acc / l[..., None].clamp_min(1e-30)
+        outs.append(out.movedim(1, 2).to(q.dtype))          # (B, bq, H, D)
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_pos: torch.Tensor, k_pos: torch.Tensor, cfg,
                  causal: bool = True,
@@ -210,30 +298,87 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The reference's dispatch on one card: K/V repeated to the query
     heads, then ``full_attention`` when a valid length is given, the keys
     are at most ``cfg.attn_blockwise_threshold`` or the query is one
-    token.  The blockwise branch waits for the cohort engine's slice."""
+    token; otherwise ``blockwise_attention`` at the blocks the port's
+    decomposer plans for the shape (``core.autotile.plan_attention``, at
+    2-byte elements as the reference plans them)."""
     n_rep = q.shape[2] // k.shape[2]
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
-    if (kv_len is not None or k.shape[1] <= cfg.attn_blockwise_threshold
+    sk = k.shape[1]
+    if (kv_len is not None or sk <= cfg.attn_blockwise_threshold
             or q.shape[1] == 1):
         return full_attention(q, k, v, q_pos, k_pos, causal=causal,
                               window=cfg.sliding_window, kv_len=kv_len)
-    raise NotImplementedError(
-        f"blockwise attention over {k.shape[1]} keys (past "
-        f"attn_blockwise_threshold {cfg.attn_blockwise_threshold}) waits "
-        f"for the cohort engine's slice")
+    from repro_torch.core.autotile import plan_attention
+
+    plan = plan_attention(q.shape[1], sk, q.shape[-1], dtype_bytes=2)
+    return blockwise_attention(q, k, v, q_pos, k_pos,
+                               block_q=int(plan.block_q),
+                               block_kv=int(plan.block_kv), causal=causal,
+                               window=cfg.sliding_window)
 
 
 def attention_block(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
-                    cfg, causal: bool = True) -> torch.Tensor:
-    """The reference's ``attention_block`` without a cache: the Q/K/V
-    projections, RoPE at ``q_pos`` on q and k (the reference ropes here
-    even in the non-causal encoder), attention within ``x`` and the output
-    projection.  ``x`` ``(B, S, d)`` -> ``(B, S, d)``."""
+                    cfg, cache: Optional[dict] = None,
+                    positions_3d: Optional[torch.Tensor] = None,
+                    causal: bool = True) -> torch.Tensor:
+    """The reference's ``attention_block``: the Q/K/V projections, RoPE at
+    ``q_pos`` on q and k (the reference ropes here even in the non-causal
+    encoder; M-RoPE at ``positions_3d`` ``(3, B, S)`` instead when
+    ``cfg.mrope`` and they are given), attention and the output
+    projection.  ``x`` ``(B, S, d)`` -> ``(B, S, d)``.
+
+    Without a cache, attention is within ``x``.  With one (a layer's
+    ``{"k", "v": (B, W, KV, D), "len": host counter}``), the new K/V go
+    into the buffer IN PLACE and ``len`` advances by ``S``:
+
+      * one token is written at ``len`` (a growable cache, whose keys are
+        masked at ``len + 1``) or at ``len mod W`` (a sliding-window ring:
+        ``W`` at most the window, so ring slot ``j`` holds position
+        ``len - (len - j) mod W``, negative while empty) and attends over
+        the whole buffer;
+      * a prompt (from an empty cache) attends within itself, then stores
+        its last ``W`` tokens -- for a ring rolled by ``(S - W) mod W``,
+        so position ``p`` sits at slot ``p mod W`` -- or, shorter than
+        ``W``, all of them from slot 0.
+    """
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
-    q = apply_rope(q, q_pos, cfg.rope_theta)
-    k = apply_rope(k, q_pos, cfg.rope_theta)
-    out = attention_op(q, k, v, q_pos, q_pos, cfg, causal=causal)
+    if cfg.mrope and positions_3d is not None:
+        q = apply_mrope(q, positions_3d, cfg.rope_theta)
+        k = apply_mrope(k, positions_3d, cfg.rope_theta)
+    else:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
+    k_pos, kv_len = q_pos, None
+    if cache is not None:
+        idx = int(cache["len"])
+        ck, cv = cache["k"], cache["v"]
+        w = ck.shape[1]                              # the buffer's extent
+        ring = bool(cfg.sliding_window) and w <= cfg.sliding_window
+        if s == 1:
+            slot = idx % w if ring else idx
+            ck[:, slot] = k[:, 0]
+            cv[:, slot] = v[:, 0]
+            k, v = ck.to(x.dtype), cv.to(x.dtype)
+            j = torch.arange(w, device=x.device)
+            if ring:
+                k_pos = idx - torch.remainder(idx - j, w)
+            else:
+                k_pos, kv_len = j, idx + 1
+        elif s >= w:
+            tail_k, tail_v = k[:, s - w:], v[:, s - w:]
+            if ring:
+                shift = (s - w) % w
+                tail_k = torch.roll(tail_k, shift, dims=1)
+                tail_v = torch.roll(tail_v, shift, dims=1)
+            ck.copy_(tail_k)
+            cv.copy_(tail_v)
+        else:
+            ck[:, :s] = k
+            cv[:, :s] = v
+        cache["len"] += s
+    out = attention_op(q, k, v, q_pos, k_pos, cfg, causal=causal,
+                       kv_len=kv_len)
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
 
 

@@ -1,5 +1,5 @@
-"""Multi-head Latent Attention over the paged latent pool (the port of the
-paged part of ``repro.models.mla``; DeepSeek-V2, arXiv:2405.04434).
+"""Multi-head Latent Attention (the port of ``repro.models.mla``;
+DeepSeek-V2, arXiv:2405.04434).
 
 MLA compresses the KV cache into a rank-``kv_lora_rank`` latent plus one
 shared RoPE key.  Serving attends in the absorbed form, directly over the
@@ -23,19 +23,22 @@ the kernel sees 128 query heads over it at D 576, which its ``mla`` body
 takes on the card.
 
 As in ``layers``, the paged blocks write the latent rows into the pool IN
-PLACE and return only the attention output.  The expanded and absorbed
-cohort forms (``mla_attention``) wait for the cohort engine.
+PLACE and return only the attention output.  ``mla_attention`` is the
+unpaged form: expanded (K and V up-projected from the latent; the
+training form) without a cache, absorbed over a contiguous latent cache
+(``ckv``, ``krope``) with one -- what the cohort engine's prefill and
+decode run -- its rows written into the cache in place.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import NEG_INF, apply_rope, rms_norm
 from repro_torch.models.params import ParamSpec
 
 
@@ -81,6 +84,59 @@ def _project_q(params: dict, x: torch.Tensor, cfg
     else:
         q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(x.dtype))
     return q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+
+
+def mla_attention(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
+                  cfg, cache: Optional[dict] = None) -> torch.Tensor:
+    """MLA over ``x`` ``(B, S, d)`` at positions ``q_pos`` ``(S,)``,
+    causal.  Without a cache, the expanded form: K and V up-projected from
+    the latent, attention within ``x``.  With one (a layer's ``{"ckv": (B,
+    W, R), "krope": (B, W, dr), "len": host counter}``), the absorbed
+    form: the new latent rows are written IN PLACE at ``len`` (which
+    advances by ``S``), and the queries, with ``W_uk`` absorbed, attend
+    over the whole cache, masked causally and at ``len + S``.  Returns
+    ``(B, S, d)``."""
+    m = cfg.mla
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = _project_q(params, x, cfg)
+    q_rope = apply_rope(q_rope, q_pos, cfg.rope_theta)
+    kv = x @ params["wkv_a"].to(x.dtype)                     # (B,S,R+dr)
+    ckv = rms_norm(kv[..., :m.kv_lora_rank], params["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., m.kv_lora_rank:][:, :, None, :], q_pos,
+                        cfg.rope_theta)[:, :, 0]             # (B,S,dr)
+
+    if cache is None:                                        # expanded
+        k_nope = torch.einsum("bsr,rhe->bshe", ckv,
+                              params["wk_b"].to(x.dtype))
+        v = torch.einsum("bsr,rhe->bshe", ckv, params["wv_b"].to(x.dtype))
+        logits = (torch.einsum("bqhe,bkhe->bhqk", q_nope, k_nope)
+                  + torch.einsum("bqhe,bke->bhqk", q_rope, k_rope)
+                  ).float() * scale
+        mask = q_pos[None, :] <= q_pos[:, None]
+        logits = logits.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhe->bqhe", probs, v)      # (B,S,H,dv)
+    else:                                                    # absorbed
+        idx = int(cache["len"])
+        s = x.shape[1]
+        cache["ckv"][:, idx:idx + s] = ckv
+        cache["krope"][:, idx:idx + s] = k_rope
+        cache["len"] += s
+        ckv_all = cache["ckv"].to(x.dtype)                   # (B,W,R)
+        kr_all = cache["krope"].to(x.dtype)                  # (B,W,dr)
+        q_lat = torch.einsum("bqhe,rhe->bqhr", q_nope,
+                             params["wk_b"].to(x.dtype))
+        logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_all)
+                  + torch.einsum("bqhe,bke->bhqk", q_rope, kr_all)
+                  ).float() * scale
+        k_pos = torch.arange(ckv_all.shape[1], device=x.device)
+        mask = (k_pos[None, :] <= q_pos[:, None]) & (k_pos < idx + s)[None]
+        logits = logits.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhqk,bkr->bqhr", probs, ckv_all)
+        out = torch.einsum("bqhr,rhe->bqhe", o_lat,
+                           params["wv_b"].to(x.dtype))
+    return torch.einsum("bqhe,hed->bqd", out, params["wo"].to(x.dtype))
 
 
 def _mla_latent_row(params: dict, x: torch.Tensor, positions: torch.Tensor,

@@ -1,37 +1,51 @@
-"""Model assembly for the dense, moe, mla_moe, hybrid_ssm, xlstm and
-enc_dec families (the port of the paged paths of ``repro.models.model``).
+"""Model assembly for the dense, vlm, moe, mla_moe, hybrid_ssm, xlstm and
+enc_dec families (the port of the serving paths of
+``repro.models.model``).
 
 ``Model`` declares the parameter tree (same paths and shapes as the JAX
-package), the per-slot recurrent state (``init_state``, the state part of
-the reference's ``init_cache``) and runs the two serving steps over the
-paged cache: ``decode_step_paged`` (one token per slot) and
-``prefill_chunk`` (one prompt chunk of one slot).  The transformer
-families run the one shared layer body ``_tf_layer`` with a mode-specific
-attention hook; its FFN is SwiGLU, or ``moe_ffn`` for ``moe`` (Mixtral).
-``mla_moe`` (DeepSeek-V2) runs its ``first_k_dense`` leading layers
-(``dense_layers``: MLA attention, SwiGLU at ``dense_d_ff``) and then its
-MoE layers (``layers``: MLA attention, ``moe_ffn`` with shared experts)
-through the same body, with the MLA hook over one latent pool ``lat``
-(dense layers at pool indices ``[0, kd)``, MoE layer ``i`` at ``kd + i``).
-Layers run as a Python loop over the stacked parameters; the pool and the
-per-slot state are updated in place.
+package) and runs the serving steps of both engines:
+
+  * the cohort engine's, over a contiguous cache (``init_cache``: the
+    reference's layout, written in place, grown only by the engine):
+    ``prefill`` (a batch of same-length prompts into a fresh cache) and
+    ``decode_step`` (one token a row at the batch's one position);
+  * the paged engine's, over the page pool (``serve.pages``) and the
+    per-slot recurrent state (``init_state``, the state part of
+    ``init_cache``): ``decode_step_paged`` (one token per slot at its own
+    position) and ``prefill_chunk`` (one prompt chunk of one slot).
+
+The transformer families run the one shared layer body ``_tf_layer`` with
+a mode-specific attention hook -- the cached GQA or MLA block
+(``_cached_attn``) over the layer's rows of a contiguous cache, or the
+paged blocks over the pool; its FFN is SwiGLU, or ``moe_ffn`` for ``moe``
+(Mixtral) and ``mla_moe``.  ``vlm`` (Qwen2-VL) is the dense tree whose
+prompt may be precomputed ``embeds`` (its vision tower is a stub, as in
+the reference) with M-RoPE at ``positions_3d``; only the cohort engine
+serves it.  ``mla_moe`` (DeepSeek-V2) runs its ``first_k_dense`` leading
+layers (``dense_layers``: MLA attention, SwiGLU at ``dense_d_ff``) and
+then its MoE layers (``layers``) through the same body; in the pool they
+are latent layers ``[0, kd)`` and ``kd + i``.  Layers run as a Python
+loop over the stacked parameters; a layer's cache or state rows are views
+of the stacked buffers, so its writes land in them (the reference's
+``_cache_update``).  A contiguous cache keeps its counters on the host
+(``len``, one a layer, and ``pos``), so a step never waits for the card.
 
 ``hybrid_ssm`` (Zamba2) is a stack of Mamba2 mixers with ONE weight-shared
 attention block (``_tf_layer`` over ``shared_attn``) applied before each
-group of ``attn_every`` mixers; application ``app`` owns layer ``app`` of
-the page pool, and each mixer owns its rows of ``state["mamba"]`` (conv
-and SSM state per slot).  ``xlstm`` is token-free: periods of
-``slstm_every - 1`` mLSTM blocks and one sLSTM block, whose per-slot
-states (``state["mlstm"]``, ``state["slstm"]``) are its whole cache.
+group of ``attn_every`` mixers; application ``app`` owns attention layer
+``app`` of the cache or pool, and each mixer owns its rows of ``mamba``
+(conv and SSM state).  ``xlstm`` is token-free: periods of
+``slstm_every - 1`` mLSTM blocks and one sLSTM block, whose states
+(``mlstm``, ``slstm``) are its whole cache.
 
 ``enc_dec`` (Whisper) runs its bidirectional encoder once per request
-(``encode_cross``: ``_tf_layer`` over ``enc_layers`` with a non-causal
-hook, the final norm, then every decoder layer's cross K/V); the serving
-steps run ``_dec_layer`` over ``dec_layers``: paged self-attention (pool
-layer ``i`` for decoder layer ``i``), then cross-attention against the
-slot's rows of ``state["cross_k"/"cross_v"]``, each row masked to its own
-``state["enc_len"]``.  Its training forward waits for the cohort slice.
-Other families (``vlm``) raise ``NotImplementedError``.
+(``_encode``: ``_tf_layer`` over ``enc_layers`` with a non-causal hook, the
+final norm; ``cross_kv``: every decoder layer's cross K/V) and then
+``_dec_layer`` over ``dec_layers``: cached or paged self-attention, then
+cross-attention against the request's cross K/V (per-slot rows masked to
+each slot's ``enc_len`` in the pool).  The training forward and loss
+(``forward``, ``_forward_encdec``, ``cross_entropy_loss``) wait for the
+training slice.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
@@ -49,11 +64,12 @@ from repro_torch.models.params import ParamSpec, init_params
 
 PyTree = Any
 
-#: Families this port can run so far.
-FAMILIES = ("dense", "moe", "mla_moe", "hybrid_ssm", "xlstm", "enc_dec")
+#: Families this port can run.
+FAMILIES = ("dense", "vlm", "moe", "mla_moe", "hybrid_ssm", "xlstm",
+            "enc_dec")
 
-#: The MoE decode step's capacity factor (the reference ``Model``'s
-#: default); prefill chunks dispatch dropless.
+#: The MoE decode steps' capacity factor (the reference ``Model``'s
+#: default); prefills and prefill chunks dispatch dropless.
 CAPACITY_FACTOR = 1.25
 
 
@@ -99,12 +115,28 @@ def _tf_layer(lp: dict, x: torch.Tensor, cfg,
     return x + L.swiglu_ffn(lp["ffn"], h)
 
 
+def _cached_attn(cfg, attn_kind: str, q_pos: torch.Tensor,
+                 cache: Optional[dict],
+                 positions_3d: Optional[torch.Tensor] = None,
+                 causal: bool = True) -> Callable:
+    """Attention hook of the cohort modes and the encoder: the family's
+    cache semantics (full KV, sliding-window ring, MLA latent) over one
+    layer's rows of a contiguous cache (None: attention within the input),
+    with batch-shared positions ``q_pos``.  ``attn_kind`` "mla" routes to
+    the latent-attention block, anything else to the GQA block."""
+    if attn_kind == "mla":
+        return lambda ap, h: MLA.mla_attention(ap, h, q_pos, cfg, cache)
+    return lambda ap, h: L.attention_block(ap, h, q_pos, cfg, cache,
+                                           positions_3d, causal=causal)
+
+
 def _dec_layer(lp: dict, x: torch.Tensor, cfg,
                self_attn: Callable[[dict, torch.Tensor], torch.Tensor],
                cross_attn: Callable[[dict, torch.Tensor], torch.Tensor]
                ) -> torch.Tensor:
     """The enc-dec decoder-layer body of every serving mode: pre-norm
-    self-attention (``self_attn(lp["attn"], h)``: the paged hook),
+    self-attention (``self_attn(lp["attn"], h)``: the cached or paged
+    hook),
     pre-norm cross-attention (``cross_attn(lp["cross"], h)``) and pre-norm
     SwiGLU, each with a residual."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -116,13 +148,13 @@ def _dec_layer(lp: dict, x: torch.Tensor, cfg,
 
 
 class Model:
-    """The dense, MoE and MLA-MoE decoders, the Zamba2 hybrid, xLSTM and
-    the Whisper encoder-decoder; see the module docstring."""
+    """The dense, VLM, MoE and MLA-MoE decoders, the Zamba2 hybrid, xLSTM
+    and the Whisper encoder-decoder; see the module docstring."""
 
     def __init__(self, cfg):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"repro_torch serves families {FAMILIES} so far; "
+                f"repro_torch serves families {FAMILIES}; "
                 f"{cfg.arch!r} is {cfg.family!r}")
         self.cfg = cfg
 
@@ -175,10 +207,17 @@ class Model:
 
     def init(self, seed: int = 0, device=None,
              dtype=torch.float32) -> PyTree:
-        from repro_torch import resolve_device
-
         return init_params(self.param_specs(), seed, resolve_device(device),
                            dtype)
+
+    def _embed_in(self, params: PyTree, batch: Dict[str, Any],
+                  dtype) -> torch.Tensor:
+        """The prompt's rows: its precomputed ``embeds`` where the family
+        takes them (``cfg.input_embeds``: vlm) and they are given, else
+        the embedded ``tokens``."""
+        if self.cfg.input_embeds and "embeds" in batch:
+            return batch["embeds"].to(dtype)
+        return L.embed_tokens(params, batch["tokens"], dtype)
 
     def init_state(self, n_slots: int, dtype, device) -> PyTree:
         """The per-slot recurrent state at its start, as the state part of
@@ -227,6 +266,67 @@ class Model:
                 },
             }
         return {}
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   enc_len: int = 0, device=None) -> PyTree:
+        """The cohort engine's contiguous cache of ``batch`` rows, as the
+        reference's ``init_cache`` lays it out (layer-stacked, the batch on
+        axis 1, the sequence on axis 2):
+
+          * dense, vlm, moe: ``layers`` ``{k, v: (L, B, W, KV, D)}`` with
+            ``W = min(max_len, window)`` under a sliding window (a ring),
+            else ``max_len``;
+          * mla_moe: ``layers`` (and ``dense_layers`` for the leading dense
+            ones) ``{ckv: (n, B, max_len, R), krope: (n, B, max_len, dr)}``;
+          * hybrid_ssm: ``init_state``'s ``mamba`` and, with the shared
+            block, ``attn`` ``{k, v}`` with one layer per application;
+          * xlstm: ``init_state``'s ``mlstm`` and ``slstm``;
+          * enc_dec: ``layers`` for the decoder's self-attention and
+            ``cross_k``/``cross_v`` ``(nd, B, enc_len, KV, D)``.
+
+        Every KV stack also holds ``len``, its layers' filled lengths, and
+        the cache ``pos``, the batch's position: host counters (an int32
+        CPU tensor of one entry a layer, and an int) that the steps
+        advance.  KV buffers are zeros in ``dtype`` on ``device``."""
+        cfg = self.cfg
+        fam = cfg.family
+        device = resolve_device(device)
+        kv, hd = cfg.n_kv_heads, cfg.head_dim
+        window = cfg.sliding_window
+        s_kv = min(max_len, window) if window else max_len
+
+        def stack(n: int, **rows) -> dict:
+            out = {name: torch.zeros((n, batch) + shape, dtype=dtype,
+                                     device=device)
+                   for name, shape in rows.items()}
+            out["len"] = torch.zeros((n,), dtype=torch.int32)
+            return out
+
+        cache = self.init_state(batch, dtype, device)
+        if fam in ("dense", "vlm", "moe"):
+            cache["layers"] = stack(cfg.n_layers, k=(s_kv, kv, hd),
+                                    v=(s_kv, kv, hd))
+        elif fam == "mla_moe":
+            m, kd = cfg.mla, cfg.moe.first_k_dense
+            lat = dict(ckv=(max_len, m.kv_lora_rank),
+                       krope=(max_len, m.rope_head_dim))
+            cache["layers"] = stack(cfg.n_layers - kd, **lat)
+            if kd:
+                cache["dense_layers"] = stack(kd, **lat)
+        elif fam == "hybrid_ssm":
+            s = cfg.ssm
+            n_apps = -(-cfg.n_layers // s.attn_every) if s.attn_every else 0
+            if n_apps:
+                cache["attn"] = stack(n_apps, k=(max_len, kv, hd),
+                                      v=(max_len, kv, hd))
+        elif fam == "enc_dec":
+            nd = cfg.enc_dec.n_decoder_layers
+            cache["layers"] = stack(nd, k=(s_kv, kv, hd), v=(s_kv, kv, hd))
+            cache["cross_k"] = torch.zeros((nd, batch, enc_len, kv, hd),
+                                           dtype=dtype, device=device)
+            cache["cross_v"] = torch.zeros_like(cache["cross_k"])
+        cache["pos"] = 0
+        return cache
 
     # ------------------------------------------------- recurrent stacks
     def _hybrid_stack(self, params: PyTree, x: torch.Tensor,
@@ -320,10 +420,7 @@ class Model:
         cfg = self.cfg
         enc = enc_embeds.to(dtype)
         enc_pos = torch.arange(enc.shape[1], device=enc.device)
-
-        def attn(ap, h):
-            return L.attention_block(ap, h, enc_pos, cfg, causal=False)
-
+        attn = _cached_attn(cfg, "dense", enc_pos, None, causal=False)
         for i in range(cfg.enc_dec.n_encoder_layers):
             enc = _tf_layer(_layer_params(params["enc_layers"], i), enc, cfg,
                             attn)
@@ -358,7 +455,8 @@ class Model:
         steps keep them), masked past ``kv_len`` (a scalar or one length a
         row).  No RoPE: the reference ropes no cross-attention.  (The
         reference's branch that projects K/V from the encoder output
-        serves its training forward, which waits for the cohort slice.)"""
+        serves its training forward, which waits for the training
+        slice.)"""
         cfg = self.cfg
         b, s, _ = x.shape
         q = (x @ cp["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads,
@@ -368,17 +466,105 @@ class Model:
                              cfg, causal=False, kv_len=kv_len)
         return out.reshape(b, s, -1) @ cp["wo"].to(x.dtype)
 
-    def _cross_hook(self, state: PyTree, q_pos: torch.Tensor, rows: slice
+    def _cross_hook(self, ck: torch.Tensor, cv: torch.Tensor,
+                    q_pos: torch.Tensor,
+                    kv_len: Optional[torch.Tensor] = None
                     ) -> Callable[[int], Callable]:
         """enc_dec's cross-attention hook for decoder layer ``i`` of a
-        serving step: queries at ``q_pos`` against the ``rows`` (slots) of
-        ``state["cross_k"/"cross_v"]``, each row masked to its own
-        ``state["enc_len"]``."""
-        ck, cv = state["cross_k"], state["cross_v"]
+        serving step: queries at ``q_pos`` against layer ``i`` of the
+        cross K/V ``ck``, ``cv`` ``(nd, B, Se, KV, D)``, masked past
+        ``kv_len`` (one encoder length a row in the pool; None in a cohort,
+        whose rows share one)."""
         enc_pos = torch.arange(ck.shape[2], device=ck.device)
-        kv_len = state["enc_len"][rows]
         return lambda i: lambda cp, h: self._cross_attn(
-            cp, h, q_pos, enc_pos, (ck[i, rows], cv[i, rows]), kv_len)
+            cp, h, q_pos, enc_pos, (ck[i], cv[i]), kv_len)
+
+    def _cohort_hooks(self, cache: PyTree, q_pos: torch.Tensor,
+                      positions_3d: Optional[torch.Tensor] = None):
+        """``(attn, rows, cross)`` for ``_layers`` over a contiguous cache:
+        ``attn(i)`` the cached hook over attention layer ``i``'s rows (for
+        mla_moe, ``dense_layers`` below ``first_k_dense``, then
+        ``layers``; for hybrid_ssm, ``attn``), ``rows(group, i)`` block
+        ``i``'s state rows, ``cross`` enc_dec's cross hook."""
+        cfg = self.cfg
+        fam = cfg.family
+
+        def attn(i: int) -> Callable:
+            if fam == "mla_moe":
+                kd = cfg.moe.first_k_dense
+                c = (_layer_params(cache["dense_layers"], i) if i < kd
+                     else _layer_params(cache["layers"], i - kd))
+                return _cached_attn(cfg, "mla", q_pos, c)
+            stack = cache["attn"] if fam == "hybrid_ssm" else cache["layers"]
+            return _cached_attn(cfg, "dense", q_pos,
+                                _layer_params(stack, i), positions_3d)
+
+        def rows(group: str, i: int) -> dict:
+            return {k: buf[i] for k, buf in cache[group].items()}
+
+        cross = (self._cross_hook(cache["cross_k"], cache["cross_v"], q_pos)
+                 if fam == "enc_dec" else None)
+        return attn, rows, cross
+
+    # ------------------------------------------------------- cohort steps
+    def prefill(self, params: PyTree, batch: Dict[str, Any], max_len: int,
+                dtype=torch.bfloat16) -> Tuple[torch.Tensor, PyTree]:
+        """A batch of same-length prompts into a fresh contiguous cache of
+        ``max_len`` tokens: ``batch`` holds ``tokens`` ``(B, S)`` (vlm:
+        or ``embeds`` ``(B, S, d)``, with ``positions_3d`` ``(3, B, S)``
+        for M-RoPE; enc_dec: ``enc_embeds`` ``(B, Se, d)`` and the decoder
+        prompt's ``tokens``).  MoE dispatches dropless.  Returns the
+        last-token logits ``(B, V)`` and the cache, at ``pos`` S."""
+        cfg = self.cfg
+        if cfg.family == "enc_dec":
+            return self._prefill_encdec(params, batch, max_len, dtype)
+        x = self._embed_in(params, batch, dtype)
+        b, s = x.shape[:2]
+        cache = self.init_cache(b, max_len, dtype, device=x.device)
+        q_pos = torch.arange(s, device=x.device)
+        attn, rows, _ = self._cohort_hooks(cache, q_pos,
+                                           batch.get("positions_3d"))
+        x = self._layers(params, x, attn, rows, None)
+        cache["pos"] = s
+        logits = L.lm_logits(params, x[:, -1:], cfg)
+        return logits[:, -1], cache
+
+    def _prefill_encdec(self, params: PyTree, batch: Dict[str, Any],
+                        max_len: int, dtype) -> Tuple[torch.Tensor, PyTree]:
+        """enc_dec's prefill: the encoder over ``enc_embeds``, the cross
+        K/V into the cache, then the decoder over the prompt ``tokens``."""
+        enc = self._encode(params, batch["enc_embeds"], dtype)
+        b, se = enc.shape[:2]
+        cache = self.init_cache(b, max_len, dtype, enc_len=se,
+                                device=enc.device)
+        ck, cv = self.cross_kv(params, enc)
+        cache["cross_k"], cache["cross_v"] = ck.to(dtype), cv.to(dtype)
+        x = L.embed_tokens(params, batch["tokens"], dtype)
+        sd = x.shape[1]
+        attn, rows, cross = self._cohort_hooks(
+            cache, torch.arange(sd, device=x.device))
+        x = self._layers(params, x, attn, rows, None, cross)
+        cache["pos"] = sd
+        logits = L.lm_logits(params, x[:, -1:], self.cfg)
+        return logits[:, -1], cache
+
+    def decode_step(self, params: PyTree, cache: PyTree,
+                    batch: Dict[str, Any], dtype=torch.bfloat16
+                    ) -> Tuple[torch.Tensor, PyTree]:
+        """One token a row at the cache's position ``pos``:
+        ``batch["tokens"]`` ``(B, 1)`` (vlm: and ``positions_3d`` ``(3, B,
+        1)``).  Every layer writes its K/V (or latent, or state) into the
+        cache in place; MoE dispatches at ``CAPACITY_FACTOR``.  Returns
+        ``(logits (B, V), cache)`` with ``pos`` advanced."""
+        x = self._embed_in(params, batch, dtype)
+        pos = int(cache["pos"])
+        q_pos = torch.arange(pos, pos + 1, device=x.device)
+        attn, rows, cross = self._cohort_hooks(cache, q_pos,
+                                               batch.get("positions_3d"))
+        x = self._layers(params, x, attn, rows, CAPACITY_FACTOR, cross)
+        cache["pos"] = pos + 1
+        logits = L.lm_logits(params, x, self.cfg)
+        return logits[:, -1], cache
 
     # ------------------------------------------------------- paged decode
     def decode_step_paged(self, params: PyTree, cache: PyTree,
@@ -418,7 +604,9 @@ class Model:
         def rows(group, i):
             return {k: buf[i] for k, buf in cache["state"][group].items()}
 
-        cross = (self._cross_hook(cache["state"], pos[:, None], slice(None))
+        st = cache["state"]
+        cross = (self._cross_hook(st["cross_k"], st["cross_v"], pos[:, None],
+                                  st["enc_len"])
                  if cfg.family == "enc_dec" else None)
         x = self._layers(params, x, attn, rows, CAPACITY_FACTOR, cross)
         new_cache = dict(cache)
@@ -462,8 +650,9 @@ class Model:
             return {k: buf[i, slot:slot + 1]
                     for k, buf in cache["state"][group].items()}
 
-        cross = (self._cross_hook(cache["state"], positions,
-                                  slice(slot, slot + 1))
+        st, one = cache["state"], slice(slot, slot + 1)
+        cross = (self._cross_hook(st["cross_k"][:, one], st["cross_v"][:, one],
+                                  positions, st["enc_len"][one])
                  if cfg.family == "enc_dec" else None)
         x = self._layers(params, x, attn, rows, None, cross)
         logits = L.lm_logits(params, x[:, -1:], cfg)

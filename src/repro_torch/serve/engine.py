@@ -1,32 +1,47 @@
-"""``ServeEngine`` -- the plan-driven paged serving engine (the port of
+"""``ServeEngine`` -- the plan-driven serving engine (the port of
 ``repro.serve.engine`` for one card).
 
-``ServeEngine(cfg, policy=ServePolicy(batching="paged")).generate(prompts)``:
+``ServeEngine(cfg, policy).generate(prompts)``; every batch and page
+choice falls out of the plan:
 
   * ``plan_decode`` builds the decode workload (per-token KV bytes x heads
     x layers, ``core.plan.Workload``) and walks the card's hierarchy once:
     the NVLINK level chooses the KV head sharding (``kv_shard``), the SMEM
     level the page size (``page_tokens``) and the pool bound.
   * ``serve.kvcache.PageSpec`` turns the page into the allocation granule.
-  * ``serve.pages`` owns the global page pool and slot-level admission:
-    a fixed batch of decode slots, per-slot page tables, a finished slot
-    backfilled by a new request mid-flight.
-  * Prefill is CHUNKED: a prompt is cut into page-sized chunks written
-    straight into the slot's pool pages and interleaved with decode ticks
-    (``prefill="monolithic"`` runs one whole-prompt chunk instead).
-  * A sliding-window family (Mixtral) frees the pages wholly below
-    ``pos - window`` behind the chunk front and after every token; a
-    token-free family (xLSTM) holds no pages and chunks its prompts at
-    ``kvcache.DEFAULT_PAGE_TOKENS``.
-  * An enc-dec request (Whisper) is a dict prompt ``{"enc_embeds": (Se,
-    d) frames, "tokens": decoder prompt}``: at admission its encoder runs
-    once and its cross K/V is installed into the slot's state rows,
-    zero-padded to the trace's longest encoder.
 
-It serves ``serve.pages.PAGED_FAMILIES`` (dense, moe, mla_moe, hybrid_ssm,
-xlstm, enc_dec).
-``batching="cohort"`` and ``prefix_cache="radix"`` wait for later slices
-and raise ``NotImplementedError``.
+Two batching engines share the plan (``ServePolicy.batching``):
+
+  * ``"paged"``: a fixed batch of decode slots over one global page pool
+    (``serve.pages``), per-slot page tables, a finished slot backfilled by
+    a new request mid-flight.  Prefill is CHUNKED: a prompt is cut into
+    page-sized chunks written straight into the slot's pool pages and
+    interleaved with decode ticks (``prefill="monolithic"`` runs one
+    whole-prompt chunk instead).  A sliding-window family (Mixtral) frees
+    the pages wholly below ``pos - window``; a token-free family (xLSTM)
+    holds no pages and chunks its prompts at
+    ``kvcache.DEFAULT_PAGE_TOKENS``.  An enc-dec request (Whisper) has its
+    encoder run once at admission and its cross K/V installed into the
+    slot's state rows, zero-padded to the trace's longest encoder.
+  * ``"cohort"``: the batch unit is a *cohort* of same-shape prompts
+    (``serve.scheduler``), prefilled together into a contiguous cache
+    (``Model.init_cache``) and decoded one step per cohort per engine
+    tick at the cohort's one position.  A growable cache grows one page at
+    a time (``kvcache.grow_cache``), finished slots are compacted away at
+    growth boundaries (``take_slots``), and when the budget cannot hold a
+    growth the youngest other cohort is evicted and recomputed later.  A
+    sliding-window cache is a ring of the window-clamped capacity,
+    allocated and billed whole at admission.
+  * ``"auto"``: paged where the plan has a page level and the family a
+    paged path, else cohort.  ``"paged"`` for a family without a paged
+    path (``vlm``) falls back to cohort, as in the reference.
+
+Prompts are token-id sequences, or dicts: an enc-dec request ``{"enc_embeds":
+(Se, d) frames, "tokens": decoder prompt}``, a vlm request ``{"embeds": (S,
+d) patch and text embeddings, "positions_3d": (3, S) M-RoPE positions}``
+(or ``{"tokens": ...}``; the positions then default to ``arange`` on all
+three streams).  ``prefix_cache="radix"`` waits for a later slice and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,9 +61,13 @@ from repro_torch.models.model import Model
 from repro_torch.obs import MetricsView, Registry, RingLog, Tracer
 from repro_torch.serve.kvcache import (
     PageSpec,
+    align_capacity,
+    cache_capacity,
+    grow_cache,
     kv_token_bytes,
     page_spec_from_plan,
     request_state_bytes,
+    take_slots,
 )
 from repro_torch.serve.pages import (
     PAGED_FAMILIES,
@@ -61,8 +80,9 @@ from repro_torch.serve.pages import (
     slot_rows,
 )
 from repro_torch.serve.sampling import SamplingConfig, make_generator, sample
-from repro_torch.serve.scheduler import Request
-from repro_torch.serve.steps import make_paged_steps
+from repro_torch.serve.scheduler import Request, ServeScheduler
+from repro_torch.serve.steps import ServeSteps, make_paged_steps, \
+    make_serve_steps
 
 PyTree = Any
 
@@ -122,11 +142,15 @@ class ServePolicy:
     """Engine knobs; everything memory-shaped defaults from the plan.
 
     ``batching``: "paged", the global page pool with per-slot continuous
-    batching ("cohort" is not ported yet and raises).
+    batching (a family without a paged path -- vlm -- falls back to
+    cohort); "cohort", position-homogeneous cohorts over contiguous
+    caches; or "auto", paged exactly when the plan has a page level and
+    the family a paged path.  (The reference defaults to "cohort"; the
+    port to "paged", its tuned engine -- greedy tokens are the same.)
     ``prefill``: "chunked" cuts prompts into planned-page-sized chunks
     interleaved with decode ticks; "monolithic" runs one whole-prompt
-    chunk (identical tokens, no interleave).  ``prefix_cache``: only
-    "off" is ported.
+    chunk (identical tokens, no interleave); cohort batching ignores it.
+    ``prefix_cache``: only "off" is ported.
     """
 
     max_new_tokens: int = 16
@@ -134,15 +158,15 @@ class ServePolicy:
     max_len: int = 4096             # per-sequence planning bound (tokens)
     kv_fraction: float = 0.8        # share of post-weights HBM given to KV
     kv_budget_bytes: Optional[int] = None   # override the planned budget
-    batching: str = "paged"         # | "cohort"
+    batching: str = "paged"         # | "cohort" | "auto"
     prefill: str = "chunked"        # | "monolithic"
     prefix_cache: str = "off"       # | "radix"
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
 
     def __post_init__(self):
-        if self.batching not in ("cohort", "paged"):
+        if self.batching not in ("cohort", "paged", "auto"):
             raise ValueError(f"unknown batching {self.batching!r}; "
-                             f"one of ('cohort', 'paged')")
+                             f"one of ('cohort', 'paged', 'auto')")
         if self.prefill not in ("chunked", "monolithic"):
             raise ValueError(f"unknown prefill {self.prefill!r}; "
                              f"one of ('chunked', 'monolithic')")
@@ -151,8 +175,22 @@ class ServePolicy:
                              f"one of ('off', 'radix')")
 
 
+@dataclass
+class _Run:
+    """Engine-side state of one admitted cohort."""
+
+    cid: int
+    reqs: List[Request]
+    steps: ServeSteps
+    cache: PyTree
+    next_tokens: torch.Tensor       # (B, 1) -- last sampled tokens
+    capacity: Optional[int]         # growable token capacity (None: fixed)
+    pos: int                        # tokens written so far per slot
+    active: Dict[int, int]          # rid -> slot index, still decoding
+
+
 class ServeEngine:
-    """Plan-driven paged serving engine (see module docstring).
+    """Plan-driven serving engine (see module docstring).
 
     ``device=None`` means ``"cuda"`` and raises where there is none;
     ``dtype`` (default float32) is the weights', pool's and compute dtype.
@@ -177,18 +215,10 @@ class ServeEngine:
         device=None,
     ):
         self.device = resolve_device(device)
-        if policy.batching == "cohort":
-            raise NotImplementedError(
-                "repro_torch has no cohort engine yet; use "
-                "ServePolicy(batching='paged')")
         if policy.prefix_cache != "off":
             raise NotImplementedError(
                 "repro_torch has no prefix cache yet; use "
                 "ServePolicy(prefix_cache='off')")
-        if cfg.family not in PAGED_FAMILIES:
-            raise NotImplementedError(
-                f"repro_torch serves families {PAGED_FAMILIES} so far; "
-                f"{cfg.arch!r} is {cfg.family!r}")
         self.cfg = cfg
         self.policy = policy
         self.dtype = dtype if dtype is not None else torch.float32
@@ -198,12 +228,26 @@ class ServeEngine:
             dtype_bytes=self._dtype_bytes, spec=spec)
         self.page: PageSpec = page_spec_from_plan(self.plan, cfg,
                                                   self._dtype_bytes)
-        self.batching = "paged"
+        self.batching = policy.batching
+        if self.batching == "auto":
+            # Paged exactly when the plan exposes a page level to size the
+            # pool from and the family has a per-slot decode path.
+            self.batching = ("paged" if self.plan.page_plan() is not None
+                             and cfg.family in PAGED_FAMILIES else "cohort")
+        elif self.batching == "paged" and cfg.family not in PAGED_FAMILIES:
+            self.batching = "cohort"        # no paged decode path
         self.model = Model(cfg)
         self.params = (params if params is not None
                        else self.model.init(seed, self.device, self.dtype))
-        self.steps = make_paged_steps(self.model, self.dtype)
         self.budget_bytes = self._kv_budget()
+        # Each engine builds only its own steps and bookkeeping: the paged
+        # engine its pool steps, the cohort engine its scheduler (its
+        # contiguous-cache steps are made per cohort, at its capacity).
+        paged = self.batching == "paged"
+        self.steps = make_paged_steps(self.model, self.dtype) if paged \
+            else None
+        self.scheduler = None if paged else ServeScheduler(
+            self.budget_bytes, self.page, max_slots=policy.max_slots)
         self._live_pool: Optional[PagePool] = None
         self._live_sched: Optional[PagedScheduler] = None
         self._next_rid = 0
@@ -287,23 +331,35 @@ class ServeEngine:
     @staticmethod
     def _normalize_prompt(prompt) -> Dict[str, np.ndarray]:
         """A prompt's features as host arrays: a dict prompt's entries
-        (enc-dec: ``enc_embeds`` and ``tokens``), else ``{"tokens": ...}``
-        of the token ids."""
+        (enc-dec: ``enc_embeds`` and ``tokens``; vlm: ``embeds`` and
+        ``positions_3d``, or ``tokens``), else ``{"tokens": ...}`` of the
+        token ids."""
         if isinstance(prompt, dict):
             return {k: np.asarray(v) for k, v in prompt.items()}
         return {"tokens": np.asarray(prompt, dtype=np.int32).reshape(-1)}
 
-    def _make_request(self, prompt, max_new: int) -> Request:
+    def _make_request(self, prompt, max_new: int,
+                      paged: bool = False) -> Request:
         feats = self._normalize_prompt(prompt)
-        plen = int(feats["tokens"].shape[-1])
+        plen = int(feats["tokens"].shape[-1] if "tokens" in feats
+                   else feats["embeds"].shape[0])
         enc_len = (int(feats["enc_embeds"].shape[0])
                    if "enc_embeds" in feats else 0)
         rid = self._next_rid
         self._next_rid += 1
+        # Fixed-extent caches (sliding-window rings) allocate their whole
+        # window-clamped capacity at admission and never grow, so the slot
+        # is billed for all of it up front; growable caches pin only
+        # prompt + the first decode page (the Request default).  The paged
+        # pool has no rings, so admission there is always prompt + 1.
+        admit_tokens = None
+        if not paged and not self._growable() and self.cfg.sliding_window:
+            admit_tokens = min(plen + max_new + 1, self.cfg.sliding_window)
         return Request(rid=rid, prompt_len=plen, max_new=max_new,
                        features=feats, group=(plen, enc_len),
                        state_bytes=request_state_bytes(
-                           self.cfg, enc_len, self._dtype_bytes))
+                           self.cfg, enc_len, self._dtype_bytes),
+                       admit_tokens=admit_tokens)
 
     def _encode_req(self, req: Request):
         """Enc-dec admission: the encoder pass and the cross projections,
@@ -322,10 +378,10 @@ class ServeEngine:
         max_new_tokens=None,
         sampling: Optional[SamplingConfig] = None,
     ) -> List[List[int]]:
-        """Serve ``prompts`` (token-id sequences; for enc_dec, dicts of
-        ``enc_embeds`` and ``tokens``), returning each request's generated
-        token ids in submission order.  ``max_new_tokens`` is one
-        int for all requests or a per-request sequence."""
+        """Serve ``prompts`` (token-id sequences, or the family's dict
+        prompts: see the module docstring), returning each request's
+        generated token ids in submission order.  ``max_new_tokens`` is
+        one int for all requests or a per-request sequence."""
         scfg = sampling or self.policy.sampling
         max_new = (max_new_tokens if max_new_tokens is not None
                    else self.policy.max_new_tokens)
@@ -337,12 +393,216 @@ class ServeEngine:
                 f"entries, got {len(max_new)}")
         if not prompts:
             return []
-        return self._generate_paged(prompts, max_new, scfg)
+        if self.batching == "paged":
+            return self._generate_paged(prompts, max_new, scfg)
+        return self._generate_cohort(prompts, max_new, scfg)
 
     def _finalize_utilization(self) -> None:
         steps = self.metrics["slot_steps"]
         self.metrics["slot_utilization"] = (
             self.metrics["active_slot_steps"] / steps if steps else 0.0)
+
+    # ------------------------------------------------------ cohort batching
+    def _growable(self) -> bool:
+        """Whether the contiguous cache grows page by page: the family
+        holds per-token KV and no sliding-window ring."""
+        tok_bytes, _, _ = kv_token_bytes(self.cfg, self._dtype_bytes)
+        return tok_bytes > 0 and not self.cfg.sliding_window
+
+    def _stack_features(self, reqs: List[Request]) -> Dict[str, Any]:
+        """The cohort's prompt batch on the card: each feature stacked on
+        a new batch axis (axis 1 of ``positions_3d``, axis 0 of the rest).
+        A vlm cohort without ``positions_3d`` gets ``arange`` on all three
+        streams."""
+        out = {}
+        for k in reqs[0].features:
+            arr = np.stack([r.features[k] for r in reqs],
+                           axis=1 if k == "positions_3d" else 0)
+            out[k] = torch.from_numpy(arr).to(self.device)
+        if self.cfg.family == "vlm" and "positions_3d" not in out:
+            s = reqs[0].prompt_len
+            out["positions_3d"] = torch.arange(
+                s, device=self.device).expand(3, len(reqs), s)
+        return out
+
+    def _prefill_cohort(self, cid: int, reqs: List[Request],
+                        outputs: Dict[int, List[int]], scfg: SamplingConfig,
+                        gen) -> _Run:
+        prompt_len = reqs[0].prompt_len
+        max_new = max(r.max_new for r in reqs)
+        if self._growable():
+            capacity = align_capacity(prompt_len + 1, self.page)
+        else:
+            capacity = prompt_len + max_new + 1
+        ss = make_serve_steps(self.model, capacity, self.dtype)
+        batch = self._stack_features(reqs)
+        for r in reqs:
+            now = time.monotonic()
+            t_sub = self._t_submit.get(r.rid, now)
+            self.tracer.complete("queue_wait", t_sub, now, tid=r.rid + 1,
+                                 args={"rid": r.rid, "cohort": cid})
+            self.obs.observe("queue_wait_s", now - t_sub)
+        tp0 = time.monotonic()
+        logits, cache = ss.prefill(self.params, batch)
+        self.tracer.complete("prefill", tp0, time.monotonic(), tid=0,
+                             args={"cohort": cid, "slots": len(reqs),
+                                   "prompt": prompt_len})
+        toks = sample(logits, scfg, gen)
+        run = _Run(
+            cid=cid, reqs=reqs, steps=ss, cache=cache,
+            next_tokens=toks[:, None],
+            capacity=(cache_capacity(self.cfg, cache)
+                      if self._growable() else None),
+            pos=prompt_len,
+            active={r.rid: i for i, r in enumerate(reqs)})
+        self.metrics["cohorts"] += 1
+        if run.capacity is not None:
+            self.metrics["capacities"].append(run.capacity)
+        self._emit(run, toks, outputs, scfg)
+        return run
+
+    def _emit(self, run: _Run, toks: torch.Tensor,
+              outputs: Dict[int, List[int]], scfg: SamplingConfig) -> None:
+        """Deliver a step's tokens to the cohort's active slots; a slot
+        whose request is done leaves ``run.active`` (it rides along in the
+        batch until the next compaction)."""
+        toks = toks.cpu().numpy().reshape(-1)
+        for r in list(run.reqs):
+            slot = run.active.get(r.rid)
+            if slot is None:
+                continue
+            t = int(toks[slot])
+            outputs[r.rid].append(t)
+            now = time.monotonic()
+            if len(outputs[r.rid]) == 1:
+                self.tracer.instant("first_token", tid=r.rid + 1,
+                                    args={"rid": r.rid})
+                self.obs.observe(
+                    "ttft_s", now - self._t_submit.get(r.rid, now))
+            self.metrics["tokens"] += 1
+            if len(outputs[r.rid]) >= r.max_new or \
+                    (scfg.eos_id is not None and t == scfg.eos_id):
+                del run.active[r.rid]
+                self.scheduler.finish(run.cid, r.rid)
+                self.tracer.complete(
+                    "request", self._t_submit.get(r.rid, now), now,
+                    tid=r.rid + 1,
+                    args={"rid": r.rid, "tokens": len(outputs[r.rid])})
+
+    def _compact(self, run: _Run) -> None:
+        """Drop finished slots from the cohort batch: slice the cache (and
+        the pending next-token column) down to the survivors so their
+        pages release now instead of at whole-cohort retirement.  Called
+        at growth boundaries, where the freed pages pay for the copy."""
+        if not run.active or len(run.active) == len(run.reqs):
+            return
+        keep = [r for r in run.reqs if r.rid in run.active]
+        idx = [run.active[r.rid] for r in keep]
+        run.cache = take_slots(run.cache, idx)
+        run.next_tokens = run.next_tokens[idx]
+        run.reqs = keep
+        run.active = {r.rid: i for i, r in enumerate(keep)}
+        self.scheduler.shrink_slots(run.cid, [r.rid for r in keep])
+
+    def _ensure_capacity(self, run: _Run, runs: Dict[int, _Run],
+                         outputs: Dict[int, List[int]]) -> None:
+        """Room for the next token: a full growable cache first compacts,
+        then reserves one more page a slot -- evicting the youngest other
+        cohort (recompute preemption) while the budget refuses -- and is
+        reallocated one page longer."""
+        if run.capacity is None or run.pos + 1 <= run.capacity:
+            return
+        self._compact(run)
+        needed = run.capacity + self.page.page_tokens
+        while not self.scheduler.reserve(run.cid, needed):
+            victim = self.scheduler.youngest_other(run.cid)
+            if victim is None or victim not in runs:
+                raise RuntimeError(
+                    f"KV budget {self.scheduler.budget_bytes} cannot hold "
+                    f"one growing cohort; raise kv_budget_bytes")
+            for r in self.scheduler.evict(victim):
+                self.obs.inc("tokens_recomputed", len(outputs[r.rid]))
+                self.tracer.instant(
+                    "preempt", tid=r.rid + 1,
+                    args={"rid": r.rid, "cohort": victim,
+                          "tokens_lost": len(outputs[r.rid])})
+                outputs[r.rid] = []
+            del runs[victim]
+            self.metrics["evictions"] += 1
+        run.cache = grow_cache(self.cfg, run.cache, needed)
+        run.capacity = needed
+        self.metrics["capacities"].append(needed)
+
+    def _decode_cohort(self, run: _Run, runs: Dict[int, _Run],
+                       outputs: Dict[int, List[int]], scfg: SamplingConfig,
+                       gen) -> None:
+        self._ensure_capacity(run, runs, outputs)
+        batch = {"tokens": run.next_tokens}
+        if self.cfg.family == "vlm":
+            # The reference's decode positions: all three streams at the
+            # cache's position (the sequence length so far).
+            batch["positions_3d"] = torch.full(
+                (3, len(run.reqs), 1), int(run.cache["pos"]),
+                dtype=torch.int64, device=self.device)
+        td0 = time.monotonic()
+        logits, run.cache = run.steps.decode(self.params, run.cache, batch)
+        toks = sample(logits, scfg, gen)
+        self.tracer.complete("decode_tick", td0, time.monotonic(), tid=0,
+                             args={"cohort": run.cid,
+                                   "active": len(run.active)})
+        run.next_tokens = toks[:, None]
+        run.pos += 1
+        self.metrics["decode_steps"] += 1
+        # Utilization: this step decoded len(reqs) rows, of which only the
+        # still-active ones deliver a token (finished slots ride along
+        # until the next growth-boundary compaction).
+        self.metrics["slot_steps"] += len(run.reqs)
+        self.metrics["active_slot_steps"] += len(run.active)
+        self._emit(run, toks, outputs, scfg)
+
+    def _generate_cohort(self, prompts: Sequence[Any], max_new: List[int],
+                         scfg: SamplingConfig) -> List[List[int]]:
+        """Continuous batching at cohort granularity: admissions
+        (prefills) interleave with one decode step per live cohort per
+        tick, and the resident KV footprint stays inside the planned
+        budget throughout (checked every tick)."""
+        reqs = [self._make_request(p, n) for p, n in zip(prompts, max_new)]
+        for r in reqs:
+            self.scheduler.submit(r)
+            self._t_submit[r.rid] = time.monotonic()
+            self.tracer.instant("submit", tid=r.rid + 1,
+                                args={"rid": r.rid,
+                                      "prompt": r.prompt_len})
+        outputs: Dict[int, List[int]] = {r.rid: [] for r in reqs}
+        runs: Dict[int, _Run] = {}
+        gen = make_generator(scfg, self.device)
+        while self.scheduler.has_work():
+            progressed = False
+            for cid, batch in self.scheduler.admit():
+                runs[cid] = self._prefill_cohort(cid, batch, outputs, scfg,
+                                                 gen)
+                progressed = True
+            for cid in sorted(runs):
+                run = runs.get(cid)
+                if run is None:
+                    continue            # evicted by a sibling's growth
+                if not run.active:
+                    del runs[cid]
+                    continue
+                self._decode_cohort(run, runs, outputs, scfg, gen)
+                progressed = True
+                if not run.active:
+                    del runs[cid]
+            if self.scheduler.allocated_bytes > self.scheduler.budget_bytes:
+                raise RuntimeError("resident KV exceeded the plan")
+            self.scheduler.assert_reconciled()
+            if not progressed:
+                raise RuntimeError("scheduler stalled with pending work")
+        self.metrics["peak_resident_bytes"] = self.scheduler.peak_bytes
+        self.metrics["pages_allocated"] = self.scheduler.pages_allocated
+        self.metrics["pages_released"] = self.scheduler.pages_released
+        self._finalize_utilization()
+        return [outputs[r.rid] for r in reqs]
 
     # ------------------------------------------------------- paged batching
     def _paged_slots(self, reqs: List[Request]) -> int:
@@ -379,7 +639,8 @@ class ServeEngine:
         the slot is backfilled mid-flight.
         """
         dev = self.device
-        reqs = [self._make_request(p, n) for p, n in zip(prompts, max_new)]
+        reqs = [self._make_request(p, n, paged=True)
+                for p, n in zip(prompts, max_new)]
         outputs: Dict[int, List[int]] = {r.rid: [] for r in reqs}
         n_slots = self._paged_slots(reqs)
         page = self.page
@@ -548,8 +809,15 @@ class ServeEngine:
                     min(chunk_tokens - done % chunk_tokens, plen - done)
                 if window:
                     sched.reclaim_window(slot, window)
+                # The final chunk also makes room for the first decode
+                # token: the slot joins this tick's decode batch, whose
+                # write at position plen would land on the null page when
+                # the prompt ends on a page boundary.  A request of one
+                # new token retires at its first token and never decodes.
+                upto = done + c + (1 if done + c >= plen
+                                   and req.max_new > 1 else 0)
                 grew = True
-                while not sched.ensure_capacity(slot, upto=done + c):
+                while not sched.ensure_capacity(slot, upto=upto):
                     if sched.table_full(slot):
                         raise RuntimeError(
                             f"slot {slot}: prompt needs more than the "

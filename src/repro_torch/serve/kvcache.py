@@ -1,17 +1,29 @@
-"""Paged KV cache sizing (the port of the part of ``repro.serve.kvcache``
-the paged engine reads).
+"""KV cache sizing and the contiguous cache's page-granular operations
+(the port of ``repro.serve.kvcache``).
 
   * ``kv_token_bytes`` / ``request_state_bytes`` -- the per-family memory
     model: the token-proportional KV term and the token-free state term
     (``attn_apps``: the hybrid's pool layers).
   * ``PageSpec`` -- page math: tokens -> pages -> capacity -> global bytes,
-    the units the engine budgets in, read off the plan's page level.
+    the units the engines budget in, read off the plan's page level.
+  * ``grow_cache`` / ``cache_capacity`` / ``take_slots`` -- operations on
+    the cohort engine's cache trees (``Model.init_cache``): the sequence
+    axis of every growable KV buffer is a whole number of pages, grown one
+    page at a time as decode fills it; compaction keeps a cohort's
+    surviving slots.
+
+Sliding-window ring caches are not growable: the ring's slot map is
+``pos mod buffer_len``, so resizing the buffer mid-stream would scramble
+it -- windowed models allocate their (window-clamped) capacity at
+admission instead.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import HierarchicalPlan
@@ -19,6 +31,12 @@ from repro_torch.core.plan import HierarchicalPlan
 #: Fallback page size (tokens) for families with no paged KV at all
 #: (pure-recurrent xLSTM: the planner has no page level to size).
 DEFAULT_PAGE_TOKENS = 64
+
+#: Cache leaves whose axis 2 is the paged sequence axis.  ``cross_k`` /
+#: ``cross_v`` (enc-dec) are keyed by *encoder* position and never grow.
+GROWABLE_LEAVES = ("k", "v", "ckv", "krope")
+
+PyTree = Any
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +140,9 @@ class PageSpec:
     def pages_for(self, tokens: int) -> int:
         return max(1, -(-max(0, tokens) // self.page_tokens))
 
+    def capacity(self, pages: int) -> int:
+        return max(1, pages) * self.page_tokens
+
 
 def page_spec_from_plan(plan: Optional[HierarchicalPlan],
                         cfg: ModelConfig,
@@ -135,3 +156,80 @@ def page_spec_from_plan(plan: Optional[HierarchicalPlan],
                         token_bytes=tok_bytes)
     return PageSpec(page_tokens=int(page["page_tokens"]),
                     token_bytes=tok_bytes)
+
+
+def align_capacity(tokens: int, page: PageSpec) -> int:
+    """Smallest whole-page capacity >= ``tokens``."""
+    return page.capacity(page.pages_for(tokens))
+
+
+# ---------------------------------------------------------------------------
+# Page-granular operations on the contiguous cache trees
+# ---------------------------------------------------------------------------
+
+
+def _walk(node: PyTree, fn, path=()):
+    if isinstance(node, dict):
+        return {k: _walk(v, fn, path + (k,)) for k, v in node.items()}
+    return fn(path, node)
+
+
+def _is_growable(cfg: ModelConfig, path, leaf) -> bool:
+    name = path[-1] if path else ""
+    if name not in GROWABLE_LEAVES or getattr(leaf, "ndim", 0) < 3:
+        return False
+    if cfg.sliding_window and leaf.shape[2] <= cfg.sliding_window:
+        return False                      # ring buffer: fixed extent
+    return True
+
+
+def cache_capacity(cfg: ModelConfig, cache: PyTree) -> Optional[int]:
+    """Token capacity of the cache's growable KV buffers (None when the
+    family has none -- recurrent state is position-unbounded)."""
+    caps = []
+
+    def visit(path, leaf):
+        if _is_growable(cfg, path, leaf):
+            caps.append(leaf.shape[2])
+        return leaf
+
+    _walk(cache, visit)
+    return min(caps) if caps else None
+
+
+def grow_cache(cfg: ModelConfig, cache: PyTree, new_capacity: int) -> PyTree:
+    """Zero-pad every growable KV buffer's sequence axis (axis 2) up to
+    ``new_capacity`` (a whole number of pages -- the engine grows one page
+    at a time): each such buffer is reallocated and copied, every other
+    leaf is kept as it is.  Attention does not read the extra slots:
+    decode masks keys at ``k_pos >= len + 1``."""
+
+    def visit(path, leaf):
+        if not _is_growable(cfg, path, leaf):
+            return leaf
+        pad = new_capacity - leaf.shape[2]
+        if pad <= 0:
+            return leaf
+        shape = list(leaf.shape)
+        shape[2] = new_capacity
+        out = leaf.new_zeros(shape)
+        out[:, :, :leaf.shape[2]] = leaf
+        return out
+
+    return _walk(cache, visit)
+
+
+def take_slots(cache: PyTree, idx) -> PyTree:
+    """Select batch slots ``idx`` (cohort compaction: retired sequences'
+    pages are released by shrinking the batch axis).  Every leaf with >= 2
+    dims carries the batch on axis 1 (layer-stacked caches); ``len``
+    (per layer) and ``pos`` are batch-free and kept whole."""
+
+    def visit(path, leaf):
+        name = path[-1] if path else ""
+        if name == "len" or getattr(leaf, "ndim", 0) < 2:
+            return leaf
+        return leaf.index_select(
+            1, torch.as_tensor(idx, dtype=torch.long, device=leaf.device))
+
+    return _walk(cache, visit)

@@ -1,7 +1,10 @@
-"""The paged serving steps (the port of ``repro.serve.steps.
-make_paged_steps``): plain callables around the model's paged decode
-step, chunked prefill and (enc_dec) admission-time encoder pass, run
-eagerly without autograd."""
+"""The serving steps (the port of ``repro.serve.steps`` on one card):
+plain callables around the model's steps, run eagerly without autograd.
+``make_serve_steps`` binds the cohort engine's prefill (into a cache of
+``max_len`` tokens) and decode step; ``make_paged_steps`` the paged
+engine's decode step, chunked prefill and (enc_dec) admission-time
+encoder pass.  The reference's sharding fields wait for the distribution
+slice."""
 
 from __future__ import annotations
 
@@ -13,6 +16,33 @@ import torch
 from repro_torch.models.model import Model
 
 PyTree = Any
+
+
+@dataclass(frozen=True)
+class ServeSteps:
+    """``prefill(params, batch)`` -> ``(logits, cache)`` with a cache of
+    the bound capacity (``Model.prefill``), and ``decode(params, cache,
+    batch)`` -> ``(logits, cache)`` (``Model.decode_step``)."""
+
+    prefill: Callable
+    decode: Callable
+    model: Model
+
+
+def make_serve_steps(model: Model, max_len: int,
+                     dtype=torch.bfloat16) -> ServeSteps:
+    """Bind the model's cohort steps to the cache capacity ``max_len``
+    and the compute ``dtype``."""
+
+    def prefill(params: PyTree, batch):
+        with torch.no_grad():
+            return model.prefill(params, batch, max_len, dtype=dtype)
+
+    def decode(params: PyTree, cache: PyTree, batch):
+        with torch.no_grad():
+            return model.decode_step(params, cache, batch, dtype=dtype)
+
+    return ServeSteps(prefill=prefill, decode=decode, model=model)
 
 
 @dataclass(frozen=True)

@@ -165,16 +165,40 @@ def test_attention_block_without_cache_matches():
 
 def test_blockwise_branch_waits_for_its_slice():
     """Past ``attn_blockwise_threshold`` keys with no valid length and a
-    multi-token query, the reference goes blockwise; the port raises."""
-    cfg = get_model_config(ARCH).reduced()
-    q = torch.zeros((1, 2, 4, 16))
-    k = torch.zeros((1, cfg.attn_blockwise_threshold + 1, 4, 16))
-    pos = torch.arange(k.shape[1])
-    with pytest.raises(NotImplementedError, match="cohort"):
-        L.attention_op(q, k, k, pos[:2], pos, cfg, causal=False)
-    # One query token, or a valid length, stays on full attention.
-    assert L.attention_op(q[:, :1], k, k, pos[:1], pos, cfg,
-                          causal=False).shape == (1, 1, 4, 16)
+    multi-token query, ``attention_op`` goes blockwise at the blocks the
+    port's planner gives the shape; handed the same blocks, the
+    reference's blockwise branch gives the same output, causal or not,
+    over GQA-repeated keys.  One query token, or a valid length, stays on
+    full attention."""
+    import dataclasses
+
+    from repro_torch.core.autotile import plan_attention
+
+    rcfg = dataclasses.replace(ref_config(ARCH).reduced(),
+                               attn_blockwise_threshold=16)
+    cfg = dataclasses.replace(get_model_config(ARCH).reduced(),
+                              attn_blockwise_threshold=16)
+    rng = np.random.default_rng(5)
+    sq, sk = 24, 40
+    q = rng.standard_normal((2, sq, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, sk, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, sk, 2, 16)).astype(np.float32)
+    q_pos = np.arange(sk - sq, sk, dtype=np.int32)
+    k_pos = np.arange(sk, dtype=np.int32)
+    plan = plan_attention(sq, sk, 16, dtype_bytes=2)
+    for causal in (False, True):
+        want = RL.attention_op(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), jnp.asarray(q_pos),
+                               jnp.asarray(k_pos), rcfg, causal=causal,
+                               tile_plan=plan)
+        got = L.attention_op(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), torch.from_numpy(q_pos),
+                             torch.from_numpy(k_pos), cfg, causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    tpos = torch.from_numpy(k_pos)
+    assert L.attention_op(tq[:, :1], tk, tk, tpos[:1], tpos, cfg,
+                          causal=False).shape == (2, 1, 4, 16)
 
 
 def test_encode_and_cross_kv_match():

@@ -10,8 +10,9 @@ one-token step.  Tolerance: float32 2e-4 (the same scan summed in another
 order), as in ``tests/test_kernels.py``.
 
 On a card (``gpu``): ``ssd_scan`` with state, at short calls (8 tokens,
-rounded up to one 16-row tc chunk) and ragged ones, against its plain
-version; chained calls against one long call.
+rounded up to one 16-row tc chunk), ragged ones and the cohort engine's
+batched prefills (4 x 288, 2 x 1,088), against its plain version; chained
+calls against one long call.
 """
 
 import numpy as np
@@ -352,3 +353,38 @@ def test_cuda_chained_short_calls_equal_one_call(dtype):
     torch.testing.assert_close(torch.cat(parts, 1).float(), y.float(),
                                **SSD_TOL[dtype])
     torch.testing.assert_close(state, fin, **SSD_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,zero_init", [
+    (4, 288, True),                # zamba2's cohort prefill: 4 x 288
+    (2, 1088, True),               # ... and 2 x 1,088
+    (2, 64, True),                 # ... and 2 x 64, at chunk 64
+    (4, 288, False),               # a batch > 1 from a random state
+])
+def test_cuda_ssd_scan_at_cohort_prefill_shapes(dtype, b, s, zero_init):
+    """The cohort engine's prefill shape for zamba2-1.2b's mixer (64 heads
+    of 64, state 64) at batch > 1, from an initial state (zeros, as a
+    fresh cohort cache holds, or random) with the final state out, at the
+    chunk the model picks: bf16 on tc, float32 on simt, against the plain
+    version; two runs bit-identical."""
+    _cuda_or_skip()
+    x, dt, A, Bm, Cm, s0 = _cuda_inputs(b * s, b, s, 64, 64, 64, dtype)
+    if zero_init:
+        s0 = torch.zeros_like(s0)
+    chunk = M.kernel_chunk(get_model_config("zamba2-1.2b").ssm.chunk, 64,
+                           64, dtype.itemsize)
+    want = "tc" if dtype == torch.bfloat16 else "simt"
+    counter = f"LAUNCHES_{want.upper()}"
+    before = getattr(ssd_mod, counter)
+    y, fin = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0,
+                      return_final=True)
+    y2, fin2 = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0,
+                        return_final=True)
+    torch.cuda.synchronize()
+    assert getattr(ssd_mod, counter) == before + 2
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
+    ry, rfin = ssd_ref(x, dt, A, Bm, Cm, init_state=s0, return_final=True)
+    torch.testing.assert_close(y.float(), ry.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(fin, rfin, **SSD_TOL[dtype])

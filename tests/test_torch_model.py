@@ -170,7 +170,12 @@ def test_params_from_numpy_checks_the_layout():
 
 
 def test_other_families_are_not_served_yet():
-    with pytest.raises(NotImplementedError, match="vlm"):
-        Model(get_model_config("qwen2-vl-7b").reduced())
-    Model(get_model_config("deepseek-v2-236b").reduced())    # served
-    Model(get_model_config("whisper-large-v3").reduced())    # served
+    """Every registered family is served now (vlm the last), and an
+    unknown family still raises."""
+    import dataclasses
+
+    for arch in ("qwen2-vl-7b", "deepseek-v2-236b", "whisper-large-v3"):
+        Model(get_model_config(arch).reduced())               # served
+    with pytest.raises(NotImplementedError, match="unknown"):
+        Model(dataclasses.replace(get_model_config("llama3.2-1b").reduced(),
+                                  family="unknown"))

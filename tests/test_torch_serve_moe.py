@@ -13,6 +13,8 @@ near-tied logits could flip a greedy token under another summation order
 (``tests/test_serve_paged.py``).
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -39,13 +41,36 @@ def _host_mesh():
     return Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
 
 
+def _synchronous(ref):
+    """``ref``'s paged steps wait for their results.  On the CPU, jax
+    0.9.0's ``jnp.asarray`` shares a numpy array's memory, and the JAX
+    paged engine rewrites its host page table and positions while a step
+    it dispatched may still read them: on a loaded host its tokens then
+    vary from process to process.  Waiting is what the CPU backend does
+    with ``jax_cpu_enable_async_dispatch`` off."""
+    make = ref._paged_steps
+
+    def blocking(step):
+        return lambda *args: jax.block_until_ready(step(*args))
+
+    def paged_steps(*args, **kw):
+        steps = make(*args, **kw)
+        return dataclasses.replace(
+            steps, decode=blocking(steps.decode),
+            prefill_chunk=blocking(steps.prefill_chunk))
+
+    ref._paged_steps = paged_steps
+    return ref
+
+
 def _pair(leaf, **pol):
     """The JAX paged engine and the port's, on the same parameters, leaf
     and policy."""
     rcfg = ref_config(ARCH).reduced()
     ref_spec = chip_spec(vmem_bytes=leaf, vmem_reserved_bytes=0)
-    ref = RefEngine(rcfg, _host_mesh(),
-                    policy=RefPolicy(batching="paged", **pol), spec=ref_spec)
+    ref = _synchronous(RefEngine(rcfg, _host_mesh(),
+                                 policy=RefPolicy(batching="paged", **pol),
+                                 spec=ref_spec))
     cfg = get_model_config(ARCH).reduced()
     mine = ServeEngine(
         cfg, ServePolicy(batching="paged", **pol),
@@ -110,8 +135,10 @@ def test_windowed_prompt_billed_for_resident_window_only():
     """The reference's test of the same name: a prompt four windows long
     admits under a pool that holds only the resident window (pages below
     the window are reclaimed behind the chunk front), and its tokens equal
-    an unconstrained pool's with whole-prompt prefill, and the JAX paged
-    engine's under the same tight pool."""
+    an unconstrained pool's with whole-prompt prefill, and the JAX cohort
+    engine's.  (The prompt ends on a page boundary, where the JAX paged
+    engine writes the first decode token's K/V to the null page: its
+    tokens part from the third on.)"""
     cfg = get_model_config(ARCH).reduced()
     spec = h100_spec(smem_bytes=8 << 10)
     probe = ServeEngine(cfg, ServePolicy(max_len=160), spec=spec,
@@ -128,9 +155,37 @@ def test_windowed_prompt_billed_for_resident_window_only():
                                        max_len=plen + 16, max_slots=1),
                       params=tight.params, spec=spec, device="cpu")
     assert outs == big.generate(prompts, max_new_tokens=[6])
-    assert outs == ref.generate(prompts, max_new_tokens=[6])
+    assert plen % t == 0
+    cohort = RefEngine(ref.cfg, _host_mesh(),
+                       policy=RefPolicy(batching="cohort",
+                                        max_len=plen + 16, max_slots=1),
+                       params=ref.params)
+    assert outs == cohort.generate(prompts, max_new_tokens=[6])
     assert tight.metrics["peak_pages"] <= cfg.sliding_window // t + 2
     assert big.metrics["peak_pages"] > tight.metrics["peak_pages"]
+    assert _freed_while_running(tight)
+
+
+def test_windowed_prompt_off_a_page_boundary_equals_jax_paged_engine():
+    """The tight-pool case above with a prompt 3 tokens short of four
+    windows, which ends inside a page: the port's paged engine and the JAX
+    paged engine give the same tokens under the same resident-window
+    pool, and pages leave the window while the request runs."""
+    cfg = get_model_config(ARCH).reduced()
+    spec = h100_spec(smem_bytes=8 << 10)
+    probe = ServeEngine(cfg, ServePolicy(max_len=160), spec=spec,
+                        device="cpu")
+    t = probe.page.page_tokens
+    plen = 4 * cfg.sliding_window - 3
+    assert plen % t
+    budget = probe.page.page_bytes * (cfg.sliding_window // t + 2)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, plen, dtype=np.int32)]
+    _, ref, tight = _pair(8 << 10, max_len=plen + 16, max_slots=1,
+                          kv_budget_bytes=budget)
+    outs = tight.generate(prompts, max_new_tokens=[6])
+    assert outs == ref.generate(prompts, max_new_tokens=[6])
+    assert tight.metrics["peak_pages"] <= cfg.sliding_window // t + 2
     assert _freed_while_running(tight)
 
 
