@@ -166,16 +166,46 @@ Phases (each prints its results; the script exits non-zero if any fails):
      a mixer; wall, decode rate, TTFT, peak memory, cohorts, capacities
      grown, slot utilization and the busy share over a 2-request
      sub-trace for each.
+ 25. the radix prefix cache, float32 at cut depth, seeded weights, one
+     slot: llama3.2-1b (4 layers), mixtral-8x7b (2, window 4096),
+     deepseek-v2-236b (2: the dense layer and one MoE layer), zamba2-1.2b
+     (8 mixers) and xlstm-1.3b (one mLSTM and one sLSTM block).  For a
+     prefix of 2.5 pages (mid-page) and of 2 pages (page boundary), call
+     A publishes a prompt and call B sends one sharing the prefix to the
+     warm engine and to a cold one: the warm call's hits, hit tokens,
+     pages saved, CoW copies and prefill tokens equal what the CPU tests
+     expect, and its greedy tokens the cold run's (xLSTM: the state
+     restored at the hit boundary equals the cold run's there);
+ 26. the system-prompt trace on full-width llama3.2-1b, bf16, 8 slots:
+     call A is a seeded 1,000-token system prompt and a 24-token tail (1
+     new token); call B is 8 requests of the system prompt and tails of
+     24-248 tokens, 32 new tokens each, streamed through ``on_token``,
+     served by the warm engine and by a cold one (cache off, same
+     weights).  Warm beside cold: wall, TTFT, decode rate, prefill tokens
+     and chunks, hits, hit tokens, pages saved, CoW copies, resident bytes
+     against ``plan.prefix_budget()``, peak memory, the share of matching
+     tokens and launches by body (all ``split``); 8 hits of 1,000 tokens,
+     each a CoW of its 56-token page;
+ 27. the same on full-width zamba2-1.2b (8-token pages): 8 hits of 1,000
+     tokens, no CoW, the state snapshots' bytes resident, every paged
+     launch ``split`` and every SSD launch ``tc``;
+ 28. ``export_pages`` from a llama3.2-1b engine (4 layers, float32) after
+     call A, ``import_pages`` into a second engine on the same weights:
+     its next request hits the whole page-aligned prefix, with the first
+     engine's tokens;
+ 29. ``python -m repro_torch.obs.cli report`` (its ``pool_pages`` row
+     inside the band) and ``python -m repro_torch.launch.serve --arch
+     llama3.2-1b --prefix radix --tokens 8`` exit 0 on the card.
 
-Phases 0-4 and 7-24 plan and serve without a tuning artifact (the port's
+Phases 0-4 and 7-29 plan and serve without a tuning artifact (the port's
 tuning path points at a file that does not exist until phase 6 writes
 one), so their numbers compare with earlier runs'.  Each phase prints its
 seconds.
 
 Output, at the end: one JSON line describing the kernels (the zamba2,
 mixtral, deepseek and whisper shapes nested under the paged and SSD
-entries, and the cohort engine's ``ssd_scan`` launches and shapes under
-``cohort``), the
+entries, the cohort engine's ``ssd_scan`` launches and shapes under
+``cohort``, and the radix cache's warm launches under ``prefix``), the
 card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script fails before printing results.
@@ -470,6 +500,27 @@ def counters(mod, bodies) -> dict:
     return {p: getattr(mod, f"LAUNCHES_{p.upper()}") for p in bodies}
 
 
+#: Every launch counter a kernel module may have (``LAUNCHES`` their sum).
+COUNTERS = ("LAUNCHES", "LAUNCHES_SPLIT", "LAUNCHES_MLA", "LAUNCHES_TC",
+            "LAUNCHES_SIMT")
+
+
+def zero_counts(mods: dict) -> None:
+    """Set every launch counter of each module of ``mods`` to 0 (just
+    before a main path's run)."""
+    for mod in mods.values():
+        for name in COUNTERS:
+            if hasattr(mod, name):
+                setattr(mod, name, 0)
+
+
+def read_counts(mods: dict) -> dict:
+    """``{key: {counter: launches}}`` for each module of ``mods`` (just
+    after the run)."""
+    return {k: {n: getattr(mod, n) for n in COUNTERS if hasattr(mod, n)}
+            for k, mod in mods.items()}
+
+
 def body(mod, before, what) -> str:
     """The one body the calls since ``before`` (``counters``) ran."""
     moved = {p: getattr(mod, f"LAUNCHES_{p.upper()}") - before[p]
@@ -723,18 +774,12 @@ def serve_trace(cfg, mods: dict, warm_prompts,
     del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    names = ("LAUNCHES", "LAUNCHES_SPLIT", "LAUNCHES_MLA", "LAUNCHES_TC",
-             "LAUNCHES_SIMT")
-    for mod in mods.values():       # the main path's run starts here
-        for name in names:
-            if hasattr(mod, name):
-                setattr(mod, name, 0)
+    zero_counts(mods)               # the main path's run starts here
     t0 = time.perf_counter()
     outs = engine.generate(prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: {n: getattr(mod, n) for n in names if hasattr(mod, n)}
-                for k, mod in mods.items()}           # ... and ends here
+    launches = read_counts(mods)                      # ... and ends here
     m = engine.metrics
     steps, chunks = int(m["decode_steps"]), int(m["prefill_chunks"])
     events = engine.tracer.export_events()
@@ -2363,18 +2408,12 @@ def serve_cohort(cfg, prompts, max_new: int, mods: dict) -> dict:
     del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    names = ("LAUNCHES", "LAUNCHES_SPLIT", "LAUNCHES_MLA", "LAUNCHES_TC",
-             "LAUNCHES_SIMT")
-    for mod in mods.values():       # the main path's run starts here
-        for name in names:
-            if hasattr(mod, name):
-                setattr(mod, name, 0)
+    zero_counts(mods)               # the main path's run starts here
     t0 = time.perf_counter()
     outs = engine.generate(prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: {n: getattr(mod, n) for n in names if hasattr(mod, n)}
-                for k, mod in mods.items()}           # ... and ends here
+    launches = read_counts(mods)                      # ... and ends here
     peak = torch.cuda.max_memory_allocated() / 1e9
     m = engine.metrics
     events = engine.tracer.export_events()
@@ -2470,6 +2509,472 @@ def phase_cohort_serve(pa_mod, ssd_mod, zserve) -> dict:
             for k in ("wall_s", "decode_tok_s", "ttft_p50_s", "ttft_max_s",
                       "peak_mem_gb", "decode_steps", "tokens")}))
     return {"qwen2_vl": qwen, "zamba2": zamba}
+
+
+# ---------------------------------------------------------------------------
+# Phases 25-29: the radix prefix cache, page export/import, streaming and
+# the command lines
+# ---------------------------------------------------------------------------
+
+#: The five prefix families at phase 25's cut depth, float32: (arch,
+#: layers).  xlstm-1.3b's two blocks are one mLSTM and one sLSTM block
+#: (``parity_cfg``).
+PARITY_CUTS = ((ARCH, 4), (MIXTRAL, 2), (DEEPSEEK, 2), (ZAMBA, 8),
+               (XLSTM, 2))
+PARITY_NEW = 8
+#: Phases 26-27's system-prompt trace: call A is a seeded system prompt of
+#: ``SYSTEM_PROMPT`` tokens and a 24-token tail, 1 new token; call B is 8
+#: requests of the same system prompt and distinct seeded tails of
+#: ``SYSTEM_TAILS`` tokens (first token unlike call A's), ``PREFIX_NEW``
+#: new tokens each.
+SYSTEM_PROMPT = 1000
+SYSTEM_TAILS = (24, 56, 88, 120, 152, 184, 216, 248)
+PREFIX_NEW = 32
+#: Engine counters read as deltas over one call.
+CALL_KEYS = ("prefix_hits", "prefix_misses", "prefix_hit_tokens",
+             "pages_saved", "cow_copies", "prefill_tokens",
+             "prefill_chunks", "decode_steps", "tokens")
+
+
+def parity_cfg(arch: str, layers: int):
+    """``arch`` at full width cut to ``layers``; xLSTM's period shrinks to
+    the cut (one mLSTM and one sLSTM block at 2), so both state groups
+    run."""
+    from repro_torch.configs import get_model_config
+
+    cfg = get_model_config(arch)
+    if cfg.family == "xlstm":
+        return dataclasses.replace(cfg, n_layers=layers, xlstm=dataclasses
+                                   .replace(cfg.xlstm, slstm_every=layers))
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def expected_hit(shared: int, published: int, t: int, state: bool) -> tuple:
+    """``(hit tokens, CoW)`` of a request sharing ``shared`` tokens with a
+    published prompt of ``published`` tokens on ``t``-token pages: a state
+    family rounds down to the page; an attention family reuses all of it,
+    copying the page it ends in when that page was completed."""
+    full = (shared // t) * t
+    if state or shared == full:
+        return full, False
+    if published >= full + t:
+        return shared, True
+    return full, False
+
+
+def measured_call(engine, prompts, max_new, mods: dict,
+                  on_token=None) -> tuple:
+    """One ``generate`` call on the card: the launch counters of ``mods``
+    set to 0 just before and read just after, the engine's counters as
+    deltas, wall, TTFT and decode rate from this call's trace events, and
+    peak memory.  Returns ``(row, outputs)``."""
+    before = {k: int(engine.metrics[k]) for k in CALL_KEYS}
+    first = engine._next_rid
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=max_new,
+                           on_token=on_token)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    tids = set(range(first + 1, engine._next_rid + 1))
+    events = engine.tracer.export_events()
+    submit = {e["tid"]: e["ts"] for e in events
+              if e["name"] == "submit" and e["tid"] in tids}
+    start = min(submit.values())
+    ttft = sorted((e["ts"] - submit[e["tid"]]) / 1e6 for e in events
+                  if e["name"] == "first_token" and e["tid"] in tids)
+    ticks = [e for e in events
+             if e["name"] == "decode_tick" and e["ts"] >= start]
+    busy = sum(e["dur"] for e in ticks) / 1e6
+    row = {k: int(engine.metrics[k]) - before[k] for k in CALL_KEYS}
+    row.update({
+        "requests": len(prompts), "wall_s": wall,
+        "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
+        "decode_tok_s": (sum(e["args"]["active"] for e in ticks) / busy
+                         if busy else float("nan")),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "multi_token_chunks": sum(1 for e in engine.metrics["interleave"]
+                                  if e[0] == "chunk" and e[3] > 1),
+    })
+    return row, outs
+
+
+def prefix_parity(cfg, mods: dict) -> dict:
+    """``cfg`` in float32 on the card, seeded weights, one slot: for each
+    geometry a call A publishes a prompt, and a call B sends a request
+    sharing its first 2.5 pages (mid-page) or 2 pages (page boundary) to
+    the warm engine and to a cold one (same weights, the cache on but
+    holding nothing of B).  The warm call's prefix counters equal what the
+    CPU test expects and its greedy tokens equal the cold run's.  For the
+    state families (xLSTM's seeded sLSTM is chaotic) the slot's state rows
+    just after the restore equal the state the cold engine computed from
+    scratch at the hit boundary, and the slot's state after call B (the
+    restore, then the suffix and the decode) equals the cold run's, both
+    within ``SLICE_TOL``: a lost or misplaced restore fails even where the
+    tokens would not show it."""
+    from repro_torch.serve import ServeEngine, ServePolicy
+    from repro_torch.serve.pages import slot_rows
+    from repro_torch.serve.prefix import STATE_FAMILIES
+
+    pol = ServePolicy(batching="paged", max_slots=1, max_len=MAX_LEN,
+                      max_new_tokens=PARITY_NEW, prefix_cache="radix")
+    warm = ServeEngine(cfg, pol, dtype=torch.float32, seed=0, device=DEVICE)
+    cold = ServeEngine(cfg, pol, dtype=torch.float32, params=warm.params,
+                       device=DEVICE)
+    t = warm.page.page_tokens
+    state = cfg.family in STATE_FAMILIES
+    row = {"arch": cfg.arch, "layers": cfg.n_layers, "page_tokens": t}
+    restored = {}
+    apply = warm._apply_prefix_hit
+
+    def recording(cache, slot, hit):
+        cache = apply(cache, slot, hit)
+        restored.update({g: {k: slot_rows(buf, slot).float().cpu().clone()
+                             .numpy() for k, buf in cache["state"][g].items()}
+                         for g in hit.state or {}})
+        return cache
+
+    warm._apply_prefix_hit = recording
+    rng = np.random.default_rng(0)
+    for geometry in ("mid_page", "page_boundary"):
+        n = 2 * t + (t // 2 if geometry == "mid_page" else 0)
+        shared = rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+        tails = [rng.integers(0, cfg.vocab_size, t // 2 + 2, dtype=np.int32)
+                 for _ in range(2)]
+        tails[1][0] = (tails[0][0] + 1) % cfg.vocab_size
+        a, b = [np.concatenate([shared, x]) for x in tails]
+        warm.generate([a])                        # call A publishes
+        restored.clear()
+        got, out = measured_call(warm, [b], PARITY_NEW, mods)   # call B
+        want_row, want = measured_call(cold, [b], PARITY_NEW, {})
+        hit, cow = expected_hit(n, len(a), t, state)
+        expect = {"prefix_hits": 1, "prefix_hit_tokens": hit,
+                  "pages_saved": hit // t, "cow_copies": int(cow),
+                  "prefill_tokens": len(b) - hit}
+        assert want_row["prefix_hits"] == 0, "the cold engine hit"
+        match = float(np.mean(np.array(out[0]) == np.array(want[0])))
+        cell = {**{k: got[k] for k in expect}, "match": match,
+                "launches": got["launches"]}
+        if state:
+            # At the hit boundary: the rows the restore wrote against the
+            # cold engine's from-scratch snapshot of ``b`` there; after
+            # call B: the whole state against the cold run's.
+            at_hit = cold.export_pages(b)["snaps"][hit]
+            mine = warm._paged_session.cache["state"]
+            theirs = cold._paged_session.cache["state"]
+            assert set(restored) == set(at_hit), "no state was restored"
+            for name, pairs in (
+                    ("restore", [(f"{g}.{k}", restored[g][k], v)
+                                 for g, d in at_hit.items()
+                                 for k, v in d.items()]),
+                    ("after", [(f"{g}.{k}", mine[g][k].float().cpu().numpy(),
+                                v.float().cpu().numpy())
+                               for g, d in theirs.items()
+                               for k, v in d.items()])):
+                err = 0.0
+                for what, got_rows, ref_rows in pairs:
+                    err = max(err, float(np.abs(got_rows - ref_rows).max()))
+                    np.testing.assert_allclose(got_rows, ref_rows,
+                                               err_msg=f"{name} {what}",
+                                               **SLICE_TOL)
+                cell[f"state_{name}_max_abs_err"] = err
+        log(f"  {cfg.arch} ({cfg.n_layers} layers, page {t}) {geometry}: "
+            + json.dumps(cell))
+        assert {k: got[k] for k in expect} == expect, (got, expect)
+        assert out == want, "a prefix hit changed the greedy tokens"
+        row[geometry] = cell
+    return row
+
+
+def phase_prefix_parity(mods: dict, cfgs=None) -> dict:
+    """Phase 25: ``prefix_parity`` for each prefix family at its cut."""
+    out = {}
+    for cfg in cfgs or [parity_cfg(a, n) for a, n in PARITY_CUTS]:
+        free_card()
+        out[cfg.arch] = prefix_parity(cfg, mods)
+    return out
+
+
+def system_trace(cfg, seed: int = 0) -> tuple:
+    """``(call A's prompt, call B's prompts)`` of the system-prompt
+    trace."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab_size, SYSTEM_PROMPT, dtype=np.int32)
+    tail_a = rng.integers(0, cfg.vocab_size, 24, dtype=np.int32)
+    tails = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+             for n in SYSTEM_TAILS]
+    for tail in tails:
+        if tail[0] == tail_a[0]:
+            tail[0] = (tail[0] + 1) % cfg.vocab_size
+    return (np.concatenate([system, tail_a]),
+            [np.concatenate([system, tail]) for tail in tails])
+
+
+def phase_prefix_serve(cfg, mods: dict) -> dict:
+    """Phases 26-27: ``cfg`` at full width and depth, bf16, seeded
+    weights, ``MAX_SLOTS`` slots, ``MAX_LEN``, on the system-prompt trace.
+    A warm engine (radix cache) serves call A, then call B with
+    ``on_token``; a cold engine (cache off, same weights, warmed up on 8
+    short prompts) serves call B alone.  Warm beside cold: wall, TTFT,
+    decode rate, prefill tokens and chunks, the prefix counters, resident
+    bytes against ``plan.prefix_budget()``, peak memory, the share of
+    tokens that match, and launches by body; every paged launch ``split``
+    (one per attention layer and tick or chunk) and every SSD launch
+    ``tc`` (one per mixer and chunk of more than one token)."""
+    from repro_torch.serve import ServeEngine, ServePolicy
+    from repro_torch.serve.kvcache import attn_apps
+    from repro_torch.serve.prefix import STATE_FAMILIES
+
+    free_card()
+    pol = dict(batching="paged", max_slots=MAX_SLOTS, max_len=MAX_LEN,
+               max_new_tokens=PREFIX_NEW)
+    t0 = time.perf_counter()
+    warm = ServeEngine(cfg, ServePolicy(prefix_cache="radix", **pol),
+                       dtype=torch.bfloat16, seed=0, device=DEVICE)
+    cold = ServeEngine(cfg, ServePolicy(**pol), dtype=torch.bfloat16,
+                       params=warm.params, device=DEVICE)
+    rng = np.random.default_rng(1)
+    cold.generate([rng.integers(0, cfg.vocab_size, 16, dtype=np.int32)
+                   for _ in range(MAX_SLOTS)], max_new_tokens=2)
+    torch.cuda.synchronize()
+    log(f"  seeded weights and the cold engine's warm-up: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t = warm.page.page_tokens
+    state = cfg.family in STATE_FAMILIES
+    a, bs = system_trace(cfg)
+    hit, cow = expected_hit(SYSTEM_PROMPT, len(a), t, state)
+    row_a, _ = measured_call(warm, [a], 1, mods)
+    st = warm.stats()
+
+    def snapshot_bytes(stats) -> int:
+        return stats["prefix_resident_bytes"] - \
+            stats["prefix_pages"] * warm.page.page_bytes
+
+    after_a = {"nodes": st["prefix_nodes"], "pages": st["prefix_pages"],
+               "resident_bytes": st["prefix_resident_bytes"],
+               "snapshot_bytes": snapshot_bytes(st)}
+    cold_row, cold_outs = measured_call(cold, bs, PREFIX_NEW, mods)
+    streamed = []
+    warm_row, warm_outs = measured_call(
+        warm, bs, PREFIX_NEW, mods,
+        on_token=lambda i, tok: streamed.append((i, tok)))
+    st = warm.stats()
+    warm_row.update(resident_bytes=st["prefix_resident_bytes"],
+                    snapshot_bytes=snapshot_bytes(st),
+                    prefix_nodes=st["prefix_nodes"],
+                    prefix_pages=st["prefix_pages"])
+    budget = warm.plan.prefix_budget()
+    total = sum(len(o) for o in cold_outs)
+    match = sum(int(x == y) for o, p in zip(warm_outs, cold_outs)
+                for x, y in zip(o, p)) / total
+    row = {"arch": cfg.arch, "layers": cfg.n_layers, "page_tokens": t,
+           "expected_hit": hit, "cow": cow, "call_a": row_a,
+           "after_a": after_a, "prefix_budget": budget, "warm": warm_row,
+           "cold": cold_row, "match": match}
+    log(f"  {cfg.arch}: call A " + json.dumps(row_a))
+    log(f"  {cfg.arch}: tree after call A " + json.dumps(after_a))
+    keys = ("wall_s", "ttft_p50_s", "ttft_max_s", "decode_tok_s",
+            "prefill_tokens", "prefill_chunks", "decode_steps",
+            "prefix_hits", "prefix_hit_tokens", "pages_saved", "cow_copies",
+            "peak_mem_gb", "launches")
+    log(f"  {cfg.arch} call B, warm beside cold: " + json.dumps(
+        {k: {"warm": warm_row[k], "cold": cold_row[k]} for k in keys}))
+    log(f"  {cfg.arch}: resident {warm_row['resident_bytes']} B "
+        f"({warm_row['snapshot_bytes']} B of state snapshots) of the "
+        f"prefix budget {budget} B; {match:.4f} of call B's tokens match "
+        f"the cold run's")
+    # Streaming: every token of call B, in order, and no reset.
+    replay = [[] for _ in bs]
+    for i, tok in streamed:
+        assert tok is not None, "a stream reset without a preemption"
+        replay[i].append(tok)
+    assert replay == warm_outs, "on_token's stream differs from generate"
+    assert [len(o) for o in warm_outs] == [PREFIX_NEW] * len(bs)
+    assert all(0 <= tok < cfg.vocab_size for o in warm_outs for tok in o)
+    n = len(bs)
+    assert warm_row["prefix_hits"] == n, warm_row["prefix_hits"]
+    assert warm_row["prefix_hit_tokens"] == n * hit
+    assert warm_row["cow_copies"] == (n if cow else 0)
+    assert warm_row["prefill_tokens"] == sum(len(b) for b in bs) - n * hit
+    assert cold_row["prefill_tokens"] == sum(len(b) for b in bs)
+    assert warm_row["resident_bytes"] <= budget
+    apps = attn_apps(cfg) if cfg.family == "hybrid_ssm" else cfg.n_layers
+    for r in (warm_row, cold_row):
+        pa = r["launches"]["paged"]
+        assert pa["LAUNCHES"] > 0, "the main path never launched the kernel"
+        assert pa["LAUNCHES"] == pa["LAUNCHES_SPLIT"] == \
+            apps * (r["decode_steps"] + r["prefill_chunks"]), pa
+        if "ssd" in r["launches"]:
+            sd = r["launches"]["ssd"]
+            assert sd["LAUNCHES"] == sd["LAUNCHES_TC"] == \
+                cfg.n_layers * r["multi_token_chunks"] > 0, sd
+    return row
+
+
+#: Phase 30: the snapshot cap it sets, in snapshots, and its prompts.
+CAP_SNAPSHOTS = 24
+CAP_PROMPT = 64
+
+
+def phase_snapshot_cap(cfg, mods: dict) -> dict:
+    """Phase 30: zamba2-1.2b at full width and depth, bf16, seeded weights.
+    A probe engine reads the default snapshot cap (the KV budget less the
+    pool and the slots' state rows) and one snapshot's bytes; a second
+    engine on the same weights gets a KV budget that leaves room for
+    ``CAP_SNAPSHOTS`` snapshots, and its ``MAX_SLOTS`` slots prefill
+    distinct ``CAP_PROMPT``-token prompts together (8 page boundaries
+    each, 64 snapshots wanted).  The snapshots alive on the card (counted
+    by reference) never pass the cap, the tree fills to it, and the
+    tokens are in the vocabulary."""
+    import weakref
+
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    free_card()
+    pol = dict(batching="paged", max_slots=MAX_SLOTS, max_len=MAX_LEN,
+               max_new_tokens=2, prefix_cache="radix")
+    probe = ServeEngine(cfg, ServePolicy(**pol), dtype=torch.bfloat16,
+                        seed=0, device=DEVICE)
+    t = probe.page.page_tokens
+    rng = np.random.default_rng(2)
+    probe.generate([rng.integers(0, cfg.vocab_size, 2 * t + 1,
+                                 dtype=np.int32)])
+    sess = probe._paged_session
+    snap = sess.prefix.state_bytes // sess.prefix.n_nodes
+    default_cap = sess.prefix.state_budget_bytes
+    held = probe.budget_bytes - default_cap
+    key, params = sess.key, probe.params
+    del probe, sess
+    free_card()
+    eng = ServeEngine(cfg, ServePolicy(
+        kv_budget_bytes=held + CAP_SNAPSHOTS * snap, **pol),
+        dtype=torch.bfloat16, params=params, device=DEVICE)
+    live, peak = [], [0]
+    snapshot = eng._snapshot
+
+    def tracked(cache, slot, clone=True):
+        out = snapshot(cache, slot, clone)
+        if clone:
+            live[:] = [r for r in live if r() is not None]
+            live.append(weakref.ref(out["mamba"]["ssm"]))
+            peak[0] = max(peak[0], len(live))
+        return out
+
+    eng._snapshot = tracked
+    prompts = [rng.integers(0, cfg.vocab_size, CAP_PROMPT, dtype=np.int32)
+               for _ in range(MAX_SLOTS)]
+    got, outs = measured_call(eng, prompts, 2, mods)
+    prefix = eng._paged_session.prefix
+    cap = prefix.state_budget_bytes
+    row = {"arch": cfg.arch, "page_tokens": t, "snapshot_bytes": snap,
+           "default_cap_bytes": default_cap, "held_bytes": held,
+           "cap_bytes": cap, "peak_live_snapshots": peak[0],
+           "peak_state_bytes": prefix.peak_state_bytes,
+           "state_bytes": prefix.state_bytes,
+           "evicted_nodes": prefix.evicted_nodes,
+           "nodes": prefix.n_nodes, "wall_s": got["wall_s"],
+           "peak_mem_gb": got["peak_mem_gb"]}
+    log("  snapshot cap: " + json.dumps(row))
+    assert eng._paged_session.key == key, "the cap changed the pool"
+    assert CAP_SNAPSHOTS * snap <= cap < (CAP_SNAPSHOTS + 1) * snap
+    assert 0 < peak[0] * snap <= cap, (peak[0], cap)
+    assert prefix.peak_state_bytes <= cap
+    assert cap - snap < prefix.state_bytes <= cap, "the tree did not fill"
+    assert all(len(o) == 2 and all(0 <= x < cfg.vocab_size for x in o)
+               for o in outs)
+    assert got["launches"]["ssd"]["LAUNCHES"] == \
+        got["launches"]["ssd"]["LAUNCHES_TC"] > 0
+    return row
+
+
+def phase_export_import(cfg=None) -> dict:
+    """Phase 28: ``export_pages`` from one engine (llama3.2-1b at full
+    width cut to 4 layers, float32, radix cache) after it served call A of
+    the system-prompt trace, ``import_pages`` into a second engine on the
+    same weights; the second engine's next request (call B's first) hits
+    the whole page-aligned prefix, and its greedy tokens equal the first
+    engine's."""
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    free_card()
+    cfg = cfg or parity_cfg(ARCH, 4)
+    pol = ServePolicy(batching="paged", max_slots=1, max_len=MAX_LEN,
+                      max_new_tokens=PARITY_NEW, prefix_cache="radix")
+    src = ServeEngine(cfg, pol, dtype=torch.float32, seed=0, device=DEVICE)
+    dst = ServeEngine(cfg, pol, dtype=torch.float32, params=src.params,
+                      device=DEVICE)
+    t = src.page.page_tokens
+    a, bs = system_trace(cfg)
+    b = bs[0]
+    src.generate([a], max_new_tokens=1)
+    t0 = time.perf_counter()
+    payload = src.export_pages(b)
+    export_s = time.perf_counter() - t0
+    covered = (SYSTEM_PROMPT // t) * t
+    nbytes = sum(arr.nbytes for page in payload["pages"]
+                 for arr in page.values())
+    t0 = time.perf_counter()
+    got = dst.import_pages(payload["tokens"], payload["pages"],
+                           payload["snaps"])
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    out = dst.generate([b])
+    m = dst.metrics
+    row = {"arch": cfg.arch, "layers": cfg.n_layers, "page_tokens": t,
+           "pages": len(payload["pages"]), "bytes": nbytes,
+           "export_s": export_s, "import_s": import_s, "covered": got,
+           "hits": int(m["prefix_hits"]),
+           "hit_tokens": int(m["prefix_hit_tokens"]),
+           "prefill_tokens": int(m["prefill_tokens"])}
+    log("  export/import: " + json.dumps(row))
+    assert got == covered == len(payload["tokens"])
+    assert (row["hits"], row["hit_tokens"]) == (1, covered)
+    assert row["prefill_tokens"] == len(b) - covered
+    assert out == src.generate([b]), "imported pages changed the tokens"
+    return row
+
+
+def phase_clis() -> dict:
+    """Phase 29: ``python -m repro_torch.obs.cli report`` on the card exits
+    0 with its ``pool_pages`` row inside the band, and ``python -m
+    repro_torch.launch.serve --arch llama3.2-1b --prefix radix --tokens
+    8`` exits 0 (each a process of its own; the kernels are already
+    built)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    row = {}
+    for name, args in (
+            ("report", ["repro_torch.obs.cli", "report"]),
+            ("serve", ["repro_torch.launch.serve", "--arch", ARCH,
+                       "--prefix", "radix", "--tokens", "8"])):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        row[name] = {"rc": out.returncode,
+                     "s": time.perf_counter() - t0}
+        log(f"  python -m {' '.join(args)}: rc {out.returncode}, "
+            f"{row[name]['s']:.1f} s")
+        for line in out.stdout.splitlines():
+            log(f"    {line}")
+        assert out.returncode == 0, out.stderr[-2000:]
+        if name == "report":
+            pool = [ln for ln in out.stdout.splitlines()
+                    if " pool_pages " in ln]
+            assert len(pool) == 1 and "outside band" not in pool[0], pool
+            assert "on cuda" in out.stdout
+            # The shared prefix spans a page: the HBM prefix row observes
+            # the tree's bytes.
+            held = [ln for ln in out.stdout.splitlines()
+                    if " hbm_prefix_leftover " in ln]
+            assert len(held) == 1 and int(held[0].split()[4]) > 0, held
+            row[name]["prefix_observed_bytes"] = int(held[0].split()[4])
+        else:
+            assert "[serve] prefix: hits=" in out.stdout
+    return row
 
 
 def qwen_cfg():
@@ -2602,6 +3107,7 @@ def main() -> int:
         f"{plan.page_plan()['source']})")
     kern = serve = tk = tune = zk = zserve = mk = mserve = xserve = None
     dk = dserve = wk = wserve = qslice = ab = cssd = cserve = None
+    pparity = pllama = pzamba = pexport = pcli = pcap = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -2700,9 +3206,31 @@ def main() -> int:
             "and zamba2-1.2b")
         cserve = phase("phase 24 cohort serve", phase_cohort_serve, pa_mod,
                        ssd_mod, zserve)
+        log("[25] the radix prefix cache on the card, float32 at cut depth: "
+            "llama3.2-1b (4 layers), mixtral-8x7b (2), deepseek-v2-236b "
+            "(2), zamba2-1.2b (8 mixers), xlstm-1.3b (2 blocks)")
+        pparity = phase("phase 25 prefix parity", phase_prefix_parity,
+                        {"paged": pa_mod, "ssd": ssd_mod})
+        log("[26] the system-prompt trace on full-width llama3.2-1b, bf16: "
+            "the radix cache warm beside a cold engine")
+        pllama = phase("phase 26 llama prefix serve", phase_prefix_serve,
+                       get_cfg(), {"paged": pa_mod})
+        log("[27] the system-prompt trace on full-width zamba2-1.2b, bf16")
+        pzamba = phase("phase 27 zamba2 prefix serve", phase_prefix_serve,
+                       zamba_cfg(), {"paged": pa_mod, "ssd": ssd_mod})
+        log("[28] export_pages / import_pages between two llama3.2-1b "
+            "engines (4 layers, float32)")
+        pexport = phase("phase 28 export import", phase_export_import)
+        log("[29] the command lines on the card")
+        pcli = phase("phase 29 command lines", phase_clis)
+        log("[30] zamba2-1.2b's state snapshots under a cap of "
+            f"{CAP_SNAPSHOTS}, {MAX_SLOTS} long prefills together, bf16")
+        pcap = phase("phase 30 snapshot cap", phase_snapshot_cap,
+                     zamba_cfg(), {"paged": pa_mod, "ssd": ssd_mod})
     if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
                           xserve, dk, dserve, wk, wserve, qslice, ab, cssd,
-                          cserve):
+                          cserve, pparity, pllama, pzamba, pexport, pcli,
+                          pcap):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -2794,6 +3322,21 @@ def main() -> int:
         "max_abs_err": max(row["max_abs_err"] for row in cssd.values()),
         **{name: {k: row[k] for k in keys + ("chunk",)}
            for name, row in cssd.items()}}
+    # The radix cache's warm call B (phases 26-27): paged launches by body
+    # on llama and zamba2, zamba2's SSD launches.
+    kernels[0]["prefix"] = {
+        name: row["warm"]["launches"]["paged"]
+        for name, row in (("llama", pllama), ("zamba2", pzamba))}
+    ssd["prefix"] = {"zamba2": pzamba["warm"]["launches"]["ssd"]}
+    # Phases 26-27's warm and cold figures, then phase 24's, at the end of
+    # the output, where the profiler tables above do not push them out.
+    log("prefix serving: " + json.dumps({
+        name: {side: {k: row[side][k] for k in (
+            "wall_s", "ttft_p50_s", "ttft_max_s", "decode_tok_s",
+            "prefill_tokens", "prefill_chunks", "prefix_hits",
+            "prefix_hit_tokens", "cow_copies", "peak_mem_gb")}
+            for side in ("warm", "cold")}
+        for name, row in (("llama", pllama), ("zamba2", pzamba))}))
     # Phase 24's figures again at the end of the output, where the
     # profiler tables above do not push them out of a short tail.
     log("cohort serving: " + json.dumps({

@@ -7,6 +7,7 @@ from repro_torch.configs.base import (
     XLSTMConfig,
     get_model_config,
     list_archs,
+    parse_cli,
     register,
 )
 

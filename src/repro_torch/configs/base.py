@@ -1,5 +1,5 @@
 """Typed model configuration (a copy of ``repro.configs.base``, trimmed to
-``ModelConfig`` and the arch registry).
+``ModelConfig``, the arch registry and the launchers' ``parse_cli``).
 
 Pure dataclasses.  The JAX package additionally overrides ``overhead`` from a
 calibration artifact measured on TPU meshes; that number says nothing about
@@ -9,7 +9,7 @@ an H100, so the port keeps each arch's registered value.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -255,3 +255,30 @@ def get_model_config(arch_id: str) -> ModelConfig:
 def _ensure_loaded() -> None:
     # Import the arch modules lazily to avoid import cycles.
     from repro_torch.configs import archs  # noqa: F401
+
+
+# ---------------------------------------------------------------------------
+# Command line
+# ---------------------------------------------------------------------------
+
+
+def parse_cli(argv: List[str]) -> Tuple[Dict[str, str], List[str]]:
+    """Split ``--key value`` (or ``--key=value``) pairs from positional
+    args."""
+    overrides: Dict[str, str] = {}
+    rest: List[str] = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a.startswith("--"):
+            if "=" in a:
+                k, v = a[2:].split("=", 1)
+                overrides[k] = v
+                i += 1
+            else:
+                overrides[a[2:]] = argv[i + 1]
+                i += 2
+        else:
+            rest.append(a)
+            i += 1
+    return overrides, rest

@@ -24,9 +24,12 @@ thousands of tokens.  On Hopper a kernel block stages its tiles in shared
 memory, so ``SMEM`` is the tile level of a matmul workload and the page
 level of a decode workload (as ``VMEM`` is both in the reference), and
 ``NVLINK`` the mesh level.  Both SMEM searches consult the port's tuning
-artifact (``tune.cache``) with precedence analytic < tuned.  The
-host-cache and DCN paths of the reference, ``to_json``/``describe`` and
-the ``strategy``/``max_np``/``tcl`` policy knobs wait for later slices.
+artifact (``tune.cache``) with precedence analytic < tuned.  The page
+level also records the prefix cache's budget (``prefix_budget()``), and a
+plan round-trips through JSON (``to_json``/``from_json``).  The
+host-cache and DCN paths of the reference (``replicas()``), ``describe``
+and the ``strategy``/``max_np``/``tcl`` policy knobs wait for later
+slices.
 
 On Hopper the planned page is the pool's allocation granule and the
 prefill chunk, and nothing more: ``phi_page`` prices two buffered pages of
@@ -38,6 +41,7 @@ its shared-memory use is set by the tile and ``G x D``, not by the page.
 
 from __future__ import annotations
 
+import json
 import math
 from dataclasses import dataclass, field
 from functools import lru_cache
@@ -153,9 +157,14 @@ class LevelPlan:
     detail: Mapping[str, Any] = field(default_factory=dict)
 
 
+_LEVEL_FIELDS = ("level", "kind", "phi", "budget_bytes", "granule_bytes",
+                 "n_workers", "extent", "np_raw", "np", "partition_bytes",
+                 "fits")
+
+
 @dataclass(frozen=True)
 class HierarchicalPlan:
-    """Tree of per-level sub-plans (outermost level first)."""
+    """Serializable tree of per-level sub-plans (outermost level first)."""
 
     plan: LevelPlan
     child: Optional["HierarchicalPlan"] = None
@@ -195,13 +204,34 @@ class HierarchicalPlan:
 
     def page_table(self) -> Optional[Mapping[str, Any]]:
         """The pool geometry ``{"pages_per_slot", "pages_total",
-        "slots_bound"}`` (None if no page level): ``pages_total`` is how
-        many logical pages the innermost mesh level's HBM leftover holds
-        after the replicated reserve."""
+        "slots_bound", "prefix_budget_bytes"}`` (None if no page level):
+        ``pages_total`` is how many logical pages the innermost mesh
+        level's HBM leftover holds after the replicated reserve."""
         for lp in self.levels():
             if lp.kind == "page":
                 return lp.detail.get("page_table")
         return None
+
+    def prefix_budget(self) -> Optional[int]:
+        """The mesh-level HBM leftover, in the scheduler's logical bytes
+        (global per-token KV x tokens), that the cross-request prefix
+        cache may keep resident (None if no page level; see
+        ``serve/prefix.py``).  Recorded by the page level as
+        ``detail["page_table"]["prefix_budget_bytes"]``.  ``from_dict``
+        also reads plans the JAX package serialized (the same schema), and
+        those written before the field existed fall back to the equivalent
+        ``pages_total`` x global page bytes product."""
+        ptab = self.page_table()
+        if ptab is None:
+            return None
+        if "prefix_budget_bytes" in ptab:
+            return int(ptab["prefix_budget_bytes"])
+        page = self.page_plan() or {}
+        global_page = (int(page.get("page_tokens", 0))
+                       * int(page.get("tok_bytes", 0))
+                       * int(page.get("layers", 1))
+                       * int(page.get("kv_shard", 1)))
+        return int(ptab.get("pages_total", 0)) * global_page
 
     def chunk_tokens(self) -> Optional[int]:
         """The prefill chunk length: the page level's ``page_tokens``."""
@@ -215,6 +245,29 @@ class HierarchicalPlan:
             if lp.kind == "mesh" and "kv_shard" in lp.detail:
                 shard = int(lp.detail["kv_shard"])
         return shard
+
+    # ------------------------------------------------------------------ JSON
+    def to_dict(self) -> dict:
+        d: Dict[str, Any] = {f: getattr(self.plan, f) for f in _LEVEL_FIELDS}
+        d["detail"] = dict(self.plan.detail)
+        d["child"] = self.child.to_dict() if self.child is not None else None
+        return d
+
+    def to_json(self, **kw) -> str:
+        return json.dumps(self.to_dict(), **kw)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "HierarchicalPlan":
+        kw = {f: d[f] for f in _LEVEL_FIELDS}
+        child = d.get("child")
+        return cls(
+            plan=LevelPlan(detail=dict(d.get("detail") or {}), **kw),
+            child=cls.from_dict(child) if child else None,
+        )
+
+    @classmethod
+    def from_json(cls, s: str) -> "HierarchicalPlan":
+        return cls.from_dict(json.loads(s))
 
 
 def quantize_divisor(np_raw: int, extent: int, multiple_of: int = 1) -> int:
@@ -424,6 +477,12 @@ def _plan_page_level(level: MemoryLevel, workload: Workload,
             "pages_per_slot": n_pages,
             "pages_total": int(pages_total),
             "slots_bound": int(pages_total // n_pages) if pages_total else 0,
+            # The mesh-level HBM leftover in logical bytes (global token
+            # bytes, like the scheduler's budget): what the prefix cache
+            # (serve/prefix.py) may keep resident across requests.
+            "prefix_budget_bytes": int(
+                per_card_free * max(1, kv_shard)) if mesh_budget_bytes
+            else 0,
         }, **({"tuning": tuning} if tuning is not None else {})},
     )
 

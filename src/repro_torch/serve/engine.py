@@ -17,7 +17,12 @@ Two batching engines share the plan (``ServePolicy.batching``):
     a new request mid-flight.  Prefill is CHUNKED: a prompt is cut into
     page-sized chunks written straight into the slot's pool pages and
     interleaved with decode ticks (``prefill="monolithic"`` runs one
-    whole-prompt chunk instead).  A sliding-window family (Mixtral) frees
+    whole-prompt chunk instead).  ``prefix_cache="radix"`` keeps finished
+    prompt pages (and, for recurrent families, page-boundary state
+    snapshots on the card) in a refcounted radix tree (``serve.prefix``)
+    that persists across ``generate`` calls, so a request sharing a cached
+    prefix prefills only its suffix; ``export_pages``/``import_pages``
+    move cached pages between engines.  A sliding-window family (Mixtral) frees
     the pages wholly below ``pos - window``; a token-free family (xLSTM)
     holds no pages and chunks its prompts at
     ``kvcache.DEFAULT_PAGE_TOKENS``.  An enc-dec request (Whisper) has its
@@ -40,8 +45,8 @@ Prompts are token-id sequences, or dicts: an enc-dec request ``{"enc_embeds":
 (Se, d) frames, "tokens": decoder prompt}``, a vlm request ``{"embeds": (S,
 d) patch and text embeddings, "positions_3d": (3, S) M-RoPE positions}``
 (or ``{"tokens": ...}``; the positions then default to ``arange`` on all
-three streams).  ``prefix_cache="radix"`` waits for a later slice and
-raises ``NotImplementedError``.
+three streams).  ``generate(on_token=)`` streams each token as it is
+sampled (both engines).
 """
 
 from __future__ import annotations
@@ -74,10 +79,20 @@ from repro_torch.serve.pages import (
     STATE_GROUPS,
     PagePool,
     PagedScheduler,
+    export_pool_pages,
+    host_array,
     init_paged_cache,
+    install_pool_pages,
     reset_slot,
     set_slot_rows,
     slot_rows,
+)
+from repro_torch.serve.prefix import (
+    PREFIX_FAMILIES,
+    STATE_FAMILIES,
+    PrefixHit,
+    RadixPrefixCache,
+    _state_nbytes,
 )
 from repro_torch.serve.sampling import SamplingConfig, make_generator, sample
 from repro_torch.serve.scheduler import Request, ServeScheduler
@@ -150,7 +165,11 @@ class ServePolicy:
     ``prefill``: "chunked" cuts prompts into planned-page-sized chunks
     interleaved with decode ticks; "monolithic" runs one whole-prompt
     chunk (identical tokens, no interleave); cohort batching ignores it.
-    ``prefix_cache``: only "off" is ported.
+    ``prefix_cache``: "radix" keeps finished prompt pages resident in a
+    refcounted radix tree (budgeted by ``plan.prefix_budget()``) so a
+    request sharing a cached prefix prefills only its unshared suffix;
+    "off" disables it.  Families without exact cross-request KV reuse
+    (enc-dec, vlm) and cohort batching ignore it.
     """
 
     max_new_tokens: int = 16
@@ -173,6 +192,20 @@ class ServePolicy:
         if self.prefix_cache not in ("off", "radix"):
             raise ValueError(f"unknown prefix_cache {self.prefix_cache!r}; "
                              f"one of ('off', 'radix')")
+
+
+@dataclass
+class _PagedSession:
+    """Device state the paged engine keeps alive between ``generate``
+    calls when the prefix cache is on: the pool's refcounts, the pooled
+    cache buffers (they hold the cached prefixes' KV) and the radix tree.
+    Rebuilt whenever the pool geometry changes (the cached pages would not
+    survive a reshape)."""
+
+    key: Any
+    pool: PagePool
+    cache: PyTree
+    prefix: RadixPrefixCache
 
 
 @dataclass
@@ -215,10 +248,6 @@ class ServeEngine:
         device=None,
     ):
         self.device = resolve_device(device)
-        if policy.prefix_cache != "off":
-            raise NotImplementedError(
-                "repro_torch has no prefix cache yet; use "
-                "ServePolicy(prefix_cache='off')")
         self.cfg = cfg
         self.policy = policy
         self.dtype = dtype if dtype is not None else torch.float32
@@ -250,6 +279,9 @@ class ServeEngine:
             self.budget_bytes, self.page, max_slots=policy.max_slots)
         self._live_pool: Optional[PagePool] = None
         self._live_sched: Optional[PagedScheduler] = None
+        self._paged_session: Optional[_PagedSession] = None
+        self._stream_cb = None          # per-call on_token callback
+        self._stream_ix: Dict[int, int] = {}    # rid -> index in this call
         self._next_rid = 0
         self._t_submit: Dict[int, float] = {}   # rid -> submit monotonic s
         # The metrics spine: one typed Registry and one Tracer per engine.
@@ -296,9 +328,10 @@ class ServeEngine:
 
     # -------------------------------------------------------------- telemetry
     def stats(self) -> Dict[str, Any]:
-        """One telemetry dict: pool, slots, tokens (live pool when a
-        generate call is running, else the last run's geometry, else the
-        plan's ``page_table``)."""
+        """One telemetry dict: pool, slots, tokens and the prefix tree
+        (the live pool when one exists -- mid-generate, or a persistent
+        radix session holding cached prefixes -- else the last run's
+        geometry, else the plan's ``page_table``)."""
         ptab = dict(self.plan.page_table() or {})
         pages_total = int(self.metrics.get("pages_total")
                           or ptab.get("pages_total") or 0)
@@ -312,7 +345,7 @@ class ServeEngine:
             used_pages = int(self.obs.value("used_pages", pool.used_pages))
         if self._live_sched is not None:
             slots_free = max(0, slots_total - len(self._live_sched.active()))
-        return {
+        out = {
             "batching": self.batching,
             "free_pages": int(free_pages),
             "used_pages": int(used_pages),
@@ -325,7 +358,33 @@ class ServeEngine:
             "tokens": int(self.metrics.get("tokens", 0)),
             "decode_steps": int(self.metrics.get("decode_steps", 0)),
             "prefill_chunks": int(self.metrics.get("prefill_chunks", 0)),
+            "prefix_nodes": 0,
+            "prefix_pages": 0,
+            "prefix_resident_bytes": 0,
+            "prefix_state_bytes": 0,
+            "prefix_state_budget_bytes": None,
         }
+        sess = self._paged_session
+        if sess is not None:
+            out["prefix_nodes"] = sess.prefix.n_nodes
+            out["prefix_pages"] = sess.prefix.n_pages
+            out["prefix_resident_bytes"] = sess.prefix.resident_bytes
+            out["prefix_state_bytes"] = sess.prefix.state_bytes
+            out["prefix_state_budget_bytes"] = \
+                sess.prefix.state_budget_bytes
+        return out
+
+    # -------------------------------------------------------- token streaming
+    def _notify(self, rid: int, tok: Optional[int]) -> None:
+        """Forward one delivered token (or a ``None`` stream reset after a
+        recompute preemption: earlier tokens will re-emit) to the caller's
+        ``on_token(index_in_call, token)`` callback."""
+        cb = self._stream_cb
+        if cb is None:
+            return
+        ix = self._stream_ix.get(rid)
+        if ix is not None:
+            cb(ix, tok)
 
     # --------------------------------------------------------------- requests
     @staticmethod
@@ -377,11 +436,19 @@ class ServeEngine:
         prompts: Sequence[Any],
         max_new_tokens=None,
         sampling: Optional[SamplingConfig] = None,
+        on_token=None,
     ) -> List[List[int]]:
         """Serve ``prompts`` (token-id sequences, or the family's dict
         prompts: see the module docstring), returning each request's
         generated token ids in submission order.  ``max_new_tokens`` is
-        one int for all requests or a per-request sequence."""
+        one int for all requests or a per-request sequence.
+
+        ``on_token(i, tok)`` streams each delivered token as it is sampled
+        (``i``: the request's index in this call); the tokens are host
+        ints already, so streaming adds no wait on the card.  A recompute
+        preemption invalidates a request's streamed tokens: the callback
+        receives ``on_token(i, None)`` and the tokens re-emit from
+        scratch."""
         scfg = sampling or self.policy.sampling
         max_new = (max_new_tokens if max_new_tokens is not None
                    else self.policy.max_new_tokens)
@@ -393,9 +460,14 @@ class ServeEngine:
                 f"entries, got {len(max_new)}")
         if not prompts:
             return []
-        if self.batching == "paged":
-            return self._generate_paged(prompts, max_new, scfg)
-        return self._generate_cohort(prompts, max_new, scfg)
+        self._stream_cb = on_token
+        try:
+            if self.batching == "paged":
+                return self._generate_paged(prompts, max_new, scfg)
+            return self._generate_cohort(prompts, max_new, scfg)
+        finally:
+            self._stream_cb = None
+            self._stream_ix = {}
 
     def _finalize_utilization(self) -> None:
         steps = self.metrics["slot_steps"]
@@ -479,6 +551,7 @@ class ServeEngine:
                                     args={"rid": r.rid})
                 self.obs.observe(
                     "ttft_s", now - self._t_submit.get(r.rid, now))
+            self._notify(r.rid, t)
             self.metrics["tokens"] += 1
             if len(outputs[r.rid]) >= r.max_new or \
                     (scfg.eos_id is not None and t == scfg.eos_id):
@@ -527,6 +600,7 @@ class ServeEngine:
                     args={"rid": r.rid, "cohort": victim,
                           "tokens_lost": len(outputs[r.rid])})
                 outputs[r.rid] = []
+                self._notify(r.rid, None)
             del runs[victim]
             self.metrics["evictions"] += 1
         run.cache = grow_cache(self.cfg, run.cache, needed)
@@ -567,6 +641,7 @@ class ServeEngine:
         tick, and the resident KV footprint stays inside the planned
         budget throughout (checked every tick)."""
         reqs = [self._make_request(p, n) for p, n in zip(prompts, max_new)]
+        self._stream_ix = {r.rid: i for i, r in enumerate(reqs)}
         for r in reqs:
             self.scheduler.submit(r)
             self._t_submit[r.rid] = time.monotonic()
@@ -605,16 +680,33 @@ class ServeEngine:
         return [outputs[r.rid] for r in reqs]
 
     # ------------------------------------------------------- paged batching
+    def _prefix_on(self) -> bool:
+        """Whether the paged engine runs the radix prefix cache: asked for,
+        and the family's prefix KV is exactly reusable across requests
+        (``serve.prefix.PREFIX_FAMILIES``)."""
+        return (self.policy.prefix_cache == "radix"
+                and self.cfg.family in PREFIX_FAMILIES)
+
     def _paged_slots(self, reqs: List[Request]) -> int:
-        """Decode-batch width: ``max_slots`` capped at the trace."""
+        """Decode-batch width: ``max_slots`` capped at the trace.  With the
+        prefix cache on, ``max_slots`` whatever the call's size: the
+        session (and the prefixes it caches) is keyed by the geometry, so
+        a call of one request and a later call of eight share it.  (The
+        reference caps it at the trace there too, and rebuilds its session
+        -- dropping the tree -- when the request count changes.)"""
+        if self._prefix_on():
+            return max(1, self.policy.max_slots)
         return max(1, min(self.policy.max_slots, len(reqs)))
 
     def _paged_geometry(self, reqs: List[Request], n_slots: int):
         """Pool geometry from the plan: the table width is the plan's
         per-slot page bound, stretched to the longest submitted request;
         the physical pool is the KV budget in pages, capped at what the
-        slots can ever pin (plus the null page).  A token-free family
-        (xLSTM) gets a one-page table and the null page plus one."""
+        slots can ever pin (plus the null page).  With the prefix cache on,
+        the cap doubles (still inside the budget): cached prefixes occupy
+        pool pages beside the live slots' working set, up to
+        ``plan.prefix_budget()``.  A token-free family (xLSTM) gets a
+        one-page table and the null page plus one."""
         page = self.page
         if page.page_bytes <= 0:
             return 1, 2
@@ -623,8 +715,145 @@ class ServeEngine:
                    for r in reqs)
         pages_per_slot = max(int(ptab.get("pages_per_slot") or 1), need)
         budget_pages = max(1, self.budget_bytes // page.page_bytes)
-        pages_total = 1 + min(budget_pages, n_slots * pages_per_slot)
+        slot_pages = n_slots * pages_per_slot
+        extra = 0
+        if self._prefix_on():
+            extra = min((self.plan.prefix_budget() or 0) // page.page_bytes,
+                        slot_pages)
+        pages_total = 1 + min(budget_pages, slot_pages + extra)
         return pages_per_slot, pages_total
+
+    def _ensure_paged_session(self, n_slots: int, pages_per_slot: int,
+                              pages_total: int) -> _PagedSession:
+        """The persistent radix session (pool + pooled cache + tree) for
+        this geometry, created or rebuilt on a geometry change (the import
+        path materializes it before any generate call)."""
+        key = (n_slots, pages_per_slot, pages_total)
+        sess = self._paged_session
+        if sess is not None and sess.key == key:
+            return sess
+        self._paged_session = None      # let the old buffers go first
+        pool = PagePool(pages_total, obs=self.obs, tracer=self.tracer)
+        cache = init_paged_cache(self.cfg, n_slots, pages_total,
+                                 self.page.page_tokens, pages_per_slot,
+                                 self.dtype, self.device)
+        budget = self.plan.prefix_budget()
+        if not budget:                    # no page level (xLSTM)
+            budget = self.budget_bytes
+        # Pages live in the pool; snapshots are allocations of their own
+        # on the card.  They share the KV budget with the pool (the rest
+        # of the post-weights HBM is the activations' headroom), so their
+        # cap is that budget less what the pool and the slots' state rows
+        # already hold.
+        has_state = self.cfg.family in STATE_FAMILIES
+        held = _state_nbytes({"pool": cache["pool"],
+                              "state": cache["state"]})
+        prefix = RadixPrefixCache(
+            self.page.page_tokens, max(0, self.page.page_bytes), budget,
+            pool, has_state=has_state, obs=self.obs, tracer=self.tracer,
+            state_budget_bytes=max(0, self.budget_bytes - held)
+            if has_state else None)
+        self._paged_session = _PagedSession(key, pool, cache, prefix)
+        return self._paged_session
+
+    def _snapshot(self, cache: PyTree, slot: int, clone: bool = True
+                  ) -> Dict[str, Any]:
+        """One slot's recurrent state (the family's ``STATE_GROUPS``) as
+        clones on the card: ``{group: {name: rows}}`` (views of the rows
+        with ``clone=False``, to size a snapshot)."""
+        return {g: {k: slot_rows(buf, slot).clone() if clone
+                    else slot_rows(buf, slot)
+                    for k, buf in cache["state"][g].items()}
+                for g in STATE_GROUPS.get(self.cfg.family, ())}
+
+    @staticmethod
+    def _apply_prefix_hit(cache: PyTree, slot: int, hit: PrefixHit
+                          ) -> PyTree:
+        """Realize a ``PrefixHit`` on the cache, in place, queued on the
+        current stream before the suffix's first chunk: copy the CoW
+        source page into the slot's private copy (every pool buffer, the
+        only page-sized copy of the hit path) and restore the state
+        snapshot into the slot's state rows.  Shared full pages need no
+        device work: the slot's page table already points at them."""
+        if hit.cow is not None:
+            src, dst = hit.cow
+            for buf in cache["pool"].values():
+                buf[:, dst].copy_(buf[:, src])
+        for g, rows in (hit.state or {}).items():
+            for k, value in rows.items():
+                set_slot_rows(cache["state"][g][k], slot, value)
+        return cache
+
+    # --------------------------------------------------- page export/import
+    def export_pages(self, tokens) -> Optional[Dict[str, Any]]:
+        """Serialize the radix-cached KV pages covering ``tokens``' leading
+        page-aligned blocks (run ``generate`` first so the prompt's pages
+        are published to the tree).  Returns ``{"tokens", "page_tokens",
+        "pages", "snaps"}``: ``pages`` a list of per-page ``{buffer:
+        np.ndarray}`` dicts in logical order, ``snaps`` the state snapshots
+        by page-boundary token count as ``{group: {name: np.ndarray}}``.
+        None when nothing is cached (prefix cache off, family not
+        prefix-cacheable, or a cold tree)."""
+        sess = self._paged_session
+        if sess is None:
+            return None
+        toks = np.asarray(tokens, dtype=np.int32).reshape(-1)
+        covered, pids, snaps = sess.prefix.match(toks)
+        if covered <= 0:
+            return None
+        return {
+            "tokens": toks[:covered].tolist(),
+            "page_tokens": int(self.page.page_tokens),
+            "pages": export_pool_pages(sess.cache, pids),
+            "snaps": {n: {g: {k: host_array(v) for k, v in rows.items()}
+                          for g, rows in snap.items()}
+                      for n, snap in snaps.items()},
+        }
+
+    def import_pages(self, tokens, payloads, snaps=None) -> int:
+        """Install serialized KV pages into this engine's pool and radix
+        tree: allocate local pages, write the payload buffers, publish the
+        chain so the next ``generate`` sharing the prefix starts at its
+        end.  Returns the number of prompt tokens now resident.
+
+        Requires ``ServePolicy(prefix_cache="radix")``, a prefix-cacheable
+        family, and ``policy.max_len`` bounding every later request (a
+        geometry change rebuilds the session and drops imported pages)."""
+        if not (self.batching == "paged" and self._prefix_on()):
+            raise ValueError("import_pages needs paged batching, "
+                             "ServePolicy(prefix_cache='radix') and a "
+                             "prefix-cacheable family")
+        toks = np.asarray(tokens, dtype=np.int32).reshape(-1)
+        req = self._make_request(toks, self.policy.max_new_tokens,
+                                 paged=True)
+        self._next_rid -= 1               # synthetic request: no rid burn
+        n_slots = self._paged_slots([req])
+        pages_per_slot, pages_total = self._paged_geometry([req], n_slots)
+        sess = self._ensure_paged_session(n_slots, pages_per_slot,
+                                          pages_total)
+        pool, prefix = sess.pool, sess.prefix
+        n = len(payloads)
+        if n == 0:
+            return 0
+        pids = pool.alloc(n)
+        if pids is None:
+            prefix.release_pages(need=n)
+            pids = pool.alloc(n)
+        if pids is None:
+            raise RuntimeError(
+                f"page pool ({pool.pages_total - 1} pages) cannot hold a "
+                f"{n}-page import; raise kv_budget_bytes")
+        install_pool_pages(sess.cache, pids, payloads)
+        state = sess.cache["state"]
+        on_card = {int(n_tok): {g: {k: torch.as_tensor(np.asarray(v)).to(
+            state[g][k].device, state[g][k].dtype)
+            for k, v in rows.items()} for g, rows in snap.items()}
+            for n_tok, snap in (snaps or {}).items()}
+        prefix.insert(toks, list(pids), snaps=on_card)
+        # The tree now holds one reference per inserted page; drop ours
+        # (uninserted tail pages -- budget pressure -- return to the pool).
+        pool.free(pids)
+        return int(prefix.match(toks)[0])
 
     def _generate_paged(self, prompts: Sequence[Any], max_new: List[int],
                         scfg: SamplingConfig) -> List[List[int]]:
@@ -636,23 +865,36 @@ class ServeEngine:
         runs at most one chunk per prefilling slot before the decode step
         for the resident slots, so a long prompt never blocks decode for
         more than one chunk.  A finished slot's pages free immediately and
-        the slot is backfilled mid-flight.
+        the slot is backfilled mid-flight.  With the prefix cache on, the
+        pool, cache and tree persist across calls (``_PagedSession``), a
+        hit starts a slot after its cached prefix, and every finished
+        prefill publishes its full prompt pages to the tree.
         """
         dev = self.device
         reqs = [self._make_request(p, n, paged=True)
                 for p, n in zip(prompts, max_new)]
+        self._stream_ix = {r.rid: i for i, r in enumerate(reqs)}
         outputs: Dict[int, List[int]] = {r.rid: [] for r in reqs}
         n_slots = self._paged_slots(reqs)
         page = self.page
         window = self.cfg.sliding_window
         pages_per_slot, pages_total = self._paged_geometry(reqs, n_slots)
         enc_max = max(r.group[1] for r in reqs)   # longest encoder (enc_dec)
-        pool = PagePool(pages_total, obs=self.obs, tracer=self.tracer)
-        cache = init_paged_cache(self.cfg, n_slots, pages_total,
-                                 page.page_tokens, pages_per_slot,
-                                 self.dtype, dev, enc_len=enc_max)
+        if self._prefix_on():
+            # Cross-call persistence: the pool's refcounts, the cached
+            # prefixes' pages and the radix tree survive between generate
+            # calls as long as the geometry matches.
+            sess = self._ensure_paged_session(n_slots, pages_per_slot,
+                                              pages_total)
+            pool, cache, prefix = sess.pool, sess.cache, sess.prefix
+        else:
+            pool = PagePool(pages_total, obs=self.obs, tracer=self.tracer)
+            cache = init_paged_cache(self.cfg, n_slots, pages_total,
+                                     page.page_tokens, pages_per_slot,
+                                     self.dtype, dev, enc_len=enc_max)
+            prefix = None
         sched = PagedScheduler(pool, page, n_slots, pages_per_slot,
-                               window=window)
+                               window=window, prefix=prefix)
         self._live_pool = pool          # stats() reads these while
         self._live_sched = sched        # generate runs
         steps = self.steps
@@ -673,6 +915,10 @@ class ServeEngine:
         ever_occupied: set = set()
         requeued: set = set()           # rids re-admitting after preemption
         prefills: Dict[int, int] = {}   # slot -> prompt tokens prefilled
+        chunk_snaps: Dict[int, Dict[int, Any]] = {}  # slot -> {tokens: state}
+        snaps_refused: set = set()      # slots whose snapshot was refused
+        snap_bytes = _state_nbytes(self._snapshot(cache, 0, clone=False)) \
+            if prefix is not None and prefix.has_state else 0
         peak_pages = 0
         t0 = time.monotonic()
         token_times: Dict[int, RingLog] = {
@@ -686,6 +932,14 @@ class ServeEngine:
                                 args={"rid": r.rid,
                                       "prompt": r.prompt_len})
 
+        def take_snaps(i: int) -> Optional[Dict[int, Any]]:
+            """The slot's pending snapshots, their reservation released."""
+            snaps = chunk_snaps.pop(i, None)
+            snaps_refused.discard(i)
+            if snaps:
+                prefix.release(len(snaps) * snap_bytes)
+            return snaps
+
         def clear_slot(i: int) -> None:
             table_np[i] = 0
             pos_np[i] = 0
@@ -696,11 +950,22 @@ class ServeEngine:
             table_np[i, :len(row)] = row
             table_np[i, len(row):] = 0
 
+        def assert_private(s, lo: int, hi: int, what: str) -> None:
+            """CoW safety, on the host: every page holding positions
+            ``[lo, hi)`` of slot ``s`` is private (refcount 1) -- shared
+            prefix pages sit strictly below the suffix front."""
+            for j in range(lo // page.page_tokens,
+                           -(-hi // page.page_tokens)):
+                p = s.pages[j] if j < len(s.pages) else None
+                assert p is None or pool.refcount(p) == 1, \
+                    f"{what} would write shared page {p} " \
+                    f"(rc={pool.refcount(p)})"
+
         def emit_token(slot: int, rid: int, max_new_bound: int,
                        tok: int) -> None:
-            """Deliver one sampled token for a slot: record it, queue it as
-            the slot's next input, reclaim out-of-window pages, and retire
-            the slot when its request is done."""
+            """Deliver one sampled token for a slot: record it, stream it,
+            queue it as the slot's next input, reclaim out-of-window pages,
+            and retire the slot when its request is done."""
             outputs[rid].append(tok)
             now = time.monotonic()
             times = token_times[rid]
@@ -712,6 +977,7 @@ class ServeEngine:
             elif len(times):
                 self.obs.observe("inter_token_s", now - times[-1])
             times.append(now)
+            self._notify(rid, tok)
             self.metrics["tokens"] += 1
             next_np[slot, 0] = tok
             if window:
@@ -736,8 +1002,10 @@ class ServeEngine:
                       "tokens_lost": len(outputs[vreq.rid])})
             outputs[vreq.rid] = []
             token_times[vreq.rid].clear()
+            self._notify(vreq.rid, None)
             requeued.add(vreq.rid)
             prefills.pop(victim, None)
+            take_snaps(victim)
             clear_slot(victim)
             self.metrics["evictions"] += 1
 
@@ -771,8 +1039,11 @@ class ServeEngine:
             # Admission: a slot + its first page; the prompt streams in
             # below, one chunk per tick, straight into pool pages.  Enc-dec
             # runs its encoder once here and installs the cross K/V into
-            # the slot's state rows.
-            for slot, req, _pages in sched.admit():
+            # the slot's state rows.  A prefix hit starts the slot at
+            # ``hit.tokens`` with the shared pages already in its table:
+            # copy the divergent page, restore the state snapshot, and
+            # prefill covers only the suffix.
+            for slot, req, _pages, hit in sched.admit():
                 now = time.monotonic()
                 t_sub = self._t_submit.get(req.rid, t0)
                 self.tracer.complete("queue_wait", t_sub, now,
@@ -787,6 +1058,20 @@ class ServeEngine:
                 pos_np[slot] = sched.slots[slot].pos
                 next_np[slot, 0] = 0
                 prefills[slot] = sched.slots[slot].pos
+                if hit is not None:
+                    cache = self._apply_prefix_hit(cache, slot, hit)
+                    self.metrics["prefix_hits"] += 1
+                    self.metrics["prefix_hit_tokens"] += hit.tokens
+                    self.metrics["pages_saved"] += \
+                        hit.tokens // page.page_tokens
+                    if hit.cow is not None:
+                        self.metrics["cow_copies"] += 1
+                        self.tracer.instant(
+                            "cow_copy", tid=req.rid + 1,
+                            args={"rid": req.rid, "slot": slot,
+                                  "src": hit.cow[0], "dst": hit.cow[1]})
+                elif prefix is not None:
+                    self.metrics["prefix_misses"] += 1
                 # A backfill is a NEW request taking a previously used slot
                 # mid-flight; a preempted request's re-admission is not.
                 if slot in ever_occupied and req.rid not in requeued:
@@ -805,9 +1090,15 @@ class ServeEngine:
                     continue                  # preempted by a sibling chunk
                 req, plen = s.req, s.req.prompt_len
                 done = prefills[slot]
+                # A prefix hit can start mid-page; the first suffix chunk
+                # realigns to the chunk grid.
                 c = plen - done if chunk_tokens <= 0 else \
                     min(chunk_tokens - done % chunk_tokens, plen - done)
-                if window:
+                if window and prefix is None:
+                    # Behind the front.  With the prefix cache on, prompt
+                    # pages must survive to insertion below: window
+                    # reclaim resumes at decode (the tree's reference then
+                    # keeps them resident).
                     sched.reclaim_window(slot, window)
                 # The final chunk also makes room for the first decode
                 # token: the slot joins this tick's decode batch, whose
@@ -837,6 +1128,8 @@ class ServeEngine:
                 if not grew:
                     continue                  # retry the chunk next tick
                 peak_pages = max(peak_pages, pool.used_pages)
+                if prefix is not None and page.page_bytes > 0:
+                    assert_private(s, done, done + c, "chunk")
                 push_table(slot)
                 cache["table"] = torch.from_numpy(table_np).to(dev)
                 toks = torch.from_numpy(
@@ -858,13 +1151,36 @@ class ServeEngine:
                 s.pos = done
                 pos_np[slot] = done
                 progressed = True
+                if prefix is not None and prefix.has_state and \
+                        done % page.page_tokens == 0 and \
+                        slot not in snaps_refused:
+                    # Page-boundary state snapshot, kept on the card: the
+                    # radix node for this block restores it on a hit.  It
+                    # is billed before it is cloned; once the tree refuses
+                    # one, the chain this prompt can publish ends there.
+                    if prefix.reserve(snap_bytes):
+                        chunk_snaps.setdefault(slot, {})[done] = \
+                            self._snapshot(cache, slot)
+                    else:
+                        snaps_refused.add(slot)
                 if done >= plen:
                     del prefills[slot]
+                    if prefix is not None:
+                        self.metrics["prefix_nodes_inserted"] += \
+                            prefix.insert(req.features["tokens"],
+                                          list(s.pages),
+                                          snaps=take_snaps(slot))
                     tok = int(sample(logits, scfg, gen)[0])
                     emit_token(slot, req.rid, req.max_new, tok)
 
             active = [i for i in sched.active()
                       if i not in stalled and i not in prefills]
+            if active and prefix is not None and page.page_bytes > 0:
+                # CoW safety for decode writes: the write position's page
+                # is private (positions only grow past the shared prefix).
+                for i in active:
+                    pos = sched.slots[i].pos
+                    assert_private(sched.slots[i], pos, pos + 1, "decode")
             if active:
                 # Refresh the device page tables from the scheduler: growth
                 # appended pages, window reclaim nulled out-of-window ones.
@@ -911,8 +1227,14 @@ class ServeEngine:
                 progressed = True
 
             peak_pages = max(peak_pages, pool.used_pages)
-            assert pool.used_pages == sched.used_pages_by_slots(), \
-                "page pool out of sync with the slot tables"
+            if prefix is None:
+                assert pool.used_pages == sched.used_pages_by_slots(), \
+                    "page pool out of sync with the slot tables"
+            else:
+                # Shared pages carry one refcount per mapping: every slot
+                # table entry plus every radix-tree node.
+                assert pool.total_refs == sched.used_pages_by_slots() \
+                    + prefix.n_pages, "refcount ledger out of sync"
             assert pool.pages_allocated - pool.pages_released == \
                 pool.used_pages, "page accounting leak"
             if not progressed:
@@ -926,5 +1248,17 @@ class ServeEngine:
         self.obs.inc("interleave_dropped", trace.dropped)
         self.obs.inc("token_times_dropped",
                      sum(t.dropped for t in token_times.values()))
+        if prefix is not None:
+            seen = prefix.hits + prefix.misses
+            self.metrics["prefix_hit_rate"] = \
+                prefix.hits / seen if seen else 0.0
+            self.metrics["prefix_resident_pages"] = prefix.n_pages
+            self.metrics["prefix_resident_bytes"] = prefix.resident_bytes
+            self.metrics["prefix_evicted_pages"] = prefix.evicted_pages
+            self.metrics["prefix_budget_bytes"] = prefix.budget_bytes
+            self.metrics["prefix_peak_state_bytes"] = prefix.peak_state_bytes
+            assert prefix.pending_bytes == 0, "snapshot bytes left pending"
+            self._paged_session.cache = cache   # carry the pages forward
         self._finalize_utilization()
         return [outputs[r.rid] for r in reqs]
+

@@ -6,14 +6,17 @@ mla_moe, hybrid_ssm, xlstm and enc_dec families).
     ``page_plan()["page_tokens"]`` tokens each, a refcounted free list and
     cumulative alloc/release counters.  Physical page 0 is the reserved
     *null page*: empty slots' decode writes land there and nothing ever
-    reads it unmasked.
+    reads it unmasked.  A page shared by several slot tables and the
+    prefix cache's tree carries one reference per mapping.
   * ``PagedScheduler`` -- slot-level admission, pure python: a fixed batch
     of decode slots, FIFO admission of one request per free slot, one-page
     growth, youngest-slot recompute preemption, and sliding-window page
     reclaim.  A finished slot frees its pages at once and is backfilled by
-    the next pending request mid-flight.  A token-free family (xLSTM:
-    ``page_bytes == 0``) holds no pages at all; its slots only gate
-    admission.
+    the next pending request mid-flight.  With a prefix cache
+    (``serve.prefix``), admission starts a matching request after its
+    cached prefix, and an allocation the free list refuses first evicts
+    cached pages.  A token-free family (xLSTM: ``page_bytes == 0``) holds
+    no pages at all; its slots only gate admission.
   * ``init_paged_cache`` / ``reset_slot`` -- the pooled cache dict the
     paged steps (``Model.decode_step_paged`` / ``prefill_chunk``) consume:
     ``pool`` (``k``/``v``, each ``(L, P, T, KV, D)``, or mla_moe's latent
@@ -23,17 +26,18 @@ mla_moe, hybrid_ssm, xlstm and enc_dec families).
     layer-stacked buffer, on axis 0 of a per-slot vector); ``reset_slot``
     puts one slot's state back to ``Model.init_state``'s values and
     installs an enc-dec request's cross K/V.
-
-Page export/install and the prefix cache's hooks wait for the prefix
-slice.
+  * ``export_pool_pages`` / ``install_pool_pages`` -- physical pages as
+    host numpy payloads, one ``(L, page_tokens, KV, D)`` array per pool
+    buffer, and back into another pool in place.
 """
 
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Deque, List, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -59,18 +63,21 @@ STATE_GROUPS = {"hybrid_ssm": ("mamba",), "xlstm": ("mlstm", "slstm")}
 
 
 class PagePool:
-    """Free-list allocator over the physical page pool.
+    """Refcounting free-list allocator over the physical page pool.
 
     ``pages_total`` includes the reserved null page 0, which is never
-    allocated or freed.  Every page carries a reference count (the prefix
-    cache's slice will share pages; here it is 0 or 1): ``alloc`` hands
-    out pages at refcount 1 and ``free`` drops it.  Freeing a page that
+    allocated or freed.  Every page carries a reference count: ``alloc``
+    hands out pages at refcount 1, ``incref`` adds a read-only mapping
+    (the prefix cache sharing one physical page into several slot tables
+    and its radix tree), and ``free`` decrefs -- the page returns to the
+    free list only when its last reference drops.  Freeing a page that
     holds no reference (double free, or a scheduler bug returning a page it
     never owned) raises instead of silently corrupting the free list.
 
-    ``pages_allocated`` / ``pages_released`` count transitions (free list
-    -> used and back), so ``pages_allocated - pages_released ==
-    used_pages`` is an invariant ``assert_reconciled`` pins after every op.
+    ``pages_allocated`` / ``pages_released`` count physical transitions
+    (free list -> used and back), so ``pages_allocated - pages_released ==
+    used_pages`` stays an invariant under sharing and ``assert_reconciled``
+    pins it after every op.
     """
 
     def __init__(self, pages_total: int, obs=None, tracer=None):
@@ -107,6 +114,15 @@ class PagePool:
     def used_pages(self) -> int:
         return (self.pages_total - 1) - len(self._free)
 
+    @property
+    def total_refs(self) -> int:
+        """Sum of live refcounts: slot-table references + prefix-tree
+        references (the ledger the engine reconciles every tick)."""
+        return sum(self._rc)
+
+    def refcount(self, pid: int) -> int:
+        return self._rc[pid]
+
     def alloc(self, n: int) -> Optional[List[int]]:
         """``n`` physical pages at refcount 1, or None when the pool
         cannot hold them (never a partial grant)."""
@@ -121,6 +137,16 @@ class PagePool:
             self.tracer.instant("page_alloc",
                                 args={"n": n, "free": self.free_pages})
         return out
+
+    def incref(self, pid: int) -> None:
+        """Add a reference to a live page (a shared read-only mapping).
+        Increffing a free page would resurrect it without removing it
+        from the free list, so that raises."""
+        if pid <= 0 or pid >= self.pages_total:
+            raise ValueError(f"incref of invalid page id {pid}")
+        if self._rc[pid] <= 0:
+            raise ValueError(f"incref of free page {pid}")
+        self._rc[pid] += 1
 
     def free(self, ids: Sequence[int]) -> None:
         """Drop one reference per id; a page returns to the free list
@@ -191,6 +217,8 @@ class PagedScheduler:
         prompt's other pages are granted as its chunks arrive, and a
         windowed prompt's pages wholly below the window are reclaimed
         behind the chunk front, so it is billed for its resident window.
+        With a prefix cache, a head whose prompt matches a cached prefix
+        starts after it instead, the shared pages mapped into its table.
         A lone head that can never fit an empty pool raises.
       * **grow**    one page at a time when the chunk front or ``pos + 1``
         crosses the slot's capacity; refusal (pool empty) makes the
@@ -206,14 +234,25 @@ class PagedScheduler:
     """
 
     def __init__(self, pool: PagePool, page: PageSpec, n_slots: int,
-                 pages_per_slot: int, window: int = 0):
+                 pages_per_slot: int, window: int = 0, prefix=None):
         self.pool = pool
         self.page = page
         self.n_slots = max(1, n_slots)
         self.pages_per_slot = max(1, pages_per_slot)
         self.window = max(0, window)
+        self.prefix = prefix            # serve.prefix.RadixPrefixCache|None
         self.slots: List[Optional[SlotState]] = [None] * self.n_slots
         self.pending: Deque[Request] = deque()
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """Pool alloc with prefix-cache back-pressure: when the free list
+        cannot grant ``n`` pages, evict unreferenced radix-tree pages (LRU)
+        before giving up -- live slots outrank cached prefixes."""
+        ids = self.pool.alloc(n)
+        if ids is None and self.prefix is not None:
+            self.prefix.release_pages(need=n)
+            ids = self.pool.alloc(n)
+        return ids
 
     # ----------------------------------------------------------- inventory
     def has_work(self) -> bool:
@@ -229,21 +268,38 @@ class PagedScheduler:
     def submit(self, req: Request) -> None:
         self.pending.append(req)
 
-    def admit(self) -> List[Tuple[int, Request, List[Optional[int]]]]:
+    def admit(self) -> List[Tuple[int, Request, List[Optional[int]], Any]]:
         """Fill free slots from the queue head for CHUNKED prefill.
-        Returns ``[(slot, request, logical_pages), ...]``: each slot starts
-        at ``pos = 0`` with only its FIRST page allocated -- the engine
-        grows it page by page ahead of the chunk front
+        Returns ``[(slot, request, logical_pages, hit), ...]``: each slot
+        starts at ``pos = 0`` with only its FIRST page allocated -- the
+        engine grows it page by page ahead of the chunk front
         (``ensure_capacity(slot, upto=...)``) and window-reclaims behind
-        it.  A lone head that cannot get one page of an empty pool raises.
+        it.  With a prefix cache attached, admission first consults the
+        radix tree: a hit (``serve.prefix.PrefixHit``, else None) starts
+        the slot at ``pos = hit.tokens`` with the shared prefix pages
+        mapped read-only (increffed) into its table, so prefill covers
+        only the unshared suffix.  A lone head that cannot get one page
+        of an empty pool raises.
         """
-        out: List[Tuple[int, Request, List[Optional[int]]]] = []
+        out: List[Tuple[int, Request, List[Optional[int]], Any]] = []
         first = 1 if self.page.page_bytes > 0 else 0
         for slot, s in enumerate(self.slots):
             if s is not None or not self.pending:
                 continue
             head = self.pending[0]
-            ids = self.pool.alloc(first) if first else []
+            hit = None
+            if self.prefix is not None and head.features and \
+                    "tokens" in head.features:
+                hit = self.prefix.admit(
+                    np.asarray(head.features["tokens"]).reshape(-1))
+            if hit is not None:
+                self.pending.popleft()
+                self.slots[slot] = SlotState(rid=head.rid, req=head,
+                                             pos=hit.tokens,
+                                             pages=list(hit.pages))
+                out.append((slot, head, list(hit.pages), hit))
+                continue
+            ids = self._alloc(first) if first else []
             if ids is None:
                 if not any(x is not None for x in self.slots) and not out:
                     raise ValueError(
@@ -254,7 +310,7 @@ class PagedScheduler:
             self.pending.popleft()
             self.slots[slot] = SlotState(rid=head.rid, req=head, pos=0,
                                          pages=list(ids))
-            out.append((slot, head, list(ids)))
+            out.append((slot, head, list(ids), None))
         return out
 
     # -------------------------------------------------------------- growth
@@ -275,7 +331,7 @@ class PagedScheduler:
         while need > len(s.pages) * self.page.page_tokens:
             if len(s.pages) >= self.pages_per_slot:
                 return False
-            ids = self.pool.alloc(1)
+            ids = self._alloc(1)
             if ids is None:
                 return False
             s.pages.extend(ids)
@@ -449,3 +505,58 @@ def set_slot_rows(buf: torch.Tensor, slots, value) -> None:
         buf[:, slots] = value
     else:
         buf[slots] = value
+
+
+# ---------------------------------------------------------------------------
+# Page serialization (export from one engine's pool, install into another)
+# ---------------------------------------------------------------------------
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16, which numpy lacks, travels as
+    float32 (exact) and is cast back on install."""
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def export_pool_pages(cache: PyTree, page_ids: Sequence[int]
+                      ) -> List[Dict[str, np.ndarray]]:
+    """Serialize physical pool pages as host arrays, one payload per page:
+    each maps the pool's buffer names ("k"/"v", or "lat" for MLA) to an
+    ``(L, page_tokens, KV, D)`` array, the cross-layer slice of ONE
+    physical page.  Payloads are keyed by position in the logical page
+    chain, never by physical id: physical numbering is private to each
+    pool.  One gather and one copy to the host per buffer."""
+    if not page_ids:
+        return []
+    idx = torch.tensor([int(p) for p in page_ids], dtype=torch.long)
+    host = {name: host_array(buf[:, idx.to(buf.device)])
+            for name, buf in cache["pool"].items()}
+    return [{name: arr[:, i] for name, arr in host.items()}
+            for i in range(len(page_ids))]
+
+
+def install_pool_pages(cache: PyTree, page_ids: Sequence[int],
+                       payloads: Sequence[Dict[str, Any]]) -> PyTree:
+    """Install serialized page payloads into this pool's physical pages,
+    in place: the i-th payload lands on ``page_ids[i]`` (freshly allocated
+    pages of the receiving pool).  Buffer names and per-page shapes must
+    match the receiving pool's layout -- both sides plan the same
+    geometry, so a mismatch is an error, not a fallback.  Returns the
+    cache."""
+    if len(page_ids) != len(payloads):
+        raise ValueError(f"{len(page_ids)} pages for {len(payloads)} payloads")
+    for name, buf in cache["pool"].items():
+        page_shape = buf.shape[:1] + buf.shape[2:]
+        for pid, payload in zip(page_ids, payloads):
+            if name not in payload:
+                raise ValueError(f"payload missing pool buffer {name!r}")
+            data = torch.as_tensor(np.asarray(payload[name]))
+            if data.shape != page_shape:
+                raise ValueError(
+                    f"page payload {name!r} shape {tuple(data.shape)} != "
+                    f"pool page shape {tuple(page_shape)}")
+            buf[:, int(pid)].copy_(data.to(buf.device, buf.dtype))
+    return cache

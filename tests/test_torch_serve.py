@@ -26,6 +26,7 @@ from repro_torch.serve import SamplingConfig, ServeEngine, ServePolicy
 from repro_torch.serve.kvcache import PageSpec
 from repro_torch.serve.pages import PagedScheduler, PagePool
 from repro_torch.serve.scheduler import Request
+from test_torch_serve_moe import _synchronous
 
 LENS = (8, 12, 8)
 NEWS = [6, 3, 2]
@@ -44,11 +45,12 @@ def _host_mesh():
 def _pair(prefill="chunked"):
     rcfg = ref_config("llama3.2-1b").reduced()
     ref_spec = chip_spec(vmem_bytes=LEAF, vmem_reserved_bytes=0)
-    ref = RefEngine(rcfg, _host_mesh(),
-                    policy=RefPolicy(max_new_tokens=4, max_len=64,
-                                     max_slots=2, batching="paged",
-                                     prefill=prefill),
-                    spec=ref_spec)
+    ref = _synchronous(RefEngine(rcfg, _host_mesh(),
+                                 policy=RefPolicy(max_new_tokens=4,
+                                                  max_len=64, max_slots=2,
+                                                  batching="paged",
+                                                  prefill=prefill),
+                                 spec=ref_spec))
     cfg = get_model_config("llama3.2-1b").reduced()
     params = params_from_numpy(jax.tree.map(np.asarray, ref.params), cfg,
                                "cpu")
@@ -82,7 +84,8 @@ def test_greedy_tokens_identical_to_jax_paged_engine(prefill):
         assert mine.metrics[key] == ref.metrics[key], key
     assert mine.plan.page_table() == {
         k: ref.plan.page_table()[k]
-        for k in ("pages_per_slot", "pages_total", "slots_bound")}
+        for k in ("pages_per_slot", "pages_total", "slots_bound",
+                  "prefix_budget_bytes")}
     assert mine.metrics["backfills"] >= 1
     assert mine.metrics["pages_allocated"] == mine.metrics["pages_released"]
     assert mine.metrics["tokens"] == sum(NEWS)
@@ -124,11 +127,16 @@ def test_no_device_means_cuda_and_raises_without_it():
 
 
 def test_unported_paths_raise():
-    """The prefix cache still raises; the cohort engine and the vlm family
-    are served (the vlm falls back from paged to cohort)."""
+    """Nothing of the engine is left unported: the prefix cache runs for
+    the prefix families (enc-dec serves with it off, as in the
+    reference), the cohort engine and the vlm family are served (the vlm
+    falls back from paged to cohort)."""
     cfg = get_model_config("llama3.2-1b").reduced()
-    with pytest.raises(NotImplementedError, match="prefix"):
-        ServeEngine(cfg, ServePolicy(prefix_cache="radix"), device="cpu")
+    assert ServeEngine(cfg, ServePolicy(prefix_cache="radix"),
+                       device="cpu")._prefix_on()
+    assert not ServeEngine(get_model_config("whisper-large-v3").reduced(),
+                           ServePolicy(prefix_cache="radix"),
+                           device="cpu")._prefix_on()
     assert ServeEngine(cfg, ServePolicy(batching="cohort"),
                        device="cpu").batching == "cohort"
     assert ServeEngine(get_model_config("qwen2-vl-7b").reduced(),

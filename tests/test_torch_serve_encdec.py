@@ -41,6 +41,7 @@ from repro_torch.serve import ServeEngine, ServePolicy
 from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.kvcache import kv_token_bytes, request_state_bytes
 from repro_torch.serve.pages import init_paged_cache, reset_slot
+from test_torch_serve_moe import _synchronous
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCH = "whisper-large-v3"
@@ -179,8 +180,9 @@ def _pair(leaf, **pol):
     and policy."""
     rcfg = ref_config(ARCH).reduced()
     ref_spec = chip_spec(vmem_bytes=leaf, vmem_reserved_bytes=0)
-    ref = RefEngine(rcfg, _host_mesh(),
-                    policy=RefPolicy(batching="paged", **pol), spec=ref_spec)
+    ref = _synchronous(RefEngine(rcfg, _host_mesh(),
+                                 policy=RefPolicy(batching="paged", **pol),
+                                 spec=ref_spec))
     cfg = get_model_config(ARCH).reduced()
     mine = ServeEngine(
         cfg, ServePolicy(batching="paged", **pol),

@@ -25,6 +25,7 @@ from repro_torch.hw import h100_spec
 from repro_torch.models.params import params_from_numpy
 from repro_torch.serve import ServeEngine, ServePolicy
 from repro_torch.serve.kvcache import request_state_bytes
+from test_torch_serve_moe import _synchronous
 
 ARCH = "zamba2-1.2b"
 LENS = (8, 33, 17)
@@ -48,8 +49,8 @@ def test_greedy_tokens_identical_to_jax_paged_engine(prefill):
     ref_spec = chip_spec(vmem_bytes=LEAF, vmem_reserved_bytes=0)
     pol = dict(max_new_tokens=4, max_len=64, max_slots=2, batching="paged",
                prefill=prefill)
-    ref = RefEngine(rcfg, _host_mesh(), policy=RefPolicy(**pol),
-                    spec=ref_spec)
+    ref = _synchronous(RefEngine(rcfg, _host_mesh(),
+                                 policy=RefPolicy(**pol), spec=ref_spec))
     cfg = get_model_config(ARCH).reduced()
     mine = ServeEngine(
         cfg, ServePolicy(**pol),

@@ -35,6 +35,7 @@ from repro_torch.models.params import params_from_numpy
 from repro_torch.serve import ServeEngine, ServePolicy
 from repro_torch.serve.kvcache import request_state_bytes
 from repro_torch.serve.pages import init_paged_cache
+from test_torch_serve_moe import _synchronous
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCH = "deepseek-v2-236b"
@@ -115,8 +116,9 @@ def _pair(leaf, **pol):
     and policy."""
     rcfg = ref_config(ARCH).reduced()
     ref_spec = chip_spec(vmem_bytes=leaf, vmem_reserved_bytes=0)
-    ref = RefEngine(rcfg, _host_mesh(),
-                    policy=RefPolicy(batching="paged", **pol), spec=ref_spec)
+    ref = _synchronous(RefEngine(rcfg, _host_mesh(),
+                                 policy=RefPolicy(batching="paged", **pol),
+                                 spec=ref_spec))
     cfg = get_model_config(ARCH).reduced()
     mine = ServeEngine(
         cfg, ServePolicy(batching="paged", **pol),

@@ -29,6 +29,7 @@ from repro_torch.models.xlstm import NEG
 from repro_torch.serve import ServeEngine, ServePolicy
 from repro_torch.serve.kvcache import DEFAULT_PAGE_TOKENS, request_state_bytes
 from repro_torch.serve.pages import init_paged_cache, reset_slot
+from test_torch_serve_moe import _synchronous
 
 ARCH = "xlstm-1.3b"
 LENS = (8, 70, 17)
@@ -55,8 +56,8 @@ def test_greedy_tokens_identical_to_jax_paged_engine(prefill):
     ref_spec = chip_spec(vmem_bytes=LEAF, vmem_reserved_bytes=0)
     pol = dict(max_new_tokens=4, max_len=128, max_slots=2, batching="paged",
                prefill=prefill)
-    ref = RefEngine(rcfg, _host_mesh(), policy=RefPolicy(**pol),
-                    spec=ref_spec)
+    ref = _synchronous(RefEngine(rcfg, _host_mesh(),
+                                 policy=RefPolicy(**pol), spec=ref_spec))
     cfg = get_model_config(ARCH).reduced()
     mine = ServeEngine(
         cfg, ServePolicy(**pol),
