@@ -196,8 +196,28 @@ Phases (each prints its results; the script exits non-zero if any fails):
  29. ``python -m repro_torch.obs.cli report`` (its ``pool_pages`` row
      inside the band) and ``python -m repro_torch.launch.serve --arch
      llama3.2-1b --prefix radix --tokens 8`` exit 0 on the card.
+ 30. zamba2-1.2b's state snapshots under a cap of ``CAP_SNAPSHOTS``, 8
+     long prefills at once: live snapshots stay within the cap.
+ 31. the paper's run-time system on the card's host (host code: its
+     numbers are the host CPU's, not the card's): the CPU's vendor,
+     family, model and model name, the logical CPU count, the cache sizes
+     glibc reads from the CPU (shown, not used) and the host's cache tree
+     as the port's ``read_linux_hierarchy`` reads it (a tree with no cache
+     level is said so, and the phase then runs on ``paper_system_a``,
+     labelled so);
+     then Table 3's MatMult (n = 768, TCL L2) and SOR (2048 x 2048, 4
+     sweeps, TCL L1) through the port's ``Engine``, cache-conscious
+     beside horizontal, each with 1 worker on the calling thread (the
+     reference's setting) and with the cores of the host's lowest shared
+     cache group as threads under CC and under SRRC; every product equals
+     a float64 product within 2e-4 x (1 + |ref|), every SOR grid a plain
+     sweep exactly; one line a run with np, tasks, workers, the four
+     stage times of the best of 2 repeats, and horizontal over
+     cache-conscious.  The bodies are the caller's numpy code: the product
+     numpy's unblocked ``einsum(..., optimize=False)`` over views, the
+     sweep the reference benchmark's 5-point update of a padded copy.
 
-Phases 0-4 and 7-29 plan and serve without a tuning artifact (the port's
+Phases 0-4 and 7-30 plan and serve without a tuning artifact (the port's
 tuning path points at a file that does not exist until phase 6 writes
 one), so their numbers compare with earlier runs'.  Each phase prints its
 seconds.
@@ -2977,6 +2997,205 @@ def phase_clis() -> dict:
     return row
 
 
+#: Phase 31: Table 3's MatMult and SOR sizes and TCLs as the reference's
+#: benchmark runs them (benchmarks/run.py:55,60-61; paper_cpu.py's SOR
+#: defaults to L1), and the repeats kept (the best).
+PAPER_MM = (768, "L2")
+PAPER_SOR = (2048, 4, "L1")
+PAPER_REPEATS = 2
+PAPER_OMEGA = np.float32(1.25)
+
+
+def host_cpu() -> dict:
+    """The host's CPU (the first processor of ``/proc/cpuinfo``: vendor,
+    family, model number and model name, which a sandboxed kernel may give
+    as "unknown") and its logical CPU counts."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    model = " ".join(f"{k} {fields[k]}" for k in (
+        "vendor_id", "cpu family", "model", "model name") if k in fields)
+    return {"model": model or "unknown", "logical_cpus": os.cpu_count(),
+            "usable_cpus": len(os.sched_getaffinity(0))}
+
+
+def paper_matmul(core, engine, A, B):
+    """Fig. 3's blocked product through ``engine``: one task per (i, j, k)
+    block triple, numpy's unblocked ``einsum`` over views; tasks of one C
+    block may run on different threads, so each adds under its block's
+    lock."""
+    import threading
+
+    n = A.shape[0]
+    C = np.zeros((n, n), np.float32)
+    locks = {}
+
+    def make_tasks(plan):
+        a_regions, b_regions, c_regions = plan.regions
+        side = round(plan.np ** 0.5)
+        locks.update((c, threading.Lock()) for c in range(side * side))
+        return [(a_regions[i * side + kk], b_regions[kk * side + j],
+                 i * side + j, c_regions[i * side + j])
+                for (i, j, kk) in core.matmul_task_grid(plan.np)]
+
+    def compute(task):
+        a_reg, b_reg, c_id, c_reg = task
+        part = np.einsum("ik,kj->ij", A[a_reg], B[b_reg], optimize=False)
+        with locks[c_id]:
+            C[c_reg] += part
+
+    res = engine.run(core.matmul_domain(n, n, n, 4), compute,
+                     make_tasks=make_tasks)
+    return C, [res]
+
+
+def paper_sor(core, engine, grid, sweeps: int):
+    """The reference benchmark's SOR body (paper_cpu.py): each sweep reads
+    a padded copy of the grid made before it and writes its own block."""
+    cur = grid.copy()
+    d = core.StencilDistribution(*grid.shape, 4, halo=1)
+    runs = []
+    for _ in range(sweeps):
+        pad = np.pad(cur, 1, mode="edge")
+
+        def compute(task):
+            ((rs, cs),) = task
+            blk = 0.25 * (
+                pad[rs.start: rs.stop, cs.start + 1: cs.stop + 1]
+                + pad[rs.start + 2: rs.stop + 2, cs.start + 1: cs.stop + 1]
+                + pad[rs.start + 1: rs.stop + 1, cs.start: cs.stop]
+                + pad[rs.start + 1: rs.stop + 1, cs.start + 2: cs.stop + 2])
+            cur[rs, cs] = (1 - PAPER_OMEGA) * cur[rs, cs] + PAPER_OMEGA * blk
+
+        runs.append(engine.run([d], compute))
+    return cur, runs
+
+
+def plain_sor(grid, sweeps: int):
+    cur = grid.copy()
+    for _ in range(sweeps):
+        pad = np.pad(cur, 1, mode="edge")
+        blk = 0.25 * (pad[:-2, 1:-1] + pad[2:, 1:-1] + pad[1:-1, :-2]
+                      + pad[1:-1, 2:])
+        cur = (1 - PAPER_OMEGA) * cur + PAPER_OMEGA * blk
+    return cur
+
+
+def phase_paper_engine(smi: str) -> dict:
+    """Phase 31: the port's ``Engine`` on the card's host (host code; every
+    time here is the host CPU's), Table 3's MatMult and SOR under both
+    strategies, 1 worker and the lowest shared cache group's cores under
+    CC and SRRC, each result held to its plain computation."""
+    from repro_torch import core
+
+    cpu = host_cpu()
+    log(f"  host CPU: {cpu['model']}; {cpu['logical_cpus']} logical CPUs, "
+        f"{cpu['usable_cpus']} usable by this process")
+    log(f"  card: {smi}")
+    tree = core.read_linux_hierarchy()
+    for lvl in tree.levels():
+        log(f"  sysfs {lvl.name}: size {lvl.size} B, line "
+            f"{lvl.cache_line_size}, {len(lvl.siblings)} copies, "
+            f"{lvl.cores_per_copy} cores a copy")
+    label = "host"
+    if not tree.cache_levels():
+        log("  the host's sysfs shows no cache level: the runs below use "
+            "paper_system_a (the paper's System A), not this host's caches")
+        tree, label = core.paper_system_a(), "paper_system_a"
+    groups = core.lowest_level_shared_cache_groups(tree)
+    k = max(len(g) for g in groups)
+    llsc = tree.lowest_shared_cache()
+    log(f"  tree: {label}; lowest shared cache {llsc.name if llsc else None}"
+        f", groups of {k} cores: {groups}")
+    configs = [(1, "cc", False), (k, "cc", True), (k, "srrc", True)]
+
+    rng = np.random.default_rng(0)
+    n, mm_tcl = PAPER_MM
+    A = rng.standard_normal((n, n)).astype(np.float32)
+    B = rng.standard_normal((n, n)).astype(np.float32)
+    exact = A.astype(np.float64) @ B.astype(np.float64)
+    sn, sweeps, sor_tcl = PAPER_SOR
+    grid = rng.standard_normal((sn, sn)).astype(np.float32)
+    sor_ref = plain_sor(grid, sweeps)
+
+    def check_mm(C):
+        err = np.abs(C - exact)
+        assert (err <= 2e-4 * (1 + np.abs(exact))).all(), float(err.max())
+        return float(err.max())
+
+    def check_sor(out):
+        assert np.array_equal(out, sor_ref), \
+            float(np.abs(out - sor_ref).max())
+        return 0.0
+
+    benches = {
+        f"matmult_{n}": (mm_tcl, lambda eng: paper_matmul(core, eng, A, B),
+                         check_mm),
+        f"sor_{sn}x{sweeps}": (sor_tcl,
+                               lambda eng: paper_sor(core, eng, grid, sweeps),
+                               check_sor),
+    }
+    threads_before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    log(f"  threads: torch intra-op {threads_before} -> "
+        f"{torch.get_num_threads()} for this phase (the bodies are numpy; "
+        f"the engine's workers are OS threads)")
+    rows = []
+    try:
+        for name, (tcl, run, check) in benches.items():
+            for workers, schedule, parallel in configs:
+                best = {}
+                for strategy in ("cache_conscious", "horizontal"):
+                    eng = core.Engine(tree, n_workers=workers, tcl=tcl,
+                                      schedule=schedule, strategy=strategy,
+                                      parallel=parallel)
+                    for _ in range(PAPER_REPEATS):
+                        t0 = time.perf_counter()
+                        out, runs = run(eng)
+                        wall = time.perf_counter() - t0
+                        err = check(out)
+                        if strategy in best and best[strategy]["s"] <= wall:
+                            continue
+                        stages = {f: sum(getattr(r.times, f) for r in runs)
+                                  for f in ("decomposition", "scheduling",
+                                            "execution", "reduction")}
+                        best[strategy] = {
+                            "bench": name, "tcl": tcl, "tree": label,
+                            "strategy": strategy, "schedule": schedule,
+                            "parallel": parallel, "n_workers": workers,
+                            "np": runs[0].np,
+                            "n_tasks": sum(r.n_tasks for r in runs),
+                            "runs": len(runs),
+                            "s": wall, "stages_s": stages,
+                            "max_abs_err": err}
+                ratio = best["horizontal"]["s"] / best["cache_conscious"]["s"]
+                for strategy, row in best.items():
+                    row["horizontal_over_cc"] = ratio
+                    rows.append(row)
+                    st = row["stages_s"]
+                    log(f"  {name} tcl={tcl} {strategy} {schedule} "
+                        f"workers={workers} "
+                        f"{'threads' if parallel else 'one thread'}: "
+                        f"np={row['np']} tasks={row['n_tasks']} over "
+                        f"{row['runs']} run(s) "
+                        f"best of {PAPER_REPEATS} {row['s']:.6f} s "
+                        f"(decomposition {st['decomposition']:.6f}, "
+                        f"scheduling {st['scheduling']:.6f}, execution "
+                        f"{st['execution']:.6f}, reduction "
+                        f"{st['reduction']:.6f}); horizontal / "
+                        f"cache-conscious {ratio:.3f}")
+    finally:
+        torch.set_num_threads(threads_before)
+    return {"cpu": cpu, "tree": label, "groups": groups, "runs": rows}
+
+
 def qwen_cfg():
     from repro_torch.configs import get_model_config
 
@@ -3107,7 +3326,7 @@ def main() -> int:
         f"{plan.page_plan()['source']})")
     kern = serve = tk = tune = zk = zserve = mk = mserve = xserve = None
     dk = dserve = wk = wserve = qslice = ab = cssd = cserve = None
-    pparity = pllama = pzamba = pexport = pcli = pcap = None
+    pparity = pllama = pzamba = pexport = pcli = pcap = ppaper = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -3227,10 +3446,13 @@ def main() -> int:
             f"{CAP_SNAPSHOTS}, {MAX_SLOTS} long prefills together, bf16")
         pcap = phase("phase 30 snapshot cap", phase_snapshot_cap,
                      zamba_cfg(), {"paged": pa_mod, "ssd": ssd_mod})
+        log("[31] the paper's run-time system on the card's host: MatMult "
+            "and SOR through the port's Engine (host CPU times)")
+        ppaper = phase("phase 31 paper engine", phase_paper_engine, smi)
     if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
                           xserve, dk, dserve, wk, wserve, qslice, ab, cssd,
                           cserve, pparity, pllama, pzamba, pexport, pcli,
-                          pcap):
+                          pcap, ppaper):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -3345,6 +3567,13 @@ def main() -> int:
             "peak_mem_gb", "decode_steps", "cohorts", "slot_utilization",
             "busy_share")}
         for name, row in cserve.items()}))
+    # Phase 31's host runs, one object a run (host CPU seconds).
+    log("paper engine: " + json.dumps({
+        "cpu": ppaper["cpu"], "tree": ppaper["tree"],
+        "runs": [{k: row[k] for k in ("bench", "strategy", "schedule",
+                                      "n_workers", "np", "n_tasks", "s",
+                                      "horizontal_over_cc")}
+                 for row in ppaper["runs"]]}))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         log(f"FAILED: the main path never launched {missing}")

@@ -1,18 +1,48 @@
-"""Algorithm 1 (``validate_np``), the §2.1.1 search for the optimal number
-of partitions (``find_optimal_np``), the mesh-level phi, and the SMEM-level
-phi the tile planner searches with (``make_phi_smem``, the counterpart of
-``repro.core.decompose.make_phi_tpu``) -- a copy of the part of
-``repro.core.decompose`` the port's planner walks.
+"""Cache-conscious domain decomposition (paper §2.1), a copy of
+``repro.core.decompose``: Algorithm 1 (``validate_np``), the §2.1.1
+search for the optimal number of partitions (``find_optimal_np``), the
+phi footprint estimators of §2.1.2 (``phi_simple``, ``phi_conservative``),
+the mesh-level phi, the SMEM-level phi the tile planner searches with
+(``make_phi_smem``, the counterpart of the reference's ``make_phi_tpu``),
+and the run-time ``Decomposer``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence
 
-from repro_torch.core.distribution import Distribution
+from repro_torch.core.distribution import CompositeDomain, Distribution
+from repro_torch.core.hierarchy import MemoryLevel
 
 PhiFn = Callable[[int, Distribution, int], float]
+
+
+def phi_simple(cache_line_size: int, dist: Distribution, np_: int) -> float:
+    """phi_s: elementSize x floor(avgPartitionSize + 0.5) bytes."""
+    del cache_line_size
+    return dist.get_element_size() * math.floor(
+        dist.get_average_partition_size(np_) + 0.5)
+
+
+def phi_conservative(cache_line_size: int, dist: Distribution,
+                     np_: int) -> float:
+    """phi_c: the first dimension rounded to cache lines, plus one line a
+    row for misalignment, as the paper's §2.1.2 worked example computes it
+    (first-dimension size in elements; Table 2's restatement in bytes
+    contradicts the example's 98304 bytes for 1024^2 at np=256):
+
+      phi_c = lineSize * (avgPartSize*elemSize / avgFirstDim)
+                       * (ceil(avgFirstDim / lineSize) + 1)
+    """
+    first_dim = dist.get_average_first_dim_size(np_)
+    if first_dim <= 0:
+        return phi_simple(cache_line_size, dist, np_)
+    part_bytes = dist.get_average_partition_size(np_) * dist.get_element_size()
+    rows_bytes = part_bytes / first_dim  # bytes "per unit of first dim"
+    lines_per_row = math.ceil(first_dim / cache_line_size) + 1
+    return cache_line_size * rows_bytes * lines_per_row
 
 
 def make_phi_mesh(granule_bytes: Optional[int] = None,
@@ -58,7 +88,7 @@ def validate_np(
     cache_line_size: int,
     dists: Sequence[Distribution],
     np_: int,
-    phi: PhiFn,
+    phi: PhiFn = phi_simple,
 ) -> int:
     """Paper Algorithm 1. Returns 1 (valid), 0 (try larger), -1 (hopeless)."""
     total_partition_size = 0.0
@@ -96,9 +126,9 @@ def _next_structurally_valid(
 def find_optimal_np(
     tcl_per_core: int,
     cache_line_size: int,
-    domain: Sequence[Distribution],
+    domain: Sequence[Distribution] | CompositeDomain,
     n_workers: int,
-    phi: PhiFn,
+    phi: PhiFn = phi_simple,
     max_np: int = 1 << 30,
 ) -> int:
     """Binary search of §2.1.1: start at ``n_workers`` and double until a
@@ -146,3 +176,86 @@ def find_optimal_np(
         else:
             lo_s = probe + 1
     return best
+
+
+@dataclass
+class DecompositionPlan:
+    """Result of the cache-conscious decomposition of one composite domain."""
+
+    np: int                       # partitions per sub-domain
+    tcl_bytes: int                # TCL_PER_CORE used
+    cache_line_size: int
+    partition_bytes: float        # estimated footprint of one partition
+    regions: List[List[tuple]]    # per sub-domain: list of index regions
+    strategy: str = "cache_conscious"
+
+    @property
+    def n_partitions(self) -> int:
+        return self.np
+
+
+class Decomposer:
+    """Run-time cache-conscious decomposer (the paper's contribution).
+
+    Decomposes composite domains so each composite partition fits the TCL
+    per core.  ``tcl`` names a level of ``hierarchy`` or gives a byte
+    budget.  ``strategy`` is ``"cache_conscious"`` (the paper's proposal)
+    or ``"horizontal"`` (the classical baseline: np == nWorkers).
+    """
+
+    def __init__(
+        self,
+        hierarchy: MemoryLevel,
+        tcl: str | int = "L1",
+        phi: PhiFn = phi_simple,
+        strategy: str = "cache_conscious",
+    ) -> None:
+        self.hierarchy = hierarchy
+        self.phi = phi
+        self.strategy = strategy
+        if isinstance(tcl, int):
+            self._tcl_name = None
+            self.tcl_bytes = tcl
+            self.cache_line = 64
+            for lvl in hierarchy.cache_levels():
+                self.cache_line = lvl.cache_line_size or 64
+                break
+        else:
+            lvl = hierarchy.find(tcl)
+            if lvl is None:
+                raise KeyError(f"no level named {tcl!r} in hierarchy")
+            self._tcl_name = tcl
+            self.tcl_bytes = lvl.per_core_size()
+            self.cache_line = lvl.cache_line_size or 64
+
+    def decompose(self, domain: Sequence[Distribution] | CompositeDomain,
+                  n_workers: int) -> DecompositionPlan:
+        """Decompose one composite domain against this decomposer's TCL:
+        ``plan_run`` with the search restricted to the TCL level (a byte
+        budget gets a synthetic one-level tree named ``"TCL"``), ``np``
+        read off that level's sub-plan."""
+        from repro_torch.core.plan import PlanPolicy, Workload, plan_run
+
+        dists = list(domain)
+        if self._tcl_name is not None:
+            hierarchy, tcl_name = self.hierarchy, self._tcl_name
+        else:
+            hierarchy = MemoryLevel(
+                size=self.tcl_bytes, siblings=[[0]],
+                cache_line_size=self.cache_line, child=None, name="TCL")
+            tcl_name = "TCL"
+        hp = plan_run(
+            hierarchy,
+            Workload(domain=tuple(dists)),
+            PlanPolicy(strategy=self.strategy, n_workers=n_workers,
+                       cache_phi=self.phi, tcl=tcl_name),
+        )
+        sub = hp.level(tcl_name)
+        return DecompositionPlan(
+            np=sub.np,
+            tcl_bytes=self.tcl_bytes,
+            cache_line_size=self.cache_line,
+            partition_bytes=sub.partition_bytes,
+            regions=[d.partition(sub.np) for d in dists],
+            strategy=self.strategy,
+        )

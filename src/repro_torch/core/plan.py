@@ -15,6 +15,10 @@ paper's Algorithm-1 / §2.1.1 search once per level with that level's phi:
   SMEM        ``phi_page``   a decode workload: the KV page, one
               (page)         sequence's token range cut until a page
                              fits, double-buffered
+  L3/L2/L1    ``phi_simple`` a ``domain`` workload (the paper's host
+  (cache)     / ``phi_c``    run-time system, ``Decomposer``): np
+                             partitions of the composite domain, each
+                             within the cache's per-core share
   ==========  =============  ========================================
 
 Levels are classified by name, as in the reference, but with the port's
@@ -26,10 +30,16 @@ level of a decode workload (as ``VMEM`` is both in the reference), and
 ``NVLINK`` the mesh level.  Both SMEM searches consult the port's tuning
 artifact (``tune.cache``) with precedence analytic < tuned.  The page
 level also records the prefix cache's budget (``prefix_budget()``), and a
-plan round-trips through JSON (``to_json``/``from_json``).  The
-host-cache and DCN paths of the reference (``replicas()``), ``describe``
-and the ``strategy``/``max_np``/``tcl`` policy knobs wait for later
-slices.
+plan round-trips through JSON (``to_json``/``from_json``) and prints as
+one line a level (``describe``).  A ``domain`` workload makes every level
+with a cache line a cache level, except the register file: the port's
+register level is ``REG`` (``REGISTER_LEVEL_NAMES``), where the
+reference excludes its ``VREG``, so a domain planned on
+``h100_hierarchy`` gets no cache search at the registers.
+``PlanPolicy.tcl`` restricts that search to one named level (other cache
+levels pass through as containers), and the cache path needs neither a
+card spec nor the tuning artifact.  The reference's DCN path and
+``replicas()`` wait for the cluster slice.
 
 On Hopper the planned page is the pool's allocation granule and the
 prefill chunk, and nothing more: ``phi_page`` prices two buffered pages of
@@ -50,8 +60,11 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 from repro_torch.core.autotile import MatmulTilePlan
 from repro_torch.core.decompose import (
     NoValidDecomposition,
+    PhiFn,
+    _next_structurally_valid,
     find_optimal_np,
     make_phi_mesh,
+    phi_simple,
     validate_np,
 )
 from repro_torch.core.distribution import (
@@ -68,13 +81,28 @@ __all__ = [
     "PAGE_LEVEL_NAMES",
     "HierarchicalPlan",
     "LevelPlan",
+    "PlanError",
     "PlanPolicy",
+    "REGISTER_LEVEL_NAMES",
     "TILE_LEVEL_NAMES",
     "Workload",
     "leaf_matmul_plan",
     "plan_run",
     "quantize_divisor",
 ]
+
+
+class PlanError(RuntimeError):
+    """A structurally inadmissible plan for the caller's context.  Carries
+    the offending level name and the full plan so callers can report or
+    re-plan instead of string-matching a message."""
+
+    def __init__(self, message: str, *, level: Optional[str] = None,
+                 plan: Optional["HierarchicalPlan"] = None):
+        super().__init__(message)
+        self.level = level
+        self.plan = plan
+
 
 #: Interconnect levels: the level below holds the copies the search
 #: partitions against (the cards' HBMs under NVLINK).
@@ -85,6 +113,10 @@ PAGE_LEVEL_NAMES = ("SMEM",)
 
 #: The level a matmul workload's kernel tile is fit against: the same.
 TILE_LEVEL_NAMES = ("SMEM",)
+
+#: The register file: it has an access granule but is no cache, so a
+#: ``domain`` workload never searches it (the reference's ``VREG``).
+REGISTER_LEVEL_NAMES = ("REG",)
 
 #: Fallback sharding granule when no level below carries a line size.
 DEFAULT_GRANULE = 128
@@ -100,11 +132,13 @@ PAGE_BUFFERING = 2
 
 @dataclass(frozen=True)
 class Workload:
-    """What is decomposed: the decode (serving) workload or one matmul.
+    """What is decomposed: the decode (serving) workload, one matmul, or a
+    paper-style composite domain.
 
     ``state_bytes`` is the shardable resident KV, ``replicated_bytes`` the
     per-card reserve (weights, activations).  ``matmul`` is the local
-    ``C[m,n] = A[m,k] @ B[k,n]`` the SMEM level tiles.
+    ``C[m,n] = A[m,k] @ B[k,n]`` the SMEM level tiles.  ``domain`` is a
+    composite of ``Distribution``s for the host's cache levels.
     ``kv_bytes_per_token`` is the global per-token KV footprint (bytes x
     heads x layers), ``kv_layers`` and ``kv_heads`` its layer count and
     shardable head extent, ``max_tokens`` one sequence's resident-token
@@ -116,6 +150,7 @@ class Workload:
     matmul: Optional[Tuple[int, int, int]] = None
     dtype_bytes: int = 2
     overhead: float = 1.0
+    domain: Optional[Tuple[Distribution, ...]] = None
     kv_bytes_per_token: int = 0
     kv_layers: int = 1
     kv_heads: int = 0
@@ -125,13 +160,19 @@ class Workload:
 @dataclass(frozen=True)
 class PlanPolicy:
     """How to search: ``n_workers`` seeds the outermost level,
-    ``quantize`` snaps mesh-level counts to realizable divisors, ``order``
+    ``quantize`` snaps mesh-level counts to realizable divisors,
+    ``strategy`` is the host-cache search's (the paper's proposal or its
+    horizontal baseline, np = nWorkers), ``tcl`` restricts that search to
+    one named level, ``cache_phi`` is its footprint estimator, ``order``
     is the matmul traversal, ``spec`` the card whose granules align the
     tile (default: an H100 SXM), and ``use_tuned`` consults the port's
     tuning artifact (precedence analytic < tuned)."""
 
     n_workers: int = 1
     quantize: bool = True
+    strategy: str = "cache_conscious"   # | "horizontal"
+    tcl: Optional[str] = None
+    cache_phi: PhiFn = phi_simple
     order: str = "cc"
     spec: Optional[Any] = None          # hw.h100.H100Spec
     use_tuned: bool = True
@@ -144,7 +185,7 @@ class LevelPlan:
     count, ``detail`` a JSON-safe, kind-specific payload."""
 
     level: str
-    kind: str                    # mesh | tile | page | container | leaf
+    kind: str            # mesh | tile | page | cache | container | leaf
     phi: str = ""
     budget_bytes: int = 0
     granule_bytes: int = 0
@@ -269,6 +310,58 @@ class HierarchicalPlan:
     def from_json(cls, s: str) -> "HierarchicalPlan":
         return cls.from_dict(json.loads(s))
 
+    def describe(self) -> List[str]:
+        """One printable line per level, indented by depth (the reference's
+        lines; the tile line names shared memory)."""
+        lines = []
+        for depth, lp in enumerate(self.levels()):
+            ind = "  " * depth
+            if lp.kind == "mesh":
+                lines.append(
+                    f"{ind}{lp.level}[mesh] np_raw={lp.np_raw} "
+                    f"quantized={lp.np} extent={lp.extent} "
+                    f"workers={lp.n_workers} budget={_fmt(lp.budget_bytes)} "
+                    f"shard={_fmt(int(lp.detail.get('shard_bytes', 0)))} "
+                    f"fits={lp.fits} phi={lp.phi}")
+            elif lp.kind == "tile":
+                t = lp.detail["tile"]
+                lines.append(
+                    f"{ind}{lp.level}[tile] block={t['bm']}x{t['bk']}x"
+                    f"{t['bn']} np={lp.np} workers={lp.n_workers} "
+                    f"smem={_fmt(t['est_vmem_bytes'])}/"
+                    f"{_fmt(lp.budget_bytes)} order={t['order']} "
+                    f"fits={lp.fits} phi={lp.phi} "
+                    f"src={t.get('source', 'analytic')}")
+            elif lp.kind == "page":
+                pg = lp.detail["page"]
+                lines.append(
+                    f"{ind}{lp.level}[page] page_tokens={pg['page_tokens']} "
+                    f"page={_fmt(pg['page_bytes'])} x{pg['buffering']} "
+                    f"kv_shard={pg['kv_shard']} np={lp.np} "
+                    f"budget={_fmt(lp.budget_bytes)} fits={lp.fits} "
+                    f"phi={lp.phi} src={pg.get('source', 'analytic')}")
+            elif lp.kind == "cache":
+                lines.append(
+                    f"{ind}{lp.level}[cache] np={lp.np} "
+                    f"workers={lp.n_workers} budget={_fmt(lp.budget_bytes)} "
+                    f"part={_fmt(int(lp.partition_bytes))} fits={lp.fits} "
+                    f"phi={lp.phi}")
+            elif lp.kind == "leaf":
+                lines.append(
+                    f"{ind}{lp.level}[leaf] granule={lp.granule_bytes}B "
+                    f"size={_fmt(lp.budget_bytes)}")
+            else:
+                lines.append(
+                    f"{ind}{lp.level}[container] size={_fmt(lp.budget_bytes)}")
+        return lines
+
+
+def _fmt(b: float) -> str:
+    for unit, s in (("GiB", 1 << 30), ("MiB", 1 << 20), ("KiB", 1 << 10)):
+        if b >= s:
+            return f"{b / s:.1f}{unit}"
+    return f"{int(b)}B"
+
 
 def quantize_divisor(np_raw: int, extent: int, multiple_of: int = 1) -> int:
     """Smallest divisor of ``extent`` >= ``np_raw`` (and a multiple of
@@ -293,14 +386,22 @@ def _granule_below(level: MemoryLevel) -> int:
     return DEFAULT_GRANULE
 
 
-def _classify(level: MemoryLevel, workload: Workload) -> str:
+def _classify(level: MemoryLevel, workload: Workload,
+              policy: PlanPolicy) -> str:
     if level.name in MESH_LEVEL_NAMES and level.child is not None:
         return "mesh"
     if level.name in TILE_LEVEL_NAMES and workload.matmul is not None:
         return "tile"
     if (workload.kv_bytes_per_token > 0 and workload.matmul is None
-            and level.name in PAGE_LEVEL_NAMES):
+            and workload.domain is None and level.name in PAGE_LEVEL_NAMES):
         return "page"
+    if workload.domain is not None:
+        if policy.tcl is not None:
+            if level.name == policy.tcl:
+                return "cache"
+        elif (level.cache_line_size is not None
+              and level.name not in REGISTER_LEVEL_NAMES):
+            return "cache"
     if level.child is None:
         return "leaf"
     return "container"
@@ -511,6 +612,33 @@ def _tuned_page_tokens(policy: PlanPolicy, tok_bytes: int, tokens: int,
     return pt, _tuning_detail(entry)
 
 
+def _plan_cache_level(level: MemoryLevel, workload: Workload,
+                      policy: PlanPolicy, n_workers: int) -> LevelPlan:
+    """The paper's host-cache search (``Decomposer``) as one plan level:
+    Algorithm 1 over the composite domain against the cache's per-core
+    share, or, horizontally, the first admissible np >= nWorkers."""
+    dists = list(workload.domain)
+    budget = level.per_core_size()
+    line = level.cache_line_size or 64
+    phi = policy.cache_phi
+    if policy.strategy == "horizontal":
+        np_raw = _next_structurally_valid(dists, max(1, n_workers), 1 << 30)
+        if np_raw is None:
+            raise NoValidDecomposition("horizontal: nWorkers not admissible")
+        fits = validate_np(budget, line, dists, np_raw, phi) == 1
+    else:
+        np_raw = find_optimal_np(budget, line, dists, n_workers, phi)
+        fits = True
+    part = sum(phi(line, d, np_raw) for d in dists)
+    return LevelPlan(
+        level=level.name, kind="cache",
+        phi=getattr(phi, "__name__", "phi"),
+        budget_bytes=budget, granule_bytes=line,
+        n_workers=max(1, n_workers), extent=0,
+        np_raw=np_raw, np=np_raw, partition_bytes=part, fits=fits,
+    )
+
+
 def plan_run(hierarchy: MemoryLevel, workload: Workload,
              policy: PlanPolicy = PlanPolicy()) -> HierarchicalPlan:
     """Decompose ``workload`` against the whole ``hierarchy``.
@@ -519,7 +647,9 @@ def plan_run(hierarchy: MemoryLevel, workload: Workload,
     and that child level (HBM under NVLINK) is consumed by the search, so
     ``NVLINK -> HBM -> L2 -> SMEM -> REG`` plans as NVLINK[mesh] ->
     L2[container] -> SMEM[page] -> REG[leaf].  Each level's realized ``np``
-    threads down as the next level's worker count.
+    threads down as the next level's worker count.  A ``domain`` workload
+    on a host tree plans RAM[container] -> L3/L2/L1[cache] (or, with
+    ``tcl``, only that level as a cache).
     """
     nodes: List[LevelPlan] = []
     np_thread = max(1, policy.n_workers)
@@ -527,7 +657,7 @@ def plan_run(hierarchy: MemoryLevel, workload: Workload,
     mesh_budget = 0
     level: Optional[MemoryLevel] = hierarchy
     while level is not None:
-        kind = _classify(level, workload)
+        kind = _classify(level, workload, policy)
         if kind == "mesh":
             node = _plan_mesh_level(level, workload, policy, np_thread)
             nodes.append(node)
@@ -551,6 +681,10 @@ def plan_run(hierarchy: MemoryLevel, workload: Workload,
                                     kv_shard, mesh_budget_bytes=mesh_budget)
             nodes.append(node)
             np_thread = node.np_raw
+        elif kind == "cache":
+            node = _plan_cache_level(level, workload, policy, np_thread)
+            nodes.append(node)
+            np_thread = node.np
         else:
             nodes.append(_record_level(level, kind, np_thread))
         level = level.child
