@@ -216,8 +216,31 @@ Phases (each prints its results; the script exits non-zero if any fails):
      cache-conscious.  The bodies are the caller's numpy code: the product
      numpy's unblocked ``einsum(..., optimize=False)`` over views, the
      sweep the reference benchmark's 5-point update of a padded copy.
+ 32. the serving cluster on the card, llama3.2-1b at full width and depth:
+     (a) ``plan_decode(cluster=2)`` places 2 replicas at the DCN level
+     with the single engine's page table below it, and a 2-host hierarchy
+     without ``cluster`` raises ``PlanError`` at DCN; the card memory one
+     spawned worker holds outside its allocator is measured and must fit
+     ``cluster.CONTEXT_BYTES``; (b) float32, 6 prompts of 300-700 tokens,
+     16 new each, greedy: one engine (one slot, radix cache, one prompt a
+     call), a 2-replica ``ServeCluster`` over threads (every paged launch
+     ``simt``, as float32 routes it, one per layer and tick or chunk) and
+     one over spawned processes give identical tokens, with the
+     placements printed; (e) ``ClusterServer`` in front of the spawned
+     cluster streams one prompt's tokens as NDJSON, equal to (b)'s, and
+     ``/stats`` lists 2 replicas; (d) disaggregated 1:1 over spawned
+     processes: the 700-token prompt's pages cross the spawn queues as
+     host numpy (pages, bytes and seconds printed), the decode replica
+     hits all of them, and its tokens equal (b)'s; (c) bf16, 16 requests
+     of 512 prompt tokens and 64 new ones, all submitted at once, policy
+     ``free_pages``, 8 slots an engine: one engine, 2 thread replicas
+     (every paged launch ``split``) and 2 spawned ones side by side --
+     wall, tok/s, TTFT p50/p95, each replica's pages, tokens and KV
+     budget, the card's used memory before, during and after, nvidia-smi's
+     utilization and the profiled busy share (in-process ways only).
+     Replicas on one card split its HBM (``cluster.replica_kv_budget``).
 
-Phases 0-4 and 7-30 plan and serve without a tuning artifact (the port's
+Phases 0-4, 7-30 and 32 plan and serve without a tuning artifact (the port's
 tuning path points at a file that does not exist until phase 6 writes
 one), so their numbers compare with earlier runs'.  Each phase prints its
 seconds.
@@ -225,7 +248,8 @@ seconds.
 Output, at the end: one JSON line describing the kernels (the zamba2,
 mixtral, deepseek and whisper shapes nested under the paged and SSD
 entries, the cohort engine's ``ssd_scan`` launches and shapes under
-``cohort``, and the radix cache's warm launches under ``prefix``), the
+``cohort``, the radix cache's warm launches under ``prefix`` and the
+cluster's under ``cluster``), the
 card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script fails before printing results.
@@ -3196,6 +3220,431 @@ def phase_paper_engine(smi: str) -> dict:
     return {"cpu": cpu, "tree": label, "groups": groups, "runs": rows}
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the serving cluster on one card (the planner's DCN level, two
+# replicas behind the router over threads and over spawned processes,
+# disaggregated prefill/decode, the HTTP front end)
+# ---------------------------------------------------------------------------
+
+#: Replicas of the fleet, and the planning bound of every engine of it.
+CLUSTER_N = 2
+CLUSTER_MAX_LEN = 1024
+#: (b): float32, greedy, one request a call; (d) serves prompt
+#: ``DISAGG_PROMPT`` of them disaggregated.
+CLUSTER_LENS = (300, 700, 420, 555, 333, 640)
+CLUSTER_NEW = 16
+DISAGG_PROMPT = 1
+#: (c): bf16, 16 requests of 512 prompt tokens and 64 new ones each, all
+#: submitted at once; ``MAX_SLOTS`` slots per engine; two windows of
+#: ``CLUSTER_PROFILED`` more requests of 16 new tokens, one timed and one
+#: profiled.
+CLUSTER_REQS = 16
+CLUSTER_PROMPT = 512
+CLUSTER_SERVE_NEW = 64
+CLUSTER_PROFILED = 4
+#: Seconds any one reply of a worker may take (the first builds its
+#: engine: full-width weights on the card).
+CLUSTER_TIMEOUT = 900.0
+
+
+def card_used() -> int:
+    """Bytes in use on the card, by every process (``mem_get_info``)."""
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+class CardSampler:
+    """Beside a run, every 0.2 s: the card's used memory (every process's)
+    and ``nvidia-smi``'s ``utilization.gpu``, the share of the last sample
+    period in which a kernel of any process ran.  ``row()`` gives the peak
+    memory and the mean utilization ("not measured" where nvidia-smi gave
+    no number)."""
+
+    def __init__(self):
+        import threading
+
+        self.used, self.util = [], []
+        self._stop = threading.Event()
+        self._threads = []
+        self._smi = None
+
+    def __enter__(self):
+        import threading
+
+        self._smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+        def read_smi():
+            for line in self._smi.stdout:
+                if line.strip().isdigit():
+                    self.util.append(int(line.strip()))
+
+        def read_mem():
+            while not self._stop.wait(0.2):
+                self.used.append(card_used())
+
+        self._threads = [threading.Thread(target=f, daemon=True)
+                         for f in (read_smi, read_mem)]
+        for th in self._threads:
+            th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._smi.terminate()
+        self._smi.wait(10)
+        for th in self._threads:
+            th.join(10)
+        return False
+
+    def row(self) -> dict:
+        return {
+            "mem_during_gb": max(self.used) / 1e9 if self.used else None,
+            "smi_util_mean": (float(np.mean(self.util)) if self.util
+                              else "not measured"),
+            "smi_util_samples": len(self.util),
+        }
+
+
+def profiled_busy(serve, windows) -> dict:
+    """The card's busy share as phases 4 and 9 read it (``profile_serve``):
+    ``serve(windows[0])`` unprofiled and timed, then ``serve(windows[1])``
+    (fresh prompts of the same shapes) under ``torch.profiler``; CUDA
+    kernel time (this process's kernels only) over the profiled call's
+    wall, which holds the profiler's own host cost, and over the
+    unprofiled call's (two calls, so an estimate)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(windows[0])
+    torch.cuda.synchronize()
+    plain_us = (time.perf_counter() - t0) * 1e6
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve(windows[1])
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return {"busy_share": busy_us / wall_us,
+            "busy_share_unprofiled_wall": busy_us / plain_us}
+
+
+def cluster_prompts(cfg, lens, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, n, dtype=np.int32).tolist()
+            for n in lens]
+
+
+def cluster_plan(cfg, dtype_bytes: int, batch: int):
+    """(a) The fleet plan: ``plan_decode(cluster=2)`` places 2 whole
+    replicas at the DCN level, with the single engine's page table below
+    it; a 2-host hierarchy without ``cluster`` raises at DCN."""
+    from repro_torch.core.plan import PlanError
+    from repro_torch.hw.h100 import h100_spec
+    from repro_torch.serve.engine import plan_decode
+
+    kw = dict(max_len=CLUSTER_MAX_LEN, batch=batch, dtype_bytes=dtype_bytes)
+    fleet = plan_decode(cfg, cluster=CLUSTER_N, **kw)
+    single = plan_decode(cfg, **kw)
+    dcn = fleet.level("DCN")
+    assert fleet.replicas() == dcn.np == CLUSTER_N, (fleet.replicas(), dcn)
+    assert dcn.detail["placement"] == "replicas", dcn.detail
+    assert dict(fleet.page_table()) == dict(single.page_table())
+    try:
+        plan_decode(cfg, hierarchy=h100_spec().hierarchy(hosts=CLUSTER_N),
+                    **kw)
+    except PlanError as e:
+        assert e.level == "DCN", e.level
+    else:
+        raise AssertionError("a DCN plan without cluster= was accepted")
+    for line in fleet.describe():
+        log(f"    {line}")
+    return fleet
+
+
+def routed(cluster, prompts, max_new: int) -> tuple:
+    """Every prompt submitted at once through the router; every reply
+    read (an ``err`` reply, a dead worker or a timeout raises).  Returns
+    the outputs in order, each request's replica, the sorted TTFTs
+    (``ClusterRequest.ttft``: from submission) and the wall seconds."""
+    t0 = time.perf_counter()
+    crs = [cluster.submit(p, max_new) for p in prompts]
+    outs = [cr.result(timeout=CLUSTER_TIMEOUT) for cr in crs]
+    wall = time.perf_counter() - t0
+    assert [len(o) for o in outs] == [max_new] * len(prompts), outs
+    return outs, [cr.replica for cr in crs], \
+        sorted(cr.ttft() for cr in crs), wall
+
+
+def build_replicas(replicas, warm_prompts=None) -> None:
+    """Each replica builds its engine (one ``stats`` instruction each, all
+    at once); with ``warm_prompts``, each then serves one of them for 2
+    tokens (the kernels' first launches), outside any measurement, and
+    answers one more ``stats`` instruction, so that every spawned
+    replica's last tick is its warm-up's before the router reads it (a
+    tick still in flight would show one replica's pool fuller than the
+    other's, and ``free_pages`` would send a whole burst to the other)."""
+    calls = [rep.submit("stats", None) for rep in replicas]
+    for call in calls:
+        call.wait(CLUSTER_TIMEOUT)
+    if warm_prompts:
+        calls = [rep.generate([warm_prompts[i]], 2)
+                 for i, rep in enumerate(replicas)]
+        for call in calls:
+            call.wait(CLUSTER_TIMEOUT)
+        for call in [rep.submit("stats", None) for rep in replicas]:
+            call.wait(CLUSTER_TIMEOUT)
+
+
+def http_check(cluster, prompt, want) -> dict:
+    """(e) ``ClusterServer`` in front of ``cluster``: one ``POST
+    /generate`` streams NDJSON tokens equal to ``want``, ``GET /stats``
+    lists every replica and ``GET /healthz`` admits them."""
+    import urllib.request
+
+    from repro_torch.cluster import ClusterServer
+
+    srv = ClusterServer(cluster).start()
+    try:
+        host, port = srv.address
+        base = f"http://{host}:{port}"
+        req = urllib.request.Request(
+            f"{base}/generate", data=json.dumps(
+                {"tokens": prompt, "max_new_tokens": len(want)}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=CLUSTER_TIMEOUT) as r:
+            lines = [json.loads(x) for x in r.read().splitlines()
+                     if x.strip()]
+        streamed = []
+        for ln in lines:
+            assert "error" not in ln, ln
+            if ln.get("reset"):
+                streamed.clear()
+            elif "token" in ln:
+                streamed.append(ln["token"])
+        assert streamed == want and lines[-1].get("done") \
+            and lines[-1]["tokens"] == want, lines[-1]
+        with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
+            doc = json.loads(r.read())
+        assert len(doc["replicas"]) == CLUSTER_N, doc
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        assert health == {"ok": True, "replicas": CLUSTER_N,
+                          "admissible": CLUSTER_N}, health
+    finally:
+        srv.close()
+    return {"replica": lines[-1]["replica"], "lines": len(lines),
+            "stats_replicas": len(doc["replicas"])}
+
+
+def fresh_stats(cluster) -> list:
+    """Each replica's telemetry after one more ``stats`` instruction (a
+    spawned replica's tick of its last run has then arrived)."""
+    for rep in cluster.replicas:
+        rep.submit("stats", None).wait(CLUSTER_TIMEOUT)
+    return [rep.stats() for rep in cluster.replicas]
+
+
+def replica_rows(stats) -> list:
+    return [{"replica": s.replica, "free_pages": s.free_pages,
+             "pages_total": s.pages_total, "tokens": s.tokens,
+             "kv_budget_bytes": s.metrics.get("budget_bytes")}
+            for s in stats]
+
+
+def serve_way(name: str, run, stats) -> dict:
+    """One way of (c): ``run()`` serves the trace (returns outputs, TTFTs
+    and wall) beside a ``CardSampler``; ``stats()`` reads the replicas."""
+    with CardSampler() as smp:
+        outs, ttft, wall = run()
+    tokens = sum(len(o) for o in outs)
+    row = {"way": name, "wall_s": wall, "tokens": tokens,
+           "tok_s": tokens / wall,
+           "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_p95_s": float(np.percentile(ttft, 95)),
+           **smp.row(), "replicas": replica_rows(stats())}
+    return row
+
+
+def phase_cluster(pa_mod) -> dict:
+    """Phase 32: (a) the fleet plan; the context one spawned worker holds;
+    (b) float32 token identity of a single engine and 2-replica clusters
+    over threads and spawned processes; (e) HTTP in front of the spawned
+    cluster; (d) disaggregated 1:1 over spawned processes; (c) bf16
+    serving of a single engine and both clusters, side by side."""
+    import dataclasses
+
+    from repro_torch.cluster import (CONTEXT_BYTES, DisaggCluster,
+                                     EngineSpec, ReplicaStats, ServeCluster,
+                                     cuda_context_bytes, replica_kv_budget)
+
+    cfg = get_cfg()
+    mods = {"paged": pa_mod}
+    out = {}
+    log("  (a) the fleet plan, float32 at 1 slot and bf16 at "
+        f"{MAX_SLOTS} slots:")
+    plan32 = cluster_plan(cfg, 4, 1)
+    plan16 = cluster_plan(cfg, 2, MAX_SLOTS)
+    free_card()
+    ctx = cuda_context_bytes()
+    log(f"  one spawned worker's context (cuBLAS and a kernel library "
+        f"loaded): {ctx / 2**20:.1f} MiB, reserved per replica "
+        f"{CONTEXT_BYTES / 2**20:.0f} MiB")
+    assert 0 < ctx <= CONTEXT_BYTES, ctx
+    out["context_bytes"] = ctx
+
+    # (b) float32 token identity: one engine, one prompt a call.
+    spec32 = EngineSpec(arch=cfg.arch, reduced=False,
+                        max_new_tokens=CLUSTER_NEW, max_slots=1,
+                        max_len=CLUSTER_MAX_LEN, prefix_cache="radix",
+                        dtype="float32")
+    prompts = cluster_prompts(cfg, CLUSTER_LENS, 32)
+    single = spec32(0)
+    want = [single.generate([p], CLUSTER_NEW)[0] for p in prompts]
+    del single
+    free_card()
+    spec_t = dataclasses.replace(spec32, kv_budget_bytes=replica_kv_budget(
+        spec32, CLUSTER_N, 0))
+    cl = ServeCluster.from_plan(plan32, spec_t, transport="thread")
+    try:
+        zero_counts(mods)           # the cluster's main path starts here
+        got_t, placed_t, _, wall_t = routed(cl, prompts, CLUSTER_NEW)
+        f32 = read_counts(mods)["paged"]              # ... and ends here
+        steps = sum(int(rep.engine.metrics["decode_steps"])
+                    + int(rep.engine.metrics["prefill_chunks"])
+                    for rep in cl.replicas)
+    finally:
+        cl.close()
+    free_card()
+    log(f"  (b) thread: placements {placed_t}, {wall_t:.2f} s; paged "
+        f"launches {f32}")
+    assert got_t == want, "thread cluster tokens differ from one engine's"
+    # Float32 routes the paged kernel to its simt body.
+    assert f32["LAUNCHES"] == f32["LAUNCHES_SIMT"] \
+        == cfg.n_layers * steps > 0, (f32, steps)
+    spec_p = dataclasses.replace(spec32, kv_budget_bytes=replica_kv_budget(
+        spec32, CLUSTER_N, CONTEXT_BYTES))
+    cl = ServeCluster.from_plan(plan32, spec_p, transport="proc")
+    try:
+        build_replicas(cl.replicas)
+        got_p, placed_p, _, wall_p = routed(cl, prompts, CLUSTER_NEW)
+        log(f"  (b) proc: placements {placed_p}, {wall_p:.2f} s")
+        assert got_p == want, "proc cluster tokens differ from one engine's"
+        out["http"] = http_check(cl, prompts[0], want[0])
+        log(f"  (e) HTTP: {out['http']}")
+    finally:
+        cl.close()
+    out["identity"] = {"prompts": list(CLUSTER_LENS), "new": CLUSTER_NEW,
+                       "placed_thread": placed_t, "placed_proc": placed_p,
+                       "launches_thread": f32}
+
+    # (d) disaggregated 1:1 over spawned processes.
+    dc = DisaggCluster.from_plan(plan32, spec_p, split="1:1",
+                                 transport="proc")
+    try:
+        build_replicas(dc.prefill + dc.decode)
+        prompt = prompts[DISAGG_PROMPT]
+        got_d = dc.generate(prompt, CLUSTER_NEW)
+        tr = dc.last_transfer
+        dec = dc.decode[0]
+        dec.submit("stats", None).wait(CLUSTER_TIMEOUT)  # generate's tick
+        hit = int(dec.last_stats.metrics["prefix_hit_tokens"])
+    finally:
+        dc.close()
+    out["disagg"] = {"prompt": len(prompt), "pages": tr.n_pages,
+                     "page_tokens": tr.page_tokens, "bytes": tr.nbytes,
+                     "export_s": tr.export_s, "import_s": tr.import_s,
+                     "prefix_hit_tokens": hit}
+    log(f"  (d) disagg 1:1: {out['disagg']}")
+    assert tr.n_pages >= 3 and hit >= tr.n_pages * tr.page_tokens, \
+        out["disagg"]
+    assert got_d == want[DISAGG_PROMPT], "disagg tokens differ"
+    free_card()
+
+    # (c) bf16 serving, three ways.
+    spec16 = EngineSpec(arch=cfg.arch, reduced=False,
+                        max_new_tokens=CLUSTER_SERVE_NEW,
+                        max_slots=MAX_SLOTS, max_len=CLUSTER_MAX_LEN,
+                        prefix_cache="radix", dtype="bfloat16")
+    trace = cluster_prompts(cfg, (CLUSTER_PROMPT,) * CLUSTER_REQS, 33)
+    warm = cluster_prompts(cfg, (CLUSTER_PROMPT,) * CLUSTER_N, 34)
+    windows = [cluster_prompts(cfg, (CLUSTER_PROMPT,) * CLUSTER_PROFILED,
+                               seed) for seed in (35, 36)]
+    ways = []
+
+    before = card_used()
+    eng = spec16(0)
+    eng.generate(warm, max_new_tokens=2)
+
+    def run_single():
+        first = {}
+
+        def on_token(i, tok):
+            if tok is not None:
+                first.setdefault(i, time.monotonic())
+
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        outs = eng.generate(trace, on_token=on_token)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        return outs, sorted(first[i] - t0 for i in range(len(trace))), wall
+
+    row = serve_way("single", run_single,
+                    lambda: [ReplicaStats.from_engine(eng, 0)])
+    row.update(profiled_busy(
+        lambda w: eng.generate(w, max_new_tokens=16), windows))
+    del eng
+    free_card()
+    row["mem_before_gb"], row["mem_after_gb"] = before / 1e9, \
+        card_used() / 1e9
+    ways.append(row)
+
+    for transport, context in (("thread", 0), ("proc", CONTEXT_BYTES)):
+        spec = dataclasses.replace(spec16, kv_budget_bytes=replica_kv_budget(
+            spec16, CLUSTER_N, context))
+        before = card_used()
+        cl = ServeCluster.from_plan(plan16, spec, transport=transport,
+                                    policy="free_pages")
+        try:
+            build_replicas(cl.replicas, warm)
+
+            def run_cluster():
+                outs, _, ttft, wall = routed(cl, trace, CLUSTER_SERVE_NEW)
+                return outs, ttft, wall
+
+            zero_counts(mods)
+            row = serve_way(transport, run_cluster,
+                            lambda: fresh_stats(cl))
+            if transport == "thread":
+                bf16 = read_counts(mods)["paged"]
+                log(f"  (c) thread: paged launches {bf16}")
+                assert bf16["LAUNCHES"] == bf16["LAUNCHES_SPLIT"] > 0, bf16
+                row["launches"] = bf16
+                row.update(profiled_busy(lambda w: routed(cl, w, 16),
+                                         windows))
+            else:
+                row["busy_share"] = row["busy_share_unprofiled_wall"] = (
+                    "not measured: torch.profiler traces this process's "
+                    "kernels only")
+        finally:
+            cl.close()
+        free_card()
+        row["mem_before_gb"], row["mem_after_gb"] = before / 1e9, \
+            card_used() / 1e9
+        ways.append(row)
+    for row in ways:
+        log(f"  (c) {row['way']}: " + json.dumps(row))
+    out["serve"] = {row["way"]: row for row in ways}
+    return out
+
+
 def qwen_cfg():
     from repro_torch.configs import get_model_config
 
@@ -3327,6 +3776,7 @@ def main() -> int:
     kern = serve = tk = tune = zk = zserve = mk = mserve = xserve = None
     dk = dserve = wk = wserve = qslice = ab = cssd = cserve = None
     pparity = pllama = pzamba = pexport = pcli = pcap = ppaper = None
+    pcluster = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -3449,10 +3899,15 @@ def main() -> int:
         log("[31] the paper's run-time system on the card's host: MatMult "
             "and SOR through the port's Engine (host CPU times)")
         ppaper = phase("phase 31 paper engine", phase_paper_engine, smi)
+        free_card()
+        log(f"[32] the serving cluster on the card: llama3.2-1b at full "
+            f"width, {CLUSTER_N} replicas over threads and spawned "
+            f"processes, disaggregated 1:1, HTTP")
+        pcluster = phase("phase 32 cluster", phase_cluster, pa_mod)
     if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
                           xserve, dk, dserve, wk, wserve, qslice, ab, cssd,
                           cserve, pparity, pllama, pzamba, pexport, pcli,
-                          pcap, ppaper):
+                          pcap, ppaper, pcluster):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -3550,6 +4005,13 @@ def main() -> int:
         name: row["warm"]["launches"]["paged"]
         for name, row in (("llama", pllama), ("zamba2", pzamba))}
     ssd["prefix"] = {"zamba2": pzamba["warm"]["launches"]["ssd"]}
+    # The cluster (phase 32): the paged launches by body of the thread
+    # runs (float32 routes to simt, bf16 to split), and (c)'s tok/s.
+    kernels[0]["cluster"] = {
+        "launches_f32_thread": pcluster["identity"]["launches_thread"],
+        "launches_bf16_thread": pcluster["serve"]["thread"]["launches"],
+        "tok_s": {way: row["tok_s"]
+                  for way, row in pcluster["serve"].items()}}
     # Phases 26-27's warm and cold figures, then phase 24's, at the end of
     # the output, where the profiler tables above do not push them out.
     log("prefix serving: " + json.dumps({
@@ -3574,6 +4036,15 @@ def main() -> int:
                                       "n_workers", "np", "n_tasks", "s",
                                       "horizontal_over_cc")}
                  for row in ppaper["runs"]]}))
+    # Phase 32's figures, for the same reason.
+    log("cluster serving: " + json.dumps({
+        way: {k: row[k] for k in ("wall_s", "tok_s", "ttft_p50_s",
+                                  "ttft_p95_s", "mem_before_gb",
+                                  "mem_during_gb", "mem_after_gb",
+                                  "smi_util_mean", "busy_share",
+                                  "busy_share_unprofiled_wall")}
+        for way, row in pcluster["serve"].items()}))
+    log("cluster disagg: " + json.dumps(pcluster["disagg"]))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         log(f"FAILED: the main path never launched {missing}")

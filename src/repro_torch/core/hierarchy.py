@@ -10,6 +10,9 @@ caches, RAM on top), and ``paper_system_a``/``paper_system_i`` are the
 paper's two evaluation machines.  ``h100_hierarchy`` builds one card's
 tree:
 
+  DCN     with ``hosts > 1`` only: the network between hosts, one copy
+          of the NVLINK domain per host; the decode walk places whole
+          serving replicas there (``HierarchicalPlan.replicas()``)
   NVLINK  the interconnect level, over one card; its child copy is the
           card's HBM, so the decode walk sizes the page pool from the HBM
           left after the weights, as on the TPU mesh
@@ -249,6 +252,7 @@ def h100_hierarchy(
     n_sms: int = 132,
     reg_bytes: int = 65536 * 4,
     line_bytes: int = 128,
+    hosts: int = 1,
 ) -> MemoryLevel:
     """One H100 in the paper's schema.
 
@@ -257,11 +261,23 @@ def h100_hierarchy(
     access granule of L2 and shared memory is one 128 B line (32 banks of
     4 B); the sharding granule at the NVLINK level is read off the first
     level below HBM that has one.
+
+    With ``hosts > 1`` a ``DCN`` level goes on top, as the reference's
+    ``tpu_hierarchy`` puts one above its ICI: each host's NVLINK domain
+    (one card) is one copy of the DCN's target level, the NVLINK level's
+    ``siblings`` group the global card ids by host, and the DCN level is
+    ``hosts`` NVLINK domains in size.
     """
     sms = list(range(n_sms))
     per_sm = [[c] for c in sms]
     reg = MemoryLevel(reg_bytes, per_sm, 4, None, "REG")
     smem = MemoryLevel(smem_bytes, per_sm, line_bytes, reg, "SMEM")
     l2 = MemoryLevel(l2_bytes, [sms], line_bytes, smem, "L2")
-    hbm = MemoryLevel(hbm_bytes, [[0]], None, l2, "HBM")
-    return MemoryLevel(hbm_bytes, [[0]], None, hbm, "NVLINK")
+    hosts = max(1, hosts)
+    cards = list(range(hosts))
+    hbm = MemoryLevel(hbm_bytes, [[c] for c in cards], None, l2, "HBM")
+    nvlink = MemoryLevel(hbm_bytes, [[c] for c in cards], None, hbm,
+                         "NVLINK")
+    if hosts <= 1:
+        return nvlink
+    return MemoryLevel(hosts * nvlink.size, [cards], None, nvlink, "DCN")

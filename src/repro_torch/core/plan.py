@@ -7,6 +7,8 @@ paper's Algorithm-1 / §2.1.1 search once per level with that level's phi:
   ==========  =============  ========================================
   level       phi            what the search decides
   ==========  =============  ========================================
+  DCN         ``phi_mesh``   a decode workload: how many whole serving
+                             replicas the fleet stands up (``cluster``)
   NVLINK      ``phi_mesh``   KV head sharding over the host's cards
                              against one card's HBM
   SMEM        ``phi_smem``   a matmul workload: the kernel's tile
@@ -38,8 +40,12 @@ reference excludes its ``VREG``, so a domain planned on
 ``h100_hierarchy`` gets no cache search at the registers.
 ``PlanPolicy.tcl`` restricts that search to one named level (other cache
 levels pass through as containers), and the cache path needs neither a
-card spec nor the tuning artifact.  The reference's DCN path and
-``replicas()`` wait for the cluster slice.
+card spec nor the tuning artifact.  A decode workload at ``DCN`` places
+whole replicas, as in the reference: the fleet's resident KV is
+partitioned against one host's NVLINK domain, seeded by the requested
+replica count (``PlanPolicy.n_workers``), so memory pressure can only raise
+it; ``replicas()`` reads the realized count, and the walk below the DCN
+level plans one replica as a single host.
 
 On Hopper the planned page is the pool's allocation granule and the
 prefill chunk, and nothing more: ``phi_page`` prices two buffered pages of
@@ -105,8 +111,9 @@ class PlanError(RuntimeError):
 
 
 #: Interconnect levels: the level below holds the copies the search
-#: partitions against (the cards' HBMs under NVLINK).
-MESH_LEVEL_NAMES = ("NVLINK",)
+#: partitions against (the cards' HBMs under NVLINK, the hosts' NVLINK
+#: domains under DCN).
+MESH_LEVEL_NAMES = ("DCN", "NVLINK")
 
 #: The level a decode KV page is fit against: one block's shared memory.
 PAGE_LEVEL_NAMES = ("SMEM",)
@@ -279,6 +286,18 @@ class HierarchicalPlan:
         page = self.page_plan()
         return int(page["page_tokens"]) if page else None
 
+    def replicas(self) -> int:
+        """The DCN level's realized partition count for a decode workload:
+        the number of serving replicas the fleet stands up (1 when the
+        plan has no DCN level).  ``repro_torch.cluster`` is the consumer:
+        the DCN level places whole replicas (``detail["placement"] ==
+        "replicas"``), so the cluster's width is the planner's outermost
+        decision."""
+        dcn = self.level("DCN")
+        if dcn is None:
+            return 1
+        return int(dcn.detail.get("replicas", dcn.np))
+
     def kv_shard(self) -> int:
         """The KV head sharding degree the innermost mesh level chose."""
         shard = 1
@@ -420,12 +439,16 @@ def _record_level(level: MemoryLevel, kind: str, n_workers: int) -> LevelPlan:
 
 def _plan_mesh_level(level: MemoryLevel, workload: Workload,
                      policy: PlanPolicy, n_workers: int) -> LevelPlan:
-    """Algorithm 1 with one child copy (a card's HBM) as the TCL."""
+    """Algorithm 1 with one child copy as the TCL (a card's HBM under
+    NVLINK, a host's NVLINK domain under DCN)."""
     child = level.child
     budget = child.size
     granule = _granule_below(child)
     extent = max(1, len(child.siblings))
     phi = make_phi_mesh(overhead=workload.overhead)
+    if workload.kv_heads > 0 and level.name == "DCN":
+        return _plan_replicas(level, workload, policy, n_workers, budget,
+                              granule, extent, phi)
     dists: List[Distribution] = [
         Array1DDistribution(length=max(1, workload.state_bytes),
                             element_size=1)
@@ -469,6 +492,47 @@ def _plan_mesh_level(level: MemoryLevel, workload: Workload,
         n_workers=max(1, n_workers), extent=extent,
         np_raw=np_raw, np=np_q, partition_bytes=part, fits=fits,
         detail=detail,
+    )
+
+
+def _plan_replicas(level: MemoryLevel, workload: Workload,
+                   policy: PlanPolicy, n_workers: int, budget: int,
+                   granule: int, extent: int, phi) -> LevelPlan:
+    """A decode workload at the DCN level: the placement unit is a whole
+    replica (request-level data parallelism), not a KV head slice.  Each
+    host holds a full model copy and one share of the fleet's resident KV:
+    ``state_bytes`` is one replica's, so the fleet's demand is ``state x
+    extent``, partitioned against one host's NVLINK domain and seeded by
+    the requested replica count (``n_workers``) -- memory pressure can
+    only raise the count, never shrink it below the request."""
+    fleet: List[Distribution] = [Array1DDistribution(
+        length=max(1, workload.state_bytes) * extent, element_size=1)]
+    if workload.replicated_bytes:
+        fleet.append(ReplicatedDistribution(workload.replicated_bytes))
+    try:
+        np_raw = find_optimal_np(budget, granule, fleet, n_workers, phi,
+                                 max_np=extent)
+        fits = True
+    except NoValidDecomposition:
+        np_raw, fits = extent, False
+    np_q = (quantize_divisor(np_raw, extent, multiple_of=n_workers)
+            if policy.quantize else np_raw)
+    part = sum(phi(granule, d, np_q) for d in fleet)
+    return LevelPlan(
+        level=level.name, kind="mesh", phi="phi_mesh",
+        budget_bytes=budget, granule_bytes=granule,
+        n_workers=max(1, n_workers), extent=extent,
+        np_raw=np_raw, np=np_q, partition_bytes=part, fits=fits,
+        detail={
+            "tcl_level": level.child.name,
+            "sharded_bytes": workload.state_bytes * extent,
+            "replicated_bytes": workload.replicated_bytes,
+            "shard_bytes": -(-max(1, workload.state_bytes) * extent
+                             // np_q),
+            "overhead": workload.overhead,
+            "placement": "replicas",
+            "replicas": np_q,
+        },
     )
 
 
@@ -647,7 +711,9 @@ def plan_run(hierarchy: MemoryLevel, workload: Workload,
     and that child level (HBM under NVLINK) is consumed by the search, so
     ``NVLINK -> HBM -> L2 -> SMEM -> REG`` plans as NVLINK[mesh] ->
     L2[container] -> SMEM[page] -> REG[leaf].  Each level's realized ``np``
-    threads down as the next level's worker count.  A ``domain`` workload
+    threads down as the next level's worker count, except a DCN level's
+    replica count: each replica re-runs the walk below as one host.  A
+    ``domain`` workload
     on a host tree plans RAM[container] -> L3/L2/L1[cache] (or, with
     ``tcl``, only that level as a cache).
     """
@@ -662,6 +728,11 @@ def plan_run(hierarchy: MemoryLevel, workload: Workload,
             node = _plan_mesh_level(level, workload, policy, np_thread)
             nodes.append(node)
             np_thread = node.np
+            if node.detail.get("placement") == "replicas":
+                # Replica placement partitions requests across the fleet,
+                # not one request's state: the fleet width does not thread
+                # down as the next level's worker count.
+                np_thread = 1
             if "kv_shard" in node.detail:
                 kv_shard = int(node.detail["kv_shard"])
             mesh_budget = node.budget_bytes      # innermost mesh level wins

@@ -55,9 +55,10 @@ class H100Spec:
         """Elements of one ``wgmma`` depth step: 16 bf16, 8 float32."""
         return max(1, self.mma_depth_bytes // max(1, dtype_bytes))
 
-    def hierarchy(self) -> MemoryLevel:
+    def hierarchy(self, hosts: int = 1) -> MemoryLevel:
         """This card in the paper's §3.1 schema:
-        NVLINK -> HBM -> L2 -> SMEM -> REG."""
+        NVLINK -> HBM -> L2 -> SMEM -> REG, under a DCN level over
+        ``hosts`` such hosts when ``hosts > 1``."""
         return h100_hierarchy(
             hbm_bytes=self.hbm_bytes,
             smem_bytes=self.smem_bytes,
@@ -65,6 +66,7 @@ class H100Spec:
             n_sms=self.num_sms,
             reg_bytes=self.regs_per_sm * 4,
             line_bytes=self.smem_line_bytes,
+            hosts=hosts,
         )
 
 

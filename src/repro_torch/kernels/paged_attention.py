@@ -30,13 +30,15 @@ never waits for the card.
 
 ``LAUNCHES_SPLIT``, ``LAUNCHES_MLA`` and ``LAUNCHES_SIMT`` count kernel
 launches by body (never CPU calls); ``LAUNCHES`` is their sum, so a run
-can show its main path went through the kernel.
+can show its main path went through the kernel.  They count under a lock:
+the cluster's thread transport launches from one thread per replica.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -50,6 +52,7 @@ LAUNCHES_SPLIT = 0
 LAUNCHES_MLA = 0
 LAUNCHES_SIMT = 0
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 #: Tokens of a page the simt body stages at a time (``kTileTokens``), and
 #: its heads and tokens a block where the whole group does not fit
@@ -227,13 +230,14 @@ def kernel_smem_bytes(group: int, head_dim: int, page_tokens: int,
 
 def _count(path: str) -> None:
     global LAUNCHES, LAUNCHES_MLA, LAUNCHES_SIMT, LAUNCHES_SPLIT
-    if path == "split":
-        LAUNCHES_SPLIT += 1
-    elif path == "mla":
-        LAUNCHES_MLA += 1
-    else:
-        LAUNCHES_SIMT += 1
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        if path == "split":
+            LAUNCHES_SPLIT += 1
+        elif path == "mla":
+            LAUNCHES_MLA += 1
+        else:
+            LAUNCHES_SIMT += 1
+        LAUNCHES += 1
 
 
 def paged_attention(

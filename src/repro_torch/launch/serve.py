@@ -14,13 +14,24 @@ paged engine).  ``--metrics_interval S`` prints the registry every S
 seconds while it runs, ``--stats 1`` the registry at the end, ``--trace
 out.json`` the Chrome trace.
 
-The reference's fleet options (``--cluster N``, ``--disagg P:D``,
-``--serve``) belong to the cluster, which the port has not ported yet:
-they exit with a message saying so.
+``--cluster N`` serves through ``repro_torch.cluster`` instead of one
+engine: ``plan_decode(cluster=N)`` grows a DCN level whose realized ``np``
+is the fleet width, N replicas stand up behind a router (``--policy
+{free_pages,least_loaded,round_robin}``, ``--transport {thread,proc}``:
+threads of this process or spawned processes), and ``--serve 1`` binds
+the streaming HTTP front end on ``--port``.  ``--disagg P:D`` splits the
+fleet into prefill and decode roles with ring-ordered KV page streaming
+between them (P + D replicas); a transfer needs the prompt to span at
+least one planned page, so at reduced size pass ``--smem_kib 16`` to force
+a small page.  The replicas share one card, so each gets
+``cluster.replica_kv_budget``: one engine's planned KV budget less the
+other replicas' weights and, for spawned workers, every worker's CUDA
+context, divided by their count.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 
@@ -33,12 +44,6 @@ def main(argv=None) -> int:
     from repro_torch.serve import SamplingConfig, ServeEngine, ServePolicy
 
     overrides, _ = parse_cli(argv if argv is not None else sys.argv[1:])
-    for key in ("cluster", "disagg", "serve"):
-        if key in overrides:
-            raise SystemExit(
-                f"--{key}: the cluster (replicas behind a router, "
-                f"disaggregated prefill/decode, the HTTP front end) is not "
-                f"ported to repro_torch yet; serve one engine without it")
     arch = overrides.pop("arch", "llama3.2-1b")
     n_new = int(overrides.pop("tokens", "16"))
     batch = int(overrides.pop("batch", "4"))
@@ -56,6 +61,13 @@ def main(argv=None) -> int:
     metrics_interval = float(overrides.pop("metrics_interval", "0"))
     show_stats = overrides.pop("stats", "0").lower() in ("1", "true",
                                                          "yes")
+    cluster = int(overrides.pop("cluster", "0"))
+    disagg = overrides.pop("disagg", "")
+    policy = overrides.pop("policy", "free_pages")
+    serve_http = overrides.pop("serve", "0").lower() in ("1", "true", "yes")
+    port = int(overrides.pop("port", "8480"))
+    transport = overrides.pop("transport", "thread")
+    smem_kib = int(overrides.pop("smem_kib", "0"))
     if overrides:
         raise SystemExit(f"unknown options: {sorted(overrides)}")
 
@@ -71,6 +83,15 @@ def main(argv=None) -> int:
                          f"got {prefill!r}")
     if prefix not in ("off", "radix"):
         raise SystemExit(f"--prefix must be off|radix, got {prefix!r}")
+    if serve_http and not (cluster or disagg):
+        raise SystemExit("--serve fronts a cluster: pass --cluster N")
+    if cluster or disagg:
+        return _main_cluster(
+            arch=arch, cfg=cfg, n_new=n_new, batch=batch,
+            prompt_len=prompt_len, seed=seed, cluster=cluster, disagg=disagg,
+            policy=policy, serve_http=serve_http, port=port,
+            transport=transport, smem_kib=smem_kib, device=device,
+            trace_path=trace_path, show_stats=show_stats)
     engine = ServeEngine(
         cfg, ServePolicy(max_new_tokens=n_new, max_slots=max(1, batch),
                          max_len=prompt_len + n_new + 1,
@@ -151,6 +172,124 @@ def _metrics_ticker(registry, interval_s: float):
     threading.Thread(target=run, name="metrics-ticker",
                      daemon=True).start()
     return stop.set
+
+
+def _main_cluster(*, arch, cfg, n_new, batch, prompt_len, seed, cluster,
+                  disagg, policy, serve_http, port, transport, smem_kib=0,
+                  device=None, trace_path="", show_stats=False) -> int:
+    """``--cluster N [--disagg P:D] [--serve 1]``: the fleet width comes
+    from the plan's DCN level, each replica hosts one ``ServeEngine``
+    (float32, the radix prefix cache on), the router places by
+    ``--policy``."""
+    import numpy as np
+
+    from repro_torch.cluster import (CONTEXT_BYTES, ClusterServer,
+                                     DisaggCluster, EngineSpec, ServeCluster,
+                                     replica_kv_budget)
+    from repro_torch.hw.h100 import h100_spec
+    from repro_torch.serve.engine import plan_decode
+
+    if transport not in ("thread", "proc"):
+        raise SystemExit(f"--transport must be thread|proc, "
+                         f"got {transport!r}")
+    if disagg:
+        p, d = (int(x) for x in disagg.split(":"))
+        cluster = cluster or (p + d)
+    if serve_http and disagg:
+        raise SystemExit("--serve fronts a ServeCluster; run --disagg "
+                         "without --serve (the HTTP front end routes whole "
+                         "requests)")
+    chip = (("smem_bytes", smem_kib << 10),) if smem_kib else ()
+    max_len = prompt_len + n_new + 1
+    # The engines run float32, so plan with their KV width: the guard
+    # below compares against the geometry they will realize.
+    plan = plan_decode(cfg, max_len=max_len, dtype_bytes=4,
+                       spec=h100_spec(**dict(chip)), cluster=max(1, cluster))
+    dcn = plan.level("DCN")
+    n = plan.replicas()
+    page_tokens = int((plan.page_plan() or {}).get("page_tokens", 0) or 0)
+    if disagg and page_tokens and prompt_len < page_tokens:
+        # A transfer streams completed pages; a prompt inside one page has
+        # nothing to export.
+        raise SystemExit(
+            f"--disagg needs the prompt to span >= 1 planned page, but "
+            f"page_tokens={page_tokens} > prompt_len={prompt_len}; "
+            f"raise --prompt_len or shrink the page with --smem_kib 16")
+    spec = EngineSpec(arch=arch, max_new_tokens=n_new, max_slots=1,
+                      max_len=max_len, prefix_cache="radix", seed=seed,
+                      chip=chip, device=device or "cuda")
+    # The replicas share this host's one card: split its HBM once, here.
+    context = CONTEXT_BYTES if (transport == "proc"
+                                and spec.device != "cpu") else 0
+    spec = dataclasses.replace(
+        spec, kv_budget_bytes=replica_kv_budget(spec, n, context))
+    print(f"[cluster] arch={arch} replicas={n} "
+          f"(DCN np={dcn.np if dcn else 1}) policy={policy} "
+          f"transport={transport} device={spec.device} "
+          f"kv_budget={spec.kv_budget_bytes}B per replica"
+          + (f" disagg={disagg}" if disagg else ""))
+    if disagg:
+        front = DisaggCluster.from_plan(plan, spec, split=disagg,
+                                        transport=transport, policy=policy)
+    else:
+        front = ServeCluster.from_plan(plan, spec, transport=transport,
+                                       policy=policy)
+    try:
+        if serve_http:
+            srv = ClusterServer(front, port=port).start()
+            host, bound = srv.address
+            print(f"[cluster] serving on http://{host}:{bound} "
+                  f"(/generate /healthz /stats /metrics /trace); ctrl-c to "
+                  f"stop")
+            try:
+                srv.serve_forever()
+            except KeyboardInterrupt:
+                pass
+            finally:
+                srv.close()
+            return 0
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab_size, prompt_len,
+                                dtype=np.int32).tolist()
+                   for _ in range(batch)]
+        t0 = time.perf_counter()
+        if disagg:
+            outs = [front.generate(p, n_new) for p in prompts]
+        else:
+            outs = front.generate(prompts, n_new)
+        dt = time.perf_counter() - t0
+        n_tok = sum(len(o) for o in outs)
+        for st in front.stats():
+            print(f"[cluster] replica {st.replica} role={st.role} "
+                  f"free_pages={st.free_pages}/{st.pages_total} "
+                  f"slots={st.slots_free}/{st.slots_total} "
+                  f"prefix_nodes={st.prefix_nodes} tokens={st.tokens}")
+        print(f"[cluster] {n_tok} tokens in {dt:.2f}s "
+              f"({n_tok / max(dt, 1e-9):.1f} tok/s)")
+        print(f"[cluster] sample continuation ids: {outs[0][:8]}")
+        if trace_path and hasattr(front, "trace_events"):
+            from repro_torch.obs import write_chrome
+
+            evs = front.trace_events()
+            write_chrome(trace_path, evs)
+            pids = sorted({e.get("pid") for e in evs
+                           if e.get("ph") != "M"})
+            print(f"[cluster] trace: {len(evs)} events from pids {pids} "
+                  f"-> {trace_path} (one timeline; pid = replica id, "
+                  f"pid {len(front.replicas)} = router)")
+        if show_stats:
+            for st in front.stats():
+                if not st.metrics:
+                    continue
+                print(f"[cluster] replica {st.replica} metrics registry:")
+                for k in sorted(st.metrics):
+                    v = st.metrics[k]
+                    if isinstance(v, float):
+                        v = f"{v:.6g}"
+                    print(f"  {k} {v}")
+    finally:
+        front.close()
+    return 0
 
 
 def engine_prompt(cfg, prompt_len: int, rng):

@@ -60,8 +60,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.plan import HierarchicalPlan, PlanPolicy, Workload, \
-    plan_run
+from repro_torch.core.plan import HierarchicalPlan, PlanError, PlanPolicy, \
+    Workload, plan_run
 from repro_torch.models.model import Model
 from repro_torch.obs import MetricsView, Registry, RingLog, Tracer
 from repro_torch.serve.kvcache import (
@@ -114,13 +114,25 @@ def plan_decode(
     batch: int = 1,
     dtype_bytes: int = 2,
     spec=None,
+    hierarchy=None,
+    cluster: Optional[int] = None,
 ) -> HierarchicalPlan:
     """``plan_run`` over the decode workload on one card.
 
     The shardable state is the resident KV of ``batch`` sequences of
     ``max_len`` tokens; the weights, the per-slot activation stream and
     any per-request state ride along as the replicated reserve.  The
-    hierarchy is ``spec.hierarchy()`` (default: an H100 SXM).
+    hierarchy is ``hierarchy``, else ``spec.hierarchy(hosts=cluster or 1)``
+    (default spec: an H100 SXM).
+
+    ``cluster=N`` plans a multi-replica fleet: the hierarchy grows a DCN
+    level over N hosts and the requested replica count seeds the
+    outermost search, so the DCN level's realized ``np`` (``replicas()``)
+    is the fleet width ``repro_torch.cluster`` stands up -- memory pressure
+    can raise it, never shrink it; the subtree below it is one replica's
+    plan, the single engine's.  Without ``cluster``, a plan with a DCN
+    level raises ``PlanError`` (``level="DCN"``): one ``ServeEngine``
+    cannot realize multi-host placement.
     """
     tok_bytes, layers, heads = kv_token_bytes(cfg, dtype_bytes)
     kv_state = tok_bytes * max_len * batch
@@ -128,11 +140,13 @@ def plan_decode(
     stream = batch * cfg.d_model * dtype_bytes * 4
     fixed = batch * request_state_bytes(cfg, enc_len=max_len,
                                         dtype_bytes=dtype_bytes)
-    if spec is None:
-        from repro_torch.hw.h100 import h100_spec
-        spec = h100_spec()
-    return plan_run(
-        spec.hierarchy(),
+    if hierarchy is None:
+        if spec is None:
+            from repro_torch.hw.h100 import h100_spec
+            spec = h100_spec()
+        hierarchy = spec.hierarchy(hosts=max(1, cluster or 1))
+    plan = plan_run(
+        hierarchy,
         Workload(
             state_bytes=max(1, kv_state),
             replicated_bytes=weights + stream + fixed,
@@ -143,8 +157,29 @@ def plan_decode(
             kv_heads=heads,
             max_tokens=max_len,
         ),
-        PlanPolicy(n_workers=1),
+        PlanPolicy(n_workers=max(1, cluster or 1), spec=spec),
     )
+    if cluster is None and plan.level("DCN") is not None:
+        raise PlanError(
+            "decode plan contains a DCN level but no cluster was "
+            "requested: a single ServeEngine cannot realize multi-host "
+            "placement -- pass cluster=N and serve it with "
+            "repro_torch.cluster, or plan against a single-host hierarchy",
+            level="DCN", plan=plan)
+    return plan
+
+
+def kv_budget(plan: HierarchicalPlan, cfg: ModelConfig, dtype_bytes: int,
+              kv_fraction: float = 0.8) -> int:
+    """An engine's planned KV budget in logical bytes: ``kv_fraction`` of
+    the card's HBM left after one copy of the weights (the NVLINK level's
+    budget is one card's HBM), and at least one page."""
+    mesh = plan.level("NVLINK")
+    hbm = mesh.budget_bytes if mesh is not None else plan.leaf().budget_bytes
+    weights = cfg.param_count() * dtype_bytes
+    budget = int(kv_fraction * max(0, hbm - weights))
+    return max(page_spec_from_plan(plan, cfg, dtype_bytes).page_bytes,
+               budget)
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +263,9 @@ class ServeEngine:
     ``device=None`` means ``"cuda"`` and raises where there is none;
     ``dtype`` (default float32) is the weights', pool's and compute dtype.
     ``params`` (the ``Model.param_specs`` tree of tensors) default to
-    seeded random weights from ``seed``.
+    seeded random weights from ``seed``.  ``replica`` is this engine's id
+    in a cluster: its tracer's ``pid``, so a merged cluster trace shows
+    one process per replica.
     """
 
     #: Ring-buffer bounds: the tracer's event ring, the interleave log and
@@ -246,6 +283,7 @@ class ServeEngine:
         seed: int = 0,
         spec=None,
         device=None,
+        replica: int = 0,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -268,7 +306,11 @@ class ServeEngine:
         self.model = Model(cfg)
         self.params = (params if params is not None
                        else self.model.init(seed, self.device, self.dtype))
-        self.budget_bytes = self._kv_budget()
+        self.budget_bytes = (int(policy.kv_budget_bytes)
+                             if policy.kv_budget_bytes is not None
+                             else kv_budget(self.plan, cfg,
+                                            self._dtype_bytes,
+                                            policy.kv_fraction))
         # Each engine builds only its own steps and bookkeeping: the paged
         # engine its pool steps, the cohort engine its scheduler (its
         # contiguous-cache steps are made per cohort, at its capacity).
@@ -284,11 +326,12 @@ class ServeEngine:
         self._stream_ix: Dict[int, int] = {}    # rid -> index in this call
         self._next_rid = 0
         self._t_submit: Dict[int, float] = {}   # rid -> submit monotonic s
-        # The metrics spine: one typed Registry and one Tracer per engine.
-        # ``engine.metrics`` is a MetricsView over the registry with the
-        # JAX engine's keys.
+        # The metrics spine: one typed Registry and one Tracer per engine
+        # (pid = replica id).  ``engine.metrics`` is a MetricsView over the
+        # registry with the JAX engine's keys.
+        self.replica = int(replica)
         self.obs = Registry()
-        self.tracer = Tracer(capacity=self.TRACE_CAPACITY)
+        self.tracer = Tracer(capacity=self.TRACE_CAPACITY, pid=self.replica)
         o = self.obs
         for name in ("tokens", "tokens_recomputed", "decode_steps",
                      "cohorts", "evictions", "slot_steps",
@@ -311,20 +354,6 @@ class ServeEngine:
             "capacities": [],
             "prefix_cache": policy.prefix_cache,
         })
-
-    # ------------------------------------------------------------- plan reads
-    def _kv_budget(self) -> int:
-        """The KV budget in logical bytes: ``kv_fraction`` of the card's
-        HBM left after one copy of the weights (the NVLINK level's budget
-        is one card's HBM)."""
-        if self.policy.kv_budget_bytes is not None:
-            return int(self.policy.kv_budget_bytes)
-        mesh = self.plan.level("NVLINK")
-        hbm = mesh.budget_bytes if mesh is not None else \
-            self.plan.leaf().budget_bytes
-        weights = self.cfg.param_count() * self._dtype_bytes
-        budget = int(self.policy.kv_fraction * max(0, hbm - weights))
-        return max(self.page.page_bytes, budget)
 
     # -------------------------------------------------------------- telemetry
     def stats(self) -> Dict[str, Any]:

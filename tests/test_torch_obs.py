@@ -125,8 +125,20 @@ def test_launch_serve_exits_0_on_the_cpu():
 
 @pytest.mark.parametrize("flag", [["--cluster", "2"], ["--disagg", "1:1"],
                                   ["--serve", "1"]])
-def test_launch_serve_refuses_the_cluster(flag):
+def test_launch_serve_refuses_the_cluster(flag, capsys):
+    """The cluster is ported: ``--cluster 2`` serves through two replicas.
+    What the command line still refuses is a fleet it cannot run: a
+    disaggregated one whose default 64-token prompt fits inside one
+    planned page (no completed page to transfer), and the HTTP front end
+    without a cluster behind it."""
     from repro_torch.launch import serve
 
-    with pytest.raises(SystemExit, match="cluster"):
-        serve.main(flag + ["--device", "cpu"])
+    args = flag + ["--device", "cpu"]
+    if flag[0] == "--cluster":
+        assert serve.main(args + ["--tokens", "2", "--batch", "2"]) == 0
+        assert "replicas=2 (DCN np=2)" in capsys.readouterr().out
+        return
+    with pytest.raises(SystemExit,
+                       match="planned page" if flag[0] == "--disagg"
+                       else "cluster"):
+        serve.main(args)
