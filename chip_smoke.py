@@ -239,6 +239,31 @@ Phases (each prints its results; the script exits non-zero if any fails):
      budget, the card's used memory before, during and after, nvidia-smi's
      utilization and the profiled busy share (in-process ways only).
      Replicas on one card split its HBM (``cluster.replica_kv_budget``).
+ 33. training, whose path holds no hand-written kernel (the reference's
+     training forward reaches no Pallas kernel, and no kernel has a
+     backward): (a) each of the four wrappers refuses a CUDA input that
+     requires grad under grad mode (no launch counted), and a reduced
+     zamba2-1.2b training forward and backward on the card launches no
+     ``ssd_scan`` (it runs ``ssd_chunked``) and gives its Mamba2 ``wx``,
+     ``wB``, ``wC``, ``wdt``, ``conv_w``, ``A_log`` and ``dt_bias``
+     non-zero gradients, beside phase 9's serving ``ssd_scan`` launches;
+     (b) every registered arch, reduced, float32 with TF32 off: the loss
+     and every gradient leaf on the card, and one ``make_train_step``
+     step (moments, and the parameters where |g| > 1e-6: Adam's first
+     step is a sign), against the port on the CPU within ``TRAIN_TOL``;
+     (c) full-width llama3.2-1b (16 layers, d_model 2048) through
+     ``Trainer.fit`` on ``DataPipeline``: bf16 compute over float32
+     parameters and moments, remat "full", train_4k's 4,096 tokens at a
+     global batch of 8 -- cut from its 256 -- in 4 microbatches, lr
+     3e-4, warmup 2; 1 warm-up step (finite gradient norm, every leaf
+     changed, step-0 nll within [0.5, 3] x ln V), 4 timed steps (median
+     step seconds, tokens/s, the model FLOP share of 989 TFLOP/s with
+     its formula, peak memory) with every launch counter at 0, then one
+     step under ``torch.profiler`` (busy share, top 10 device ops);
+     (d) ``python -m repro_torch.launch.train`` on the card at reduced
+     llama3.2-1b for 40 steps (lr 3e-3, warmup 5) drops the loss by more
+     than 0.5, and 2 + 2 steps across a blocking save and a fresh
+     ``Trainer``'s restore equal 4 straight steps (float32).
 
 Phases 0-4, 7-30 and 32 plan and serve without a tuning artifact (the port's
 tuning path points at a file that does not exist until phase 6 writes
@@ -249,7 +274,8 @@ Output, at the end: one JSON line describing the kernels (the zamba2,
 mixtral, deepseek and whisper shapes nested under the paged and SSD
 entries, the cohort engine's ``ssd_scan`` launches and shapes under
 ``cohort``, the radix cache's warm launches under ``prefix`` and the
-cluster's under ``cluster``), the
+cluster's under ``cluster``; phase 33's training figures on a line of
+their own before it), the
 card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script fails before printing results.
@@ -1570,6 +1596,7 @@ def run_slice(model, params, t, prompts, dev, decode_tokens=None,
     its encoder pass and cross K/V are installed into the slot's rows
     (``encode_cross``, ``reset_slot``) before its prompt."""
     from repro_torch.serve.pages import init_paged_cache, reset_slot
+    from repro_torch.tree import tree_flatten_with_paths
 
     cfg = model.cfg
     n_pages = [-(-len(p) // t) + 1 for p in prompts]
@@ -1607,8 +1634,8 @@ def run_slice(model, params, t, prompts, dev, decode_tokens=None,
     out = {"prefill logits": torch.cat(firsts), "decode logits": dec,
            "decode tokens": toks}
     for part in ("pool", "state"):
-        for name, leaf in flat_leaves(cache[part]).items():
-            out[f"{part}.{name}"] = leaf
+        for name, leaf in tree_flatten_with_paths(cache[part]).items():
+            out[f"{part}/{name}"] = leaf
     return {k: v.cpu() for k, v in out.items()}
 
 
@@ -1674,15 +1701,6 @@ def slice_against_cpu(cfg, t, prompts, what, params=None,
     assert chaotic or tok[DEVICE] == tok["cpu"], \
         "greedy tokens differ between cuda and cpu"
     return errs
-
-
-def flat_leaves(tree, prefix="") -> dict:
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(flat_leaves(v, f"{prefix}{k}."))
-        return out
-    return {prefix[:-1]: tree}
 
 
 def phase_mixtral_slice(t: int) -> dict:
@@ -1837,7 +1855,7 @@ def phase_xlstm_slice() -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (100, 40)]
     errs = slice_against_cpu(
         cfg, DEFAULT_PAGE_TOKENS, prompts, "xlstm 8-block slice", params,
-        chaotic=("prefill logits", "decode logits", "state.slstm."))
+        chaotic=("prefill logits", "decode logits", "state/slstm/"))
 
     sp = {d: _layer_params(params[d]["slstm_layers"], 0) for d in params}
     x = torch.randn((2, 40, cfg.d_model),
@@ -3645,6 +3663,386 @@ def phase_cluster(pa_mod) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: training (no hand-written kernel on its path)
+# ---------------------------------------------------------------------------
+
+
+#: The f32 tolerance of the card-against-CPU training checks (the repo's:
+#: ``tests/test_kernels.py``), ``|err| <= TRAIN_TOL * (1 + |ref|)``.
+TRAIN_TOL = 1e-4
+#: Full-width training: train_4k's sequence, its batch of 256 cut to 8 (4
+#: microbatches of 2 sequences), 1 warm-up step and 4 timed ones.
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 8
+TRAIN_MICRO = 4
+TRAIN_TIMED = 4
+#: bf16 dense peak of one H100 SXM (the data sheet's, at 700 W).
+H100_BF16_FLOPS = 989e12
+
+
+def rel_err(a, b) -> float:
+    """``max |a - b| / (1 + |b|)`` in float64 on the CPU."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+
+def phase_train_guard(mods: dict, zserve: dict) -> dict:
+    """(a) The repair: every wrapper refuses a CUDA input that requires
+    grad under grad mode (no launch counted), the zamba2 training forward
+    takes ``ssd_chunked`` (no ``ssd_scan`` launch) and its Mamba2 weights
+    get gradients, and phase 9's serving launches stood."""
+    from repro_torch.configs import SMOKE_SHAPES, get_model_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul_cc import matmul_cc
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+
+    def leaf(*shape):
+        return torch.randn(*shape, device=DEVICE).requires_grad_(True)
+
+    table = torch.zeros((2, 1), dtype=torch.int32, device=DEVICE)
+    lengths = torch.ones(2, dtype=torch.int32, device=DEVICE)
+    calls = {
+        "matmul_cc": lambda: matmul_cc(leaf(64, 64), leaf(64, 64)),
+        "flash_attention": lambda: flash_attention(
+            leaf(1, 2, 64, 64), leaf(1, 2, 64, 64), leaf(1, 2, 64, 64)),
+        "paged_attention": lambda: paged_attention(
+            leaf(2, 4, 64), leaf(1, 16, 2, 64), leaf(1, 16, 2, 64), table,
+            lengths),
+        "ssd_scan": lambda: ssd_scan(
+            leaf(1, 16, 2, 16), torch.rand(1, 16, 2, device=DEVICE),
+            -torch.rand(2, device=DEVICE), leaf(1, 16, 16), leaf(1, 16, 16),
+            chunk=16),
+    }
+    zero_counts(mods)
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            refused[name] = str(e).split(";")[0]
+        else:
+            raise AssertionError(f"{name} launched on inputs that require "
+                                 "grad")
+    counts = read_counts(mods)
+    assert all(c["LAUNCHES"] == 0 for c in counts.values()), counts
+    for name, msg in refused.items():
+        log(f"  (a) {name} refused: {msg}")
+
+    cfg = get_model_config(ZAMBA).reduced()
+    model = Model(cfg, remat="full")
+    params = model.init(0, device=DEVICE)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    batch = make_batch(cfg, SMOKE_SHAPES["train_4k"],
+                       np.random.default_rng(0), torch.float32,
+                       device=DEVICE)
+    zero_counts(mods)
+    loss, _ = model.loss(params, batch, torch.float32)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = read_counts(mods)
+    assert counts["ssd"]["LAUNCHES"] == 0, counts
+    grads = {}
+    for k in ("wx", "wB", "wC", "wdt", "conv_w", "A_log", "dt_bias"):
+        g = params["mamba_layers"][k].grad
+        assert g is not None, k
+        grads[k] = float(g.abs().sum())
+        assert grads[k] > 0 and np.isfinite(grads[k]), (k, grads[k])
+    served = zserve["launches"]["ssd"]
+    log(f"  (a) zamba2 (reduced) training forward on the card: loss "
+        f"{float(loss.detach()):.4f}, ssd_scan launches 0 (ssd_chunked); "
+        "|grad| sums "
+        + json.dumps({k: round(v, 6) for k, v in grads.items()})
+        + f"; phase 9's serving ssd_scan launches {served['LAUNCHES']} "
+        f"(tc {served['LAUNCHES_TC']})")
+    assert served["LAUNCHES"] > 0
+    return {"refused": sorted(refused), "mamba_grad_abs_sums": grads,
+            "serve_ssd_launches": served["LAUNCHES"]}
+
+
+def phase_train_parity() -> dict:
+    """(b) Every family, reduced, float32 (TF32 off): the loss and every
+    gradient leaf on the card against the port on the CPU, then one
+    ``make_train_step`` step each way (params where |g| > 1e-6: Adam's
+    first step is a sign, so a noise-sized gradient may move +-lr)."""
+    from repro_torch.configs import (SMOKE_SHAPES, TrainConfig,
+                                     get_model_config, list_archs)
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.launch.trainer import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_flatten_with_paths as flat_leaves
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def fresh(tree, device):
+        """A detached copy on ``device`` (new leaves)."""
+        return tree_map(lambda t: t.detach().to(device, copy=True), tree)
+
+    shape = SMOKE_SHAPES["train_4k"]
+    train = TrainConfig(dtype="float32", remat="full", warmup_steps=2,
+                        total_steps=10)
+    out = {}
+    for arch in list_archs():
+        cfg = get_model_config(arch).reduced()
+        model = Model(cfg, remat="full")
+        cpu_params = model.init(0, device="cpu")
+        cpu_batch = make_batch(cfg, shape, np.random.default_rng(0),
+                               torch.float32, device="cpu")
+        res = {}
+        for dev in ("cpu", DEVICE):
+            params = fresh(cpu_params, dev)
+            for p in tree_leaves(params):
+                p.requires_grad_(True)
+            batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+            loss, metrics = model.loss(params, batch, torch.float32)
+            loss.backward()
+            loss = loss.detach()
+            ts = make_train_step(cfg, shape, train, device=dev)
+            stepped = ts.fn(fresh(cpu_params, dev),
+                            adamw_init(fresh(cpu_params, dev)), batch)
+            res[dev] = (loss, metrics, flat_leaves(params), stepped)
+        (lc, mc, gc, sc), (lg, mg, gg, sg) = res["cpu"], res[DEVICE]
+        errs = {"loss": rel_err(lg, lc), "nll": rel_err(mg["nll"], mc["nll"]),
+                "aux": rel_err(mg["aux"], mc["aux"])}
+        grad_err = 0.0
+        for k, p in gc.items():
+            if p.grad is None:
+                assert gg[k].grad is None, k
+                continue
+            grad_err = max(grad_err, rel_err(gg[k].grad, p.grad))
+        errs["grads"] = grad_err
+        (pc, oc, mcs), (pg, og, mgs) = sc, sg
+        errs["step_loss"] = rel_err(mgs["loss"], mcs["loss"])
+        errs["grad_norm"] = rel_err(mgs["grad_norm"], mcs["grad_norm"])
+        mu_c, mu_g = flat_leaves(oc.mu), flat_leaves(og.mu)
+        nu_c, nu_g = flat_leaves(oc.nu), flat_leaves(og.nu)
+        errs["mu"] = max(rel_err(mu_g[k], v) for k, v in mu_c.items())
+        errs["nu"] = max(rel_err(nu_g[k], v) for k, v in nu_c.items())
+        p_err, lr = 0.0, float(mcs["lr"])
+        p_g = flat_leaves(pg)
+        for k, v in flat_leaves(pc).items():
+            live = mu_c[k].abs() > (1 - train.b1) * 1e-6
+            a, b = p_g[k].detach().cpu(), v.detach()
+            if live.any():
+                p_err = max(p_err, rel_err(a[live], b[live]))
+            assert float((a - b).abs().max()) <= 2 * lr * 1.001 + 1e-6, \
+                (arch, k)
+        errs["params"] = p_err
+        log(f"  (b) {arch}: loss {lg.item():.6f} (cpu {lc.item():.6f}); "
+            "rel errs " + json.dumps({k: float(f"{v:.3e}")
+                                      for k, v in errs.items()}))
+        bad = {k: v for k, v in errs.items() if not v <= TRAIN_TOL}
+        assert not bad, (arch, bad)
+        out[arch] = errs
+    return out
+
+
+def phase_train_full(mods: dict) -> dict:
+    """(c) Full-width llama3.2-1b (16 layers, d_model 2048): bf16 compute
+    over float32 parameters and moments, remat "full", train_4k's 4,096
+    tokens at a global batch of 8 (cut from 256) in 4 microbatches,
+    through ``Trainer.fit`` on ``DataPipeline``: 1 warm-up step, then 4
+    timed ones, then one under ``torch.profiler``."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import RunConfig, ShapeConfig, TrainConfig
+    from repro_torch.data import DataPipeline, SyntheticLMDataset
+    from repro_torch.launch.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+
+    free_card()
+    cfg = get_cfg()
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    train = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=8,
+                        remat="full", microbatches=TRAIN_MICRO,
+                        checkpoint_every=10 ** 9, checkpoint_dir=ckpt_dir)
+    trainer = Trainer(RunConfig(model=cfg, shape=shape, train=train),
+                      device=DEVICE)
+    pipe = None
+    try:
+        trainer.init_or_restore()
+        n = trainer.ts.model.n_params()
+        log(f"  (c) {cfg.arch}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {n} parameters; seq {TRAIN_SEQ} x global "
+            f"batch {TRAIN_BATCH} (cut from train_4k's 256), "
+            f"{TRAIN_MICRO} microbatches of {TRAIN_BATCH // TRAIN_MICRO}, "
+            f"bf16 compute, f32 params and moments, remat full")
+        ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                seed=0)
+        pipe = DataPipeline(ds, global_batch=TRAIN_BATCH)
+        it = iter(pipe)
+        # The first step's metrics and every leaf's norm before and after.
+        seen, fn = [], trainer.ts.fn
+
+        def step(params, opt, batch):
+            out = fn(params, opt, batch)
+            seen.append({k: float(v) for k, v in out[2].items()})
+            return out
+        trainer.ts.fn = step
+        norms0 = [float(p.detach().float().norm())
+                  for p in tree_leaves(trainer.params)]
+        zero_counts(mods)
+        torch.cuda.reset_peak_memory_stats()
+        warm = trainer.fit(1, it, log_every=0)
+        norms1 = [float(p.detach().float().norm())
+                  for p in tree_leaves(trainer.params)]
+        first = seen[0]
+        assert np.isfinite(first["grad_norm"]), first  # every leaf finite
+        unchanged = sum(a == b for a, b in zip(norms0, norms1))
+        assert unchanged == 0, f"{unchanged} parameter leaves unchanged"
+        timed = trainer.fit(TRAIN_TIMED, it, log_every=0)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        counts = read_counts(mods)
+        assert all(c["LAUNCHES"] == 0 for c in counts.values()), counts
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prof_hist = trainer.fit(1, it, log_every=0)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        avgs = prof.key_averages()
+        kern = sorted((e for e in avgs if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0),
+                      key=lambda e: -e.self_device_time_total)
+        busy_us = sum(e.self_device_time_total for e in kern)
+        top = [{"op": e.key[:70], "ms": round(e.self_device_time_total / 1e3,
+                                              3), "calls": e.count}
+               for e in kern[:10]]
+    finally:
+        if pipe is not None:
+            pipe.close()
+        trainer.preempt.uninstall()
+        import shutil
+
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = warm["loss"] + timed["loss"] + prof_hist["loss"]
+    nll0 = first["nll"]
+    ln_v = float(np.log(cfg.vocab_size))
+    assert 0.5 * ln_v <= nll0 <= 3 * ln_v, (nll0, ln_v)
+    assert all(np.isfinite(losses)), losses
+    step_s = float(np.median(timed["step_time"]))
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    d_attn = cfg.n_heads * cfg.head_dim
+    flops_tok = 6 * n + 6 * cfg.n_layers * TRAIN_SEQ * d_attn
+    mfu = flops_tok * tokens / step_s / H100_BF16_FLOPS
+    row = {
+        "arch": cfg.arch, "layers": cfg.n_layers, "params": n,
+        "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+        "batch_cut_from": 256, "microbatches": TRAIN_MICRO,
+        "remat": "full", "compute": "bfloat16",
+        "step_s": step_s, "step_s_all": timed["step_time"],
+        "warmup_step_s": warm["step_time"][0],
+        "tokens_per_s": tokens / step_s,
+        "flops_per_token": flops_tok,
+        "mfu_bf16_989": mfu, "peak_mem_gb": peak_gb,
+        "busy_share": busy_us / wall_us,
+        "profiled_step_s": wall_us / 1e6,
+        "first_step": first, "losses": losses, "top_ops": top,
+    }
+    log("  (c) model FLOPs per token = 6 N + 6 L S d_attn = 6 x "
+        f"{n} + 6 x {cfg.n_layers} x {TRAIN_SEQ} x {d_attn} = "
+        f"{flops_tok:.4e} (remat's extra forward not counted)")
+    log(f"  (c) step {step_s:.4f} s (median of {TRAIN_TIMED}: "
+        f"{[round(s, 4) for s in timed['step_time']]}), "
+        f"{tokens / step_s:.1f} tokens/s, model FLOP share {mfu:.4f} of "
+        f"989 TFLOP/s bf16, peak {peak_gb:.2f} GB; busy share "
+        f"{busy_us / wall_us:.4f} over a profiled step of "
+        f"{wall_us / 1e6:.3f} s")
+    log(f"  (c) first step: nll {nll0:.4f} (ln V = {ln_v:.4f}), grad_norm "
+        f"{first['grad_norm']:.4f}, lr {first['lr']:.3e}; every leaf "
+        f"changed; losses {[round(x, 4) for x in losses]}")
+    for r in top:
+        log(f"    {r['ms']:10.3f} ms  x{r['calls']:<6d} {r['op']}")
+    return row
+
+
+def phase_train_loop() -> dict:
+    """(d) The CLI on the card: reduced llama3.2-1b, 40 steps at lr 3e-3
+    and warmup 5, drops the loss by more than 0.5; and 2 + 2 steps across
+    a blocking save and a fresh Trainer's restore equal 4 straight steps
+    (float32, reduced)."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import (RunConfig, ShapeConfig, TrainConfig,
+                                     get_model_config)
+    from repro_torch.data import DataPipeline, SyntheticLMDataset
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main([
+                "--device", DEVICE, "--arch", ARCH, "--steps", "40",
+                "--seq_len", "32",
+                "--batch", "8", "--train.learning_rate", "3e-3",
+                "--train.warmup_steps", "5",
+                "--train.checkpoint_dir", os.path.join(root, "cli")])
+        out = buf.getvalue()
+        m = re.search(r"\[train\] loss ([\d.]+) -> ([\d.]+) over 40 steps",
+                      out)
+        assert rc == 0 and m, out[-2000:]
+        first, last = float(m.group(1)), float(m.group(2))
+        log(f"  (d) CLI: {out.splitlines()[0]}; loss {first:.3f} -> "
+            f"{last:.3f} over 40 steps")
+        assert last < first - 0.5, (first, last)
+
+        cfg = get_model_config(ARCH).reduced()
+        shape = ShapeConfig("tiny", seq_len=32, global_batch=8, kind="train")
+
+        def trainer(sub):
+            return Trainer(RunConfig(model=cfg, shape=shape, train=TrainConfig(
+                learning_rate=3e-3, warmup_steps=5, total_steps=60,
+                dtype="float32", remat="none",
+                checkpoint_dir=os.path.join(root, sub))), device=DEVICE)
+
+        def fit(tr, steps, start):
+            ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=32,
+                                    seed=0)
+            pipe = DataPipeline(ds, global_batch=8, start_step=start,
+                                prefetch=1)
+            try:
+                return tr.fit(steps, iter(pipe), log_every=0)["loss"]
+            finally:
+                pipe.close()
+
+        runs = {}
+        for name, plan in (("straight", (4,)), ("resumed", (2, 2))):
+            losses, start = [], 0
+            for steps in plan:
+                tr = trainer(name)
+                try:
+                    assert tr.init_or_restore() == start
+                    losses += fit(tr, steps, start)
+                    tr.ckpt.save(tr.step, (tr.params, tr.opt), blocking=True)
+                    start = tr.step
+                finally:
+                    tr.preempt.uninstall()
+            runs[name] = losses
+        log(f"  (d) 4 straight steps {runs['straight']}; 2 + 2 across a "
+            f"save and restore {runs['resumed']}")
+        np.testing.assert_allclose(runs["resumed"], runs["straight"],
+                                   rtol=1e-6, atol=1e-6)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"cli_loss": [first, last], **runs}
+
+
 def qwen_cfg():
     from repro_torch.configs import get_model_config
 
@@ -3776,7 +4174,7 @@ def main() -> int:
     kern = serve = tk = tune = zk = zserve = mk = mserve = xserve = None
     dk = dserve = wk = wserve = qslice = ab = cssd = cserve = None
     pparity = pllama = pzamba = pexport = pcli = pcap = ppaper = None
-    pcluster = None
+    pcluster = tguard = tparity = tfull = tloop = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -3904,10 +4302,24 @@ def main() -> int:
             f"width, {CLUSTER_N} replicas over threads and spawned "
             f"processes, disaggregated 1:1, HTTP")
         pcluster = phase("phase 32 cluster", phase_cluster, pa_mod)
+        free_card()
+        train_mods = {"paged": pa_mod, "ssd": ssd_mod, "matmul": mm_mod,
+                      "flash": fa_mod}
+        log("[33] training on the card (no hand-written kernel on its "
+            "path): (a) the kernels' autograd guard, (b) every family cuda "
+            "against cpu, (c) full-width llama3.2-1b, (d) the CLI and the "
+            "loop")
+        tguard = phase("phase 33a train guard", phase_train_guard,
+                       train_mods, zserve)
+        tparity = phase("phase 33b train parity", phase_train_parity)
+        tfull = phase("phase 33c train full width", phase_train_full,
+                      train_mods)
+        tloop = phase("phase 33d train loop", phase_train_loop)
     if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
                           xserve, dk, dserve, wk, wserve, qslice, ab, cssd,
                           cserve, pparity, pllama, pzamba, pexport, pcli,
-                          pcap, ppaper, pcluster):
+                          pcap, ppaper, pcluster, tguard, tparity, tfull,
+                          tloop):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -4045,6 +4457,11 @@ def main() -> int:
                                   "busy_share_unprofiled_wall")}
         for way, row in pcluster["serve"].items()}))
     log("cluster disagg: " + json.dumps(pcluster["disagg"]))
+    # Phase 33's full-width training figures.
+    log("training: " + json.dumps({k: tfull[k] for k in (
+        "arch", "seq", "global_batch", "batch_cut_from", "microbatches",
+        "step_s", "tokens_per_s", "mfu_bf16_989", "peak_mem_gb",
+        "busy_share", "losses")}))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         log(f"FAILED: the main path never launched {missing}")

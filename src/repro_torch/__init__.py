@@ -11,7 +11,9 @@ It serves every registered family: dense, moe (Mixtral), mla_moe
 paged engine, and those and vlm (Qwen2-VL) with the cohort engine; its
 hand-written Hopper kernels live in ``csrc/`` and are wrapped by
 ``kernels`` (paged attention and the SSD scan on the serving path,
-``matmul_cc`` and flash attention on the tuning path).
+``matmul_cc`` and flash attention on the tuning path).  It trains every
+family on one device (``launch.trainer``, ``launch.train``): eager
+autograd over the same layers, with no hand-written kernel on the path.
 Entry points take ``device=None``, meaning ``"cuda"``; pass ``"cpu"`` to run
 the plain PyTorch versions of the kernels instead (the CPU tests do).
 """

@@ -1,14 +1,18 @@
-"""Typed model configuration (a copy of ``repro.configs.base``, trimmed to
-``ModelConfig``, the arch registry and the launchers' ``parse_cli``).
+"""Typed configuration (a copy of ``repro.configs.base``): ``ModelConfig``
+and the arch registry, the shapes, the training and run records with the
+launchers' ``apply_overrides`` and ``parse_cli``.
 
 Pure dataclasses.  The JAX package additionally overrides ``overhead`` from a
 calibration artifact measured on TPU meshes; that number says nothing about
-an H100, so the port keeps each arch's registered value.
+an H100, so the port keeps each arch's registered value (its calibration
+accessors belong to the distribution layer, which the port has not yet).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+import os
+import tempfile
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
 
@@ -227,6 +231,95 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# Reduced shapes for CPU smoke tests.
+SMOKE_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 64, 2, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 64, 2, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 64, 2, "decode"),
+    "long_500k": ShapeConfig("long_500k", 128, 1, "decode"),
+}
+
+
+def get_shape(name: str, smoke: bool = False) -> ShapeConfig:
+    table = SMOKE_SHAPES if smoke else SHAPES
+    if name not in table:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(table)}")
+    return table[name]
+
+
+# ---------------------------------------------------------------------------
+# Mesh / training / run
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The reference's mesh record, kept so that ``RunConfig`` and its
+    dotted overrides have the same paths; the port runs on one card and
+    reads none of it."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+    multi_pod: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    dtype: str = "bfloat16"
+    remat: str = "full"           # none | full | dots
+    microbatches: int = 1         # gradient accumulation
+    optimizer_dtype: str = "float32"   # float32 | bfloat16 state compression
+    grad_compression: str = "none"     # none | bf16 | int8_ef
+    # The reference's collective-matmul schedule for its TP projections;
+    # on one card there is no collective, and the port accepts "gspmd"
+    # and ignores it.
+    collectives: str = "gspmd"
+    seed: int = 0
+    checkpoint_every: int = 100
+    # The port's own directory (the reference's is /tmp/repro_ckpt): a run
+    # resumes from whatever it finds there.
+    checkpoint_dir: str = field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    keep_checkpoints: int = 3
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """The reference's run record without its runtime knobs
+    (``decomposition``, ``schedule``, ``tcl``, ``use_pallas``), which no
+    training code reads: overriding one raises."""
+
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -260,6 +353,39 @@ def _ensure_loaded() -> None:
 # ---------------------------------------------------------------------------
 # Command line
 # ---------------------------------------------------------------------------
+
+
+def apply_overrides(cfg, overrides: Dict[str, str]):
+    """Apply dotted-path CLI overrides (``--train.learning_rate 1e-4``).
+    A path that names no field raises ``KeyError``."""
+    for key, raw in overrides.items():
+        parts = key.split(".")
+        objs = [cfg]
+        for p in parts:
+            if not hasattr(objs[-1], "__dataclass_fields__") or \
+                    p not in objs[-1].__dataclass_fields__:
+                raise KeyError(f"--{key}: {type(objs[-1]).__name__} has no "
+                               f"field {p!r}")
+            objs.append(getattr(objs[-1], p))
+        objs.pop()
+        leaf, name = objs[-1], parts[-1]
+        old = getattr(leaf, name)
+        if isinstance(old, bool):
+            val = raw.lower() in ("1", "true", "yes")
+        elif isinstance(old, int):
+            val = int(raw)
+        elif isinstance(old, float):
+            val = float(raw)
+        elif isinstance(old, tuple):
+            val = tuple(int(x) for x in raw.strip("()").split(","))
+        else:
+            val = raw
+        new_leaf = replace(leaf, **{name: val})
+        # Rebuild the chain outwards.
+        for obj, part in zip(reversed(objs[:-1]), reversed(parts[:-1])):
+            new_leaf = replace(obj, **{part: new_leaf})
+        cfg = new_leaf
+    return cfg
 
 
 def parse_cli(argv: List[str]) -> Tuple[Dict[str, str], List[str]]:

@@ -2,7 +2,9 @@
 
 Each kernel module holds a wrapper that launches the CUDA kernel for CUDA
 tensors (or raises) and runs the plain version in ``kernels.ref`` for CPU
-tensors, plus a plain-integer launch counter ``LAUNCHES``:
+tensors, plus a plain-integer launch counter ``LAUNCHES``.  No kernel has
+a backward: a wrapper raises on a CUDA input that requires grad under grad
+mode (``_build.refuse_grad``) rather than return a detached result.
 
   * ``paged_attention`` -- paged GQA decode attention (serving)
   * ``matmul_cc``       -- cache-conscious blocked matmul (CC/SRRC orders)

@@ -10,7 +10,9 @@ reused.  ``build_all`` starts one ``nvcc`` per source at once, for a run
 that builds every kernel inside a time limit.  Nothing here runs at import
 time.  ``sass_counts`` reads a built library's
 machine code (``cuobjdump -sass``) and counts given instructions per
-kernel.
+kernel.  ``refuse_grad`` is the wrappers' autograd guard: a kernel writes
+into a fresh tensor through ``ctypes``, so its result has no ``grad_fn``,
+and none of the kernels has a backward (nor has the reference's).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -98,6 +102,19 @@ def build_all() -> Dict[str, Path]:
     with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
         paths = list(pool.map(build, SOURCES))
     return dict(zip(SOURCES, paths))
+
+
+def refuse_grad(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Raise when a launch of kernel ``name`` would cut the autograd graph:
+    grad mode is on and one of its (CUDA) inputs requires grad.  The
+    kernel's output would carry no ``grad_fn``, so the gradients through it
+    would be silently missing; a differentiable caller runs the plain
+    function instead (``models.mamba2.mamba2_block(plain_scan=True)``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            "grad; run it under torch.no_grad() or call the plain "
+            "differentiable function")
 
 
 def load(name: str) -> ctypes.CDLL:

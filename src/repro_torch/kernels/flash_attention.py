@@ -119,6 +119,7 @@ def flash_attention(
         raise ValueError("flash_attention: all tensors must be on one CUDA "
                          "device (or all on the CPU); got "
                          f"{[str(x.device) for x in tensors]}")
+    _build.refuse_grad("flash_attention", tensors)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v "
                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")

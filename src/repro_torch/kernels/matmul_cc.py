@@ -110,6 +110,7 @@ def matmul_cc(
         raise ValueError("matmul_cc: both tensors must be on one CUDA "
                          f"device (or both on the CPU); got {a.device}, "
                          f"{b.device}")
+    _build.refuse_grad("matmul_cc", (a, b))
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"matmul_cc takes float32 or bfloat16 operands of "
                         f"one dtype; got {a.dtype}, {b.dtype}")

@@ -296,6 +296,7 @@ def paged_attention(
         raise ValueError("paged_attention: all tensors must be on one CUDA "
                          "device (or all on the CPU); got "
                          f"{[str(x.device) for x in tensors]}")
+    _build.refuse_grad("paged_attention", tensors)
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise TypeError(f"paged_attention takes float32 or bfloat16 q/k/v of "

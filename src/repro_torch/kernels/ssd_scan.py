@@ -168,6 +168,7 @@ def ssd_scan(
         raise ValueError("ssd_scan: all tensors must be on one CUDA device "
                          "(or all on the CPU); got "
                          f"{[str(t.device) for t in tensors]}")
+    _build.refuse_grad("ssd_scan", tensors)
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan takes float32 or bfloat16 x, B and C of "
                         f"one dtype; got {x.dtype}, {Bm.dtype}, {Cm.dtype}")

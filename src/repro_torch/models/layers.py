@@ -3,7 +3,8 @@ and Qwen2-VL's multimodal RoPE, SwiGLU, embeddings, the LM head, the two
 paged attention blocks the paged engine runs, and the unpaged attention
 (``attn_mask``, ``full_attention``, ``blockwise_attention``,
 ``attention_op``) with the cached ``attention_block`` the cohort engine,
-the enc-dec encoder and cross-attention run.
+the enc-dec encoder, cross-attention and the training forward run, and
+the training loss (``cross_entropy_loss``).
 
 The JAX package's tensor-parallel projections (``tp_matmul`` /
 ``fused_column_matmul``) are plain ``torch.matmul`` here: the port runs on
@@ -485,3 +486,21 @@ def paged_prefill_block(
                           table, (positions + 1).to(torch.int32),
                           window=cfg.sliding_window or 0, page_tokens=t)
     return out.reshape(b, c, -1) @ params["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token NLL in float32, plus ``z_loss`` times the mean squared
+    log-sum-exp (the reference's control of logit drift)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * lse.square().mean()
+    return loss

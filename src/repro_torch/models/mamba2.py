@@ -26,8 +26,12 @@ state and giving the next one.  The chunked scan is the hand-written
 kernel for CUDA tensors (``kernels.ssd_scan.ssd_scan``, at the largest
 chunk up to the requested one whose block fits, ``kernel_chunk``) and
 ``ssd_chunked``, the plain port of the reference's jnp function with its
-casts, for CPU tensors.  ``ssd_step``, ``causal_conv1d`` and the
-projections are plain torch ops, as they are plain jnp in the reference.
+casts, for CPU tensors.  The training forward asks for ``ssd_chunked`` on
+every device (``plain_scan=True``): the reference's training forward runs
+that jnp function, not its Pallas kernel, and neither package has a
+backward for the kernel (its wrapper refuses inputs that require grad).
+``ssd_step``, ``causal_conv1d`` and the projections are plain torch ops,
+as they are plain jnp in the reference.
 """
 
 from __future__ import annotations
@@ -313,10 +317,12 @@ def ssd_step(
 
 
 def _chunked_scan(x, dt, A, Bm, Cm, chunk: int,
-                  init: Optional[torch.Tensor]):
+                  init: Optional[torch.Tensor], plain: bool = False):
     """``ssd_chunked``'s function: the hand-written kernel for CUDA tensors
-    (no fallback: it launches or raises), the plain port for CPU ones."""
-    if x.device.type != "cuda":
+    (no fallback: it launches or raises), the plain port for CPU ones, and
+    the plain port on any device when ``plain`` is asked for (the
+    differentiable training forward)."""
+    if plain or x.device.type != "cuda":
         return ssd_chunked(x, dt, A, Bm, Cm, chunk, init)
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -338,9 +344,16 @@ def mamba2_block(
     cfg,
     cache: Optional[dict] = None,     # {"conv": (B,W-1,C), "ssm": (B,H,P,N)}
     chunk: Optional[int] = None,
+    plain_scan: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """The Mamba2 mixer: ``(out (B, S, d), new_cache)``, the new cache
-    None without one.  The caller writes the new cache back."""
+    None without one.  The caller writes the new cache back.
+
+    ``plain_scan`` runs the chunked scan as ``ssd_chunked`` on any device:
+    the training forward's route, since the reference's training forward
+    is the jnp ``ssd_chunked`` (``repro.models.mamba2.mamba2_block``) and
+    the ``ssd_scan`` kernel has no backward.  Serving leaves it off and
+    launches the kernel on the card."""
     s_cfg = cfg.ssm
     b, s, d = hidden.shape
     d_inner = s_cfg.expand * d
@@ -375,7 +388,8 @@ def mamba2_block(
         q = chunk or s_cfg.chunk
         init = cache["ssm"] if cache is not None else None
         # dt enters the scan rounded to x's dtype, as in the reference.
-        y, final = _chunked_scan(xh, dt.to(xh.dtype), A, Bm, Cm, q, init)
+        y, final = _chunked_scan(xh, dt.to(xh.dtype), A, Bm, Cm, q, init,
+                                 plain_scan)
         if cache is not None:
             new_cache = {"conv": new_conv, "ssm": final}
 

@@ -43,16 +43,28 @@ group of ``attn_every`` mixers; application ``app`` owns attention layer
 final norm; ``cross_kv``: every decoder layer's cross K/V) and then
 ``_dec_layer`` over ``dec_layers``: cached or paged self-attention, then
 cross-attention against the request's cross K/V (per-slot rows masked to
-each slot's ``enc_len`` in the pool).  The training forward and loss
-(``forward``, ``_forward_encdec``, ``cross_entropy_loss``) wait for the
-training slice.
+each slot's ``enc_len`` in the pool).
+
+Training (``forward``, ``loss``) runs every family without a cache: the
+same layer bodies with the attention hooks over no cache (attention within
+the sequence, MLA in its expanded form), the Mamba2 mixers on the plain
+``ssd_chunked`` (``plain_scan``) and the xLSTM blocks from their zero
+state, MoE's load-balancing loss summed over the layers.  Each layer body
+runs under ``_maybe_remat``: ``"none"``, ``"full"`` (recompute the whole
+body in the backward) or ``"dots"`` (keep the unbatched weight products,
+recompute the rest) -- ``torch.utils.checkpoint``'s counterparts of the
+reference's ``jax.checkpoint`` policies.  No hand-written kernel is on the
+training path, as no Pallas kernel is on the reference's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -60,7 +72,7 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as XL
-from repro_torch.models.params import ParamSpec, init_params
+from repro_torch.models.params import ParamSpec, count_params, init_params
 
 PyTree = Any
 
@@ -68,9 +80,24 @@ PyTree = Any
 FAMILIES = ("dense", "vlm", "moe", "mla_moe", "hybrid_ssm", "xlstm",
             "enc_dec")
 
-#: The MoE decode steps' capacity factor (the reference ``Model``'s
-#: default); prefills and prefill chunks dispatch dropless.
+#: The MoE capacity factor of the training forward and the decode steps
+#: (the reference ``Model``'s default); prefills and prefill chunks
+#: dispatch dropless.
 CAPACITY_FACTOR = 1.25
+
+#: ``Model.remat`` modes.
+REMAT = ("none", "full", "dots")
+
+#: The products the ``"dots"`` policy keeps: those without a batch
+#: dimension (a weight against the flattened tokens), as
+#: ``checkpoint_dots_with_no_batch_dims`` keeps them; the batched ones
+#: (attention's, the experts') are recomputed.
+_UNBATCHED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_unbatched_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _UNBATCHED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _norm_spec(cfg, layers: int = 0) -> ParamSpec:
@@ -100,18 +127,24 @@ def _tf_layer_specs(cfg, layers: int, kind: str) -> dict:
 def _tf_layer(lp: dict, x: torch.Tensor, cfg,
               attn: Callable[[dict, torch.Tensor], torch.Tensor],
               kind: str = "dense",
-              capacity_factor: Optional[float] = None) -> torch.Tensor:
+              capacity_factor: Optional[float] = None,
+              aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """ONE decoder-layer body for every mode: pre-norm attention +
     residual, pre-norm FFN + residual.  ``attn(lp["attn"], h)`` is the
-    mode's attention hook (paged decode or chunked prefill, GQA or MLA);
-    ``kind`` picks the FFN: "moe" and "mla" route through ``moe_ffn`` at
-    ``capacity_factor`` (its aux loss is dropped: serving has no loss),
-    anything else is SwiGLU."""
+    mode's attention hook (paged decode or chunked prefill, GQA or MLA,
+    or attention within the sequence in training); ``kind`` picks the FFN:
+    "moe" and "mla" route through ``moe_ffn`` at ``capacity_factor``, whose
+    load-balancing loss is appended to ``aux`` when a list is given (the
+    training forward) and dropped otherwise (serving has no loss); anything
+    else is SwiGLU."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + attn(lp["attn"], h)
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if kind in ("moe", "mla"):
-        return x + MOE.moe_ffn(lp["moe"], h, cfg.moe, capacity_factor)[0]
+        f, a = MOE.moe_ffn(lp["moe"], h, cfg.moe, capacity_factor)
+        if aux is not None:
+            aux.append(a)
+        return x + f
     return x + L.swiglu_ffn(lp["ffn"], h)
 
 
@@ -151,12 +184,18 @@ class Model:
     """The dense, VLM, MoE and MLA-MoE decoders, the Zamba2 hybrid, xLSTM
     and the Whisper encoder-decoder; see the module docstring."""
 
-    def __init__(self, cfg):
+    #: The training forward's MoE capacity factor.
+    capacity_factor = CAPACITY_FACTOR
+
+    def __init__(self, cfg, remat: str = "full"):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"repro_torch serves families {FAMILIES}; "
                 f"{cfg.arch!r} is {cfg.family!r}")
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}; got {remat!r}")
         self.cfg = cfg
+        self.remat = remat
 
     # ------------------------------------------------------------- params
     def param_specs(self) -> dict:
@@ -209,6 +248,151 @@ class Model:
              dtype=torch.float32) -> PyTree:
         return init_params(self.param_specs(), seed, resolve_device(device),
                            dtype)
+
+    def n_params(self) -> int:
+        """The parameter tree's element count (from the specs)."""
+        return count_params(self.param_specs())
+
+    # ------------------------------------------------------------ training
+    def _maybe_remat(self, fn: Callable) -> Callable:
+        """``fn`` under the model's remat mode: as is (``"none"``),
+        recomputed whole in the backward (``"full"``), or recomputed but
+        for its unbatched weight products (``"dots"``).  All three give the
+        same numbers."""
+        if self.remat == "none":
+            return fn
+        kw = dict(use_reentrant=False)
+        if self.remat == "dots":
+            kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                       _save_unbatched_dots)
+        return lambda *args: checkpoint(fn, *args, **kw)
+
+    def forward(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training forward over a batch of whole sequences: ``tokens``
+        ``(B, S)`` (vlm: ``embeds`` ``(B, S, d)`` and ``positions_3d`` ``(3,
+        B, S)``; enc_dec: ``enc_embeds`` too).  No cache: causal attention
+        within the sequence, recurrent blocks from their zero state, MoE at
+        ``capacity_factor``.  Returns ``(logits (B, S, V) in dtype, aux ()
+        float32)``, ``aux`` the MoE load-balancing losses summed over the
+        layers (zero for the other families)."""
+        cfg = self.cfg
+        fam = cfg.family
+        if fam == "enc_dec":
+            return self._forward_encdec(params, batch, dtype)
+        x = self._embed_in(params, batch, dtype)
+        q_pos = torch.arange(x.shape[1], device=x.device)
+        pos3d = batch.get("positions_3d")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        cf = self.capacity_factor
+
+        def tf_body(kind: str, attn_kind: str):
+            hook = _cached_attn(cfg, attn_kind, q_pos, None, pos3d)
+
+            def body(lp, x):
+                acc: List[torch.Tensor] = []
+                y = _tf_layer(lp, x, cfg, hook, kind, cf, acc)
+                return y, (acc[0] if acc else torch.zeros_like(aux))
+            return self._maybe_remat(body)
+
+        def run(body, stack, n, x, aux):
+            for i in range(n):
+                x, a = body(_layer_params(stack, i), x)
+                aux = aux + a
+            return x, aux
+
+        if fam in ("dense", "vlm", "moe"):
+            x, aux = run(tf_body(fam, "dense"), params["layers"],
+                         cfg.n_layers, x, aux)
+        elif fam == "mla_moe":
+            kd = cfg.moe.first_k_dense
+            if kd:
+                x, aux = run(tf_body("dense", "mla"), params["dense_layers"],
+                             kd, x, aux)
+            x, aux = run(tf_body("mla", "mla"), params["layers"],
+                         cfg.n_layers - kd, x, aux)
+        elif fam == "hybrid_ssm":
+            x = self._hybrid_train(params, x, q_pos)
+        else:
+            x = self._xlstm_train(params, x)
+        return L.lm_logits(params, x, cfg), aux
+
+    def _hybrid_train(self, params: PyTree, x: torch.Tensor,
+                      q_pos: torch.Tensor) -> torch.Tensor:
+        """Zamba2's stack without a cache: the shared block before each
+        group of ``attn_every`` mixers, each mixer on ``ssd_chunked``."""
+        cfg = self.cfg
+        per = cfg.ssm.attn_every or cfg.n_layers
+        hook = _cached_attn(cfg, "dense", q_pos, None)
+        attn_body = self._maybe_remat(
+            lambda ap, x: _tf_layer(ap, x, cfg, hook))
+        mam_body = self._maybe_remat(
+            lambda lp, x: M2.mamba2_block(lp, x, cfg, plain_scan=True)[0])
+        for start in range(0, cfg.n_layers, per):
+            if cfg.ssm.attn_every:
+                x = attn_body(params["shared_attn"], x)
+            for i in range(start, min(start + per, cfg.n_layers)):
+                x = mam_body(_layer_params(params["mamba_layers"], i), x)
+        return x
+
+    def _xlstm_train(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+        """xLSTM's stack without a cache: each pre-norm block from its zero
+        state, the mLSTM chunkwise at the reference's chunk."""
+        cfg = self.cfg
+        per = cfg.xlstm.slstm_every
+        m_per = per - 1
+        chunk = min(cfg.ssm.chunk if cfg.ssm else 256, max(16, x.shape[1]))
+
+        def m_body(lp, ln, x):
+            h = L.rms_norm(x, ln, cfg.norm_eps)
+            return x + XL.mlstm_block(lp, h, cfg, None, chunk)[0]
+
+        def s_body(lp, ln, x):
+            h = L.rms_norm(x, ln, cfg.norm_eps)
+            return x + XL.slstm_block(lp, h, cfg)[0]
+        m_body, s_body = self._maybe_remat(m_body), self._maybe_remat(s_body)
+        for p in range(cfg.n_layers // per):
+            for i in range(p * m_per, (p + 1) * m_per):
+                x = m_body(_layer_params(params["mlstm_layers"], i),
+                           params["mlstm_ln"][i], x)
+            x = s_body(_layer_params(params["slstm_layers"], p),
+                       params["slstm_ln"][p], x)
+        return x
+
+    def _forward_encdec(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                        dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Whisper's training forward: the encoder over ``enc_embeds``,
+        then each decoder layer with causal self-attention and
+        cross-attention against K/V projected from the encoder output."""
+        cfg = self.cfg
+        enc = self._encode(params, batch["enc_embeds"], dtype,
+                           self._maybe_remat)
+        enc_pos = torch.arange(enc.shape[1], device=enc.device)
+        x = L.embed_tokens(params, batch["tokens"], dtype)
+        dec_pos = torch.arange(x.shape[1], device=x.device)
+        self_attn = _cached_attn(cfg, "dense", dec_pos, None)
+        kv_shape = (enc.shape[0], enc.shape[1], cfg.n_kv_heads, cfg.head_dim)
+
+        def cross(cp, h):
+            kv = (enc @ cp["wk"].to(h.dtype)).reshape(kv_shape), \
+                (enc @ cp["wv"].to(h.dtype)).reshape(kv_shape)
+            return self._cross_attn(cp, h, dec_pos, enc_pos, kv)
+        body = self._maybe_remat(
+            lambda lp, x: _dec_layer(lp, x, cfg, self_attn, cross))
+        for i in range(cfg.enc_dec.n_decoder_layers):
+            x = body(_layer_params(params["dec_layers"], i), x)
+        return (L.lm_logits(params, x, cfg),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor],
+             dtype=torch.bfloat16
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``(nll + aux, {"nll", "aux"})``: ``cross_entropy_loss`` (with
+        its z-loss) of the forward's logits against ``batch["labels"]``,
+        plus the MoE load-balancing loss."""
+        logits, aux = self.forward(params, batch, dtype)
+        nll = L.cross_entropy_loss(logits, batch["labels"])
+        return nll + aux, {"nll": nll, "aux": aux}
 
     def _embed_in(self, params: PyTree, batch: Dict[str, Any],
                   dtype) -> torch.Tensor:
@@ -412,18 +596,19 @@ class Model:
 
     # ------------------------------------------------------------ enc-dec
     def _encode(self, params: PyTree, enc_embeds: torch.Tensor,
-                dtype) -> torch.Tensor:
+                dtype, wrap: Callable = lambda fn: fn) -> torch.Tensor:
         """The encoder stack: ``_tf_layer`` over ``enc_layers`` with a
         non-causal attention hook (RoPE at the frame positions, as the
-        reference), then the final norm.  ``enc_embeds`` ``(B, Se, d)``
-        -> ``(B, Se, d)``."""
+        reference), each layer under ``wrap`` (the training forward's
+        remat), then the final norm.  ``enc_embeds`` ``(B, Se, d)`` ->
+        ``(B, Se, d)``."""
         cfg = self.cfg
         enc = enc_embeds.to(dtype)
         enc_pos = torch.arange(enc.shape[1], device=enc.device)
         attn = _cached_attn(cfg, "dense", enc_pos, None, causal=False)
+        body = wrap(lambda lp, x: _tf_layer(lp, x, cfg, attn))
         for i in range(cfg.enc_dec.n_encoder_layers):
-            enc = _tf_layer(_layer_params(params["enc_layers"], i), enc, cfg,
-                            attn)
+            enc = body(_layer_params(params["enc_layers"], i), enc)
         return L.rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
 
     def cross_kv(self, params: PyTree, enc: torch.Tensor
@@ -454,9 +639,8 @@ class Model:
         pre-projected K/V (``kv``: ``cross_kv``'s rows, as the serving
         steps keep them), masked past ``kv_len`` (a scalar or one length a
         row).  No RoPE: the reference ropes no cross-attention.  (The
-        reference's branch that projects K/V from the encoder output
-        serves its training forward, which waits for the training
-        slice.)"""
+        training forward projects ``kv`` from the encoder output, as the
+        reference's branch without ``kv`` does.)"""
         cfg = self.cfg
         b, s, _ = x.shape
         q = (x @ cp["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads,

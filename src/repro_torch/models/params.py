@@ -6,7 +6,8 @@ leading ``"layers"`` axis stacks the homogeneous layers, exactly as in the
 JAX package, so one parameter tree has the same paths and shapes in both
 packages.  ``init_params`` draws seeded weights; ``params_from_numpy``
 carries the JAX package's parameters, handed over as numpy arrays, into the
-port -- how the parity tests make both packages compute the same thing.
+port -- how the parity tests make both packages compute the same thing --
+and ``opt_state_from_numpy`` its optimizer state beside them.
 """
 
 from __future__ import annotations
@@ -49,6 +50,18 @@ def _leaf_seed(seed: int, path: str) -> int:
     # Python salts ``hash(str)`` per process (the reference seeds leaves
     # with it); crc32 gives every leaf the same stream in every process.
     return (int(seed) * 0x9E3779B1 + zlib.crc32(path.encode())) & (2**63 - 1)
+
+
+def count_params(specs: PyTree) -> int:
+    """The element count of a spec tree."""
+    total = 0
+
+    def one(_, spec: ParamSpec):
+        nonlocal total
+        total += math.prod(spec.shape)
+
+    spec_tree_map(one, specs)
+    return total
 
 
 def init_params(specs: PyTree, seed: int, device, dtype=torch.float32
@@ -113,3 +126,28 @@ def params_from_numpy(tree: PyTree, cfg, device, dtype=torch.float32
 
     return spec_tree_map(one, specs)
 
+
+def opt_state_from_numpy(opt, params_like: PyTree, device,
+                         dtype: Optional[torch.dtype] = None):
+    """The JAX package's ``OptState(step, mu, nu)`` (numpy leaves, or
+    anything ``np.asarray`` takes) as the port's ``optim.OptState`` on
+    ``device``: ``mu`` and ``nu`` take ``params_like``'s paths and shapes
+    (checked), in ``dtype`` (default: the leaves' own, bfloat16 moments
+    read by their bits), and ``step`` is an int32 scalar."""
+    from repro_torch.ckpt.checkpoint import to_tensor
+    from repro_torch.optim.adamw import OptState
+
+    def tree(src, like, path=""):
+        if isinstance(like, dict):
+            return {k: tree(src[k], v, f"{path}.{k}" if path else k)
+                    for k, v in like.items()}
+        t = to_tensor(src, device, dtype)
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"moment {path!r}: shape {tuple(t.shape)} != "
+                             f"parameter {tuple(like.shape)}")
+        return t
+
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                        device=device)
+    return OptState(step, tree(opt.mu, params_like),
+                    tree(opt.nu, params_like))
