@@ -915,13 +915,16 @@ def profile_serve(engine, prompts, unprofiled_wall_s: float,
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # Device activity only: the busy share reads kernels, and the host
+    # ops' events would take the profiler a minute to sort (whisper).
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         engine.generate(prompts, max_new_tokens=max_new)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
+    t1 = time.perf_counter()
     avgs = prof.key_averages()
     log(avgs.table(sort_by="self_cuda_time_total", row_limit=30))
+    log(f"  profile sorted in {time.perf_counter() - t1:.1f} s")
     # Kernel rows only: an operator's row repeats its kernels' time.
     busy_us = sum(e.self_device_time_total for e in avgs
                   if e.device_type == DeviceType.CUDA)
@@ -3342,8 +3345,7 @@ def profiled_busy(serve, windows) -> dict:
     torch.cuda.synchronize()
     plain_us = (time.perf_counter() - t0) * 1e6
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve(windows[1])
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
@@ -3802,7 +3804,7 @@ def phase_train_parity() -> dict:
             loss, metrics = model.loss(params, batch, torch.float32)
             loss.backward()
             loss = loss.detach()
-            ts = make_train_step(cfg, shape, train, device=dev)
+            ts = make_train_step(cfg, shape, train=train, device=dev)
             stepped = ts.fn(fresh(cpu_params, dev),
                             adamw_init(fresh(cpu_params, dev)), batch)
             res[dev] = (loss, metrics, flat_leaves(params), stepped)
@@ -3904,8 +3906,7 @@ def phase_train_full(mods: dict) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         counts = read_counts(mods)
         assert all(c["LAUNCHES"] == 0 for c in counts.values()), counts
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             prof_hist = trainer.fit(1, it, log_every=0)
             torch.cuda.synchronize()
@@ -4043,6 +4044,346 @@ def phase_train_loop() -> dict:
     return {"cli_loss": [first, last], **runs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: tensor-parallel training over a device mesh
+# ---------------------------------------------------------------------------
+
+#: The ring's block products: a 4-way ring over llama3.2-1b's projections
+#: at one microbatch of phase 33 (c) (2 x 4,096 tokens), forward and
+#: backward.  All-gather steps multiply the (m, k/p) chunk by a (k/p, n/p)
+#: band of the column-parallel weight (fused q/k/v, fused gate/up);
+#: reduce-scatter steps an (m/p, k/p) row block by the (k/p, n) row-parallel
+#: weight (attention and MLP out).  Serpentine halves the chunk (all-gather)
+#: or the columns (reduce-scatter).  The LM head is tied to the embedding
+#: (no ring).
+RING_P = 4
+RING_M = TRAIN_SEQ * TRAIN_BATCH // TRAIN_MICRO
+
+
+def ring_block_shapes(cfg) -> dict:
+    """``{what: (m, k, n)}``: every distinct block product of a
+    ``RING_P``-way ring (both modes) over ``cfg``'s projections at
+    ``RING_M`` tokens, forward and backward, as ``dist.overlap``'s
+    ``_AgRing``/``_RsRing`` launch them.  The all-gather ring's dx
+    reduce-scatters ``dy @ band^T`` (m x n/p by n/p x k/p) and its dw
+    re-streams x (``chunk^T @ dy``, k/p x m by m x n/p); the reduce-scatter
+    ring's backward streams dy: dx ``dy_part @ w^T`` (m/p x n by n x k/p),
+    dw ``x_rows^T @ dy_part`` (k/p x m/p by m/p x n).  A shape that several
+    products share is listed once, under all their names."""
+    p, m, d = RING_P, RING_M, cfg.d_model
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    names: dict = {}
+    for mode, half in (("ring", 1), ("serpentine", 2)):
+        kc = d // p // half                  # the streamed chunk of x
+        for name, n in (("wq", hq), ("wk/wv", hkv), ("wg/wi", cfg.d_ff)):
+            for what, shape in (("", (m, kc, n // p)),
+                                (" dx", (m, n // p, kc)),
+                                (" dw", (kc, m, n // p))):
+                names.setdefault(shape, []).append(f"ag {mode} {name}{what}")
+        nc = d // half                       # the streamed columns of y
+        for name, k in (("attn wo", hq), ("mlp wo", cfg.d_ff)):
+            for what, shape in (("", (m // p, k // p, nc)),
+                                (" dx", (m // p, nc, k // p)),
+                                (" dw", (k // p, m // p, nc))):
+                names.setdefault(shape, []).append(f"rs {mode} {name}{what}")
+    return {", ".join(v): shape for shape, v in names.items()}
+
+
+def phase_ring_blocks(mm_mod) -> dict:
+    """(a) ``matmul_cc`` under ``leaf_matmul_plan`` at each ring block
+    shape, forward and backward, bf16, against its plain version; its time
+    beside the plain version's, ``torch.matmul``'s and the bound."""
+    from repro_torch.core.plan import leaf_matmul_plan
+    from repro_torch.kernels.matmul_cc import matmul_cc
+    from repro_torch.kernels.ref import matmul_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(34)
+    rows, worst = {}, 0.0
+    for what, (m, k, n) in ring_block_shapes(get_cfg()).items():
+        a = randn(gen, (m, k), torch.bfloat16)
+        b = randn(gen, (k, n), torch.bfloat16, scale=k ** -0.5)
+        plan = leaf_matmul_plan(m, k, n, dtype_bytes=2)
+        before = counters(mm_mod, ("wgmma", "simt"))
+        out = matmul_cc(a, b, plan=plan)
+        torch.cuda.synchronize()
+        path = body(mm_mod, before, what)
+        err = held_to(out, matmul_ref(a, b), TOL[torch.bfloat16],
+                      f"matmul_cc ring block {what} {m}x{k}x{n} tile "
+                      f"{plan.bm}x{plan.bk}x{plan.bn} {path}")
+        worst = max(worst, err)
+        nbytes, ops = (m * k + k * n + m * n) * 2, 2 * m * k * n
+        bms, by = bound_ms(nbytes, ops, torch.bfloat16)
+        row = dict(shape=[m, k, n], path=path,
+                   tile=f"{plan.bm}x{plan.bk}x{plan.bn}",
+                   ms=cuda_ms(lambda i: matmul_cc(a, b, plan=plan), reps=20),
+                   plain_ms=cuda_ms(lambda i: matmul_ref(a, b), reps=10),
+                   library_ms=cuda_ms(lambda i: torch.matmul(a, b), reps=20),
+                   bound_ms=bms, bound_by=by, max_abs_err=err)
+        rows[what] = row
+        log(f"  (a) {what} {m}x{k}x{n}: {row['ms']:.4f} ms ({path}, tile "
+            f"{row['tile']}), plain {row['plain_ms']:.4f}, torch.matmul "
+            f"{row['library_ms']:.4f}, bound {bms:.4f} ({by}): "
+            f"{bms / row['ms']:.3f} of bound, "
+            f"{row['library_ms'] / row['ms']:.3f} of torch.matmul's speed")
+        del a, b, out
+    return {"shapes": rows, "max_abs_err": worst}
+
+
+def phase_ring_one_rank(mm_mod) -> dict:
+    """(b) A one-rank NCCL world (``make_host_mesh()``): the ring kernels
+    called directly in both modes, forward and backward through their
+    autograd Functions, against ``x @ w`` and its gradients, bf16 and
+    float32; ``matmul_cc``'s launches counted."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.overlap import (make_ag_matmul,
+                                          make_ag_matmul_fused,
+                                          make_rs_matmul)
+    from repro_torch.kernels.ref import matmul_ref
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh()
+    log(f"  (b) mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+        f"{mesh.device_type}, backend {dist.get_backend()}")
+    gen = torch.Generator(device=DEVICE).manual_seed(35)
+    m, d = 2048, get_cfg().d_model
+    zero_counts({"matmul": mm_mod})
+    worst = {}
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            for mode in ("ring", "serpentine"):
+                for name in ("ag", "agf", "rs"):
+                    x = randn(gen, (m, d), dtype)
+                    ws = [randn(gen, (d, n), dtype, scale=d ** -0.5)
+                          for n in ((d, 512, 512) if name == "agf"
+                                    else (d,))]
+                    # Output grads scaled by 1/sqrt(m), as the weights by
+                    # 1/sqrt(d): every product sums to O(1) values, so
+                    # float32's 1e-4 measures the kernel (as phase 5's).
+                    gys = [randn(gen, (m, w.shape[1]), dtype,
+                                 scale=m ** -0.5) for w in ws]
+                    if name == "agf":
+                        fn = make_ag_matmul_fused(mesh, "model", mode, 3)
+                    else:
+                        fn = (make_ag_matmul if name == "ag"
+                              else make_rs_matmul)(mesh, "model", mode)
+                    xl = x.clone().requires_grad_(True)
+                    wl = [w.clone().requires_grad_(True) for w in ws]
+                    ys = fn(xl, *wl)
+                    ys = ys if isinstance(ys, list) else [ys]
+                    torch.autograd.backward(
+                        [y.to_local() for y in ys], gys)
+                    # The plain version: products summed in float32 and
+                    # rounded once, as the kernel's; gradients likewise.
+                    want = [matmul_ref(x, w) for w in ws]
+                    dx = sum(matmul_ref(g, w.t().contiguous())
+                             for g, w in zip(gys, ws))
+                    dws = [matmul_ref(x.t().contiguous(), g) for g in gys]
+                    what = f"{name} {mode} {str(dtype)[6:]}"
+                    tol = TOL[dtype] if dtype == torch.float32 else 5e-2
+                    err = max(
+                        [held_to(y.to_local().detach(), w, tol, f"{what} y")
+                         for y, w in zip(ys, want)]
+                        + [held_to(xl.grad, dx, tol, f"{what} dx")]
+                        + [held_to(w.grad, g, tol, f"{what} dw")
+                           for w, g in zip(wl, dws)])
+                    worst[what] = err
+        torch.cuda.synchronize()
+        counts = read_counts({"matmul": mm_mod})["matmul"]
+    finally:
+        dist.destroy_process_group()
+    log(f"  (b) matmul_cc launches from the rings: {counts}")
+    assert counts["LAUNCHES"] > 0, counts
+    return {"launches": counts["LAUNCHES"], "counts": counts,
+            "max_abs_err": worst}
+
+
+def phase_train_mesh(tfull) -> dict:
+    """(c) Full-width llama3.2-1b on ``make_host_mesh()`` (one card) with
+    collectives "auto", against phase 33 (c)'s meshless step on the same
+    two batches: loss and grad_norm equal; the mesh step's seconds, peak
+    memory, busy share and the planner's FSDP choice."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.trainer import init_train_state, make_train_step
+
+    cfg = get_cfg()
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    train = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=8,
+                        remat="full", microbatches=TRAIN_MICRO,
+                        collectives="auto")
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            seed=0)
+    batches = [ds.batch(i, TRAIN_BATCH) for i in range(3)]
+
+    def run(mesh, n_steps, profiled=False):
+        free_card()
+        ts = make_train_step(cfg, shape, mesh, train,
+                             device=None if mesh else DEVICE)
+        params, opt = init_train_state(ts, 0, train)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, secs = [], []
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            params, opt, m = ts.fn(params, opt, ts.place_batch(batches[i]))
+            metrics.append({k: float(v) for k, v in m.items()})
+            secs.append(time.perf_counter() - t0)
+        extra = {}
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt, m = ts.fn(params, opt,
+                                       ts.place_batch(batches[n_steps]))
+                float(m["loss"])
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy = sum(e.self_device_time_total
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0)
+            extra = {"busy_share": busy / wall_us,
+                     "profiled_step_s": wall_us / 1e6}
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        meta = ts.rules.meta if ts.rules else {}
+        del params, opt, ts
+        return metrics, secs, peak, extra, meta
+
+    plain, plain_s, plain_peak, _, _ = run(None, 2)
+    mesh = make_host_mesh()
+    try:
+        meshed, mesh_s, peak, extra, meta = run(mesh, 2, profiled=True)
+    finally:
+        dist.destroy_process_group()
+    free_card()
+    errs = {k: max(abs(a[k] - b[k]) / (1 + abs(b[k]))
+                   for a, b in zip(meshed, plain))
+            for k in ("loss", "grad_norm")}
+    fsdp = {k: meta[k] for k in ("fsdp", "mesh_np", "fsdp_degree",
+                                 "mesh_fits", "fsdp_capacity",
+                                 "mesh_budget_bytes")}
+    fsdp["collectives"] = meta.get("collectives", "gspmd")
+    row = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "losses": [r["loss"] for r in meshed],
+           "losses_meshless": [r["loss"] for r in plain],
+           "grad_norms": [r["grad_norm"] for r in meshed],
+           "grad_norms_meshless": [r["grad_norm"] for r in plain],
+           "rel_err": errs, "step_s": mesh_s, "step_s_meshless": plain_s,
+           "step_s_phase33c": tfull["step_s"] if tfull else None,
+           "peak_mem_gb": peak, "peak_mem_gb_meshless": plain_peak,
+           "planner": fsdp, **extra}
+    log(f"  (c) mesh {row['mesh']}, planner {json.dumps(fsdp)}")
+    log(f"  (c) losses {row['losses']} (meshless {row['losses_meshless']}),"
+        f" grad norms {row['grad_norms']} (meshless "
+        f"{row['grad_norms_meshless']}), rel errs {errs}")
+    log(f"  (c) step seconds on the mesh {[round(x, 4) for x in mesh_s]} "
+        f"(meshless {[round(x, 4) for x in plain_s]}; phase 33 (c) median "
+        f"{row['step_s_phase33c']}); peak {peak:.2f} GB (meshless "
+        f"{plain_peak:.2f}); busy share {extra['busy_share']:.4f} over a "
+        f"profiled step of {extra['profiled_step_s']:.3f} s")
+    assert fsdp["collectives"] == ("serpentine" if fsdp["fsdp"]
+                                   else "gspmd"), fsdp
+    assert all(v <= TRAIN_TOL for v in errs.values()), errs
+    return row
+
+
+def world_34d(rank: int) -> dict:
+    """(d) On every rank of a 4-rank gloo world on the card's host: the
+    reduced llama3.2-1b forward under gspmd, ring and serpentine on a
+    (1, 4) mesh, and one step on (2, 2) under each, float32."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_model_config
+    from repro_torch.dist.sharding import (arch_rules, param_shardings,
+                                           placements, use_mesh_rules,
+                                           with_collectives)
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.launch.trainer import (distribute, init_train_state,
+                                            make_train_step)
+    from repro_torch.models.model import Model
+
+    torch.set_num_threads(1)
+    cfg = get_model_config(ARCH).reduced()
+    shape = ShapeConfig("tiny", seq_len=16, global_batch=4, kind="train")
+    batch = make_batch(cfg, shape, np.random.default_rng(0), torch.float32,
+                       device="cpu")
+    out = {}
+    mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    rules = arch_rules(cfg, mesh)
+    model = Model(cfg, remat="none")
+    params = model.init(0, device="cpu")
+    shard = param_shardings(mesh, rules, model.param_specs())
+    from repro_torch.tree import tree_map
+    dparams = tree_map(lambda p, pl: distribute(p, mesh, pl), params, shard)
+    dbatch = {k: distribute(v, mesh, placements(mesh, rules.act_spec(
+        ("batch", "seq")))) for k, v in batch.items()}
+    for mode in ("gspmd", "ring", "serpentine"):
+        with torch.no_grad(), use_mesh_rules(
+                mesh, with_collectives(rules, mode)), implicit_replication():
+            logits, _ = model.forward(dparams, dbatch, torch.float32)
+        out[f"forward/{mode}"] = logits.full_tensor().numpy()
+    mesh22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    for mode in ("gspmd", "ring", "serpentine"):
+        train = TrainConfig(learning_rate=3e-4, dtype="float32",
+                            remat="full", warmup_steps=2, total_steps=10,
+                            collectives=mode)
+        ts = make_train_step(cfg, shape, mesh22, train)
+        p, o = init_train_state(ts, 0, train)
+        p, o, m = ts.fn(p, o, ts.place_batch(batch))
+        out[f"step/{mode}"] = np.array([float(m["loss"]),
+                                        float(m["grad_norm"])])
+        out[f"params/{mode}"] = np.concatenate([
+            v.full_tensor().detach().reshape(-1).numpy()
+            for v in (p["embedding"], p["layers"]["attn"]["wq"],
+                      p["layers"]["ffn"]["wo"])])
+    return out
+
+
+def phase_train_mesh_cpu() -> dict:
+    """(d) ``world_34d`` on a 4-rank gloo world of spawned processes on the
+    card's host (a ``FileStore`` in a temporary directory, a 300 s
+    timeout): ring and serpentine equal gspmd within 2e-4."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_world
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    try:
+        ranks = spawn_world(world_34d, 4, os.path.join(root, "store"),
+                            timeout_s=300)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # The forward within 2e-4; the step's loss and grad_norm within
+    # TRAIN_TOL (relative); its parameters within 2 lr (Adam's first step
+    # is a sign: a noise-sized gradient may move +-lr either way).
+    lr = 3e-4 * 0.5
+    limits = {"forward": 2e-4, "step": TRAIN_TOL, "params": 2 * lr * 1.001}
+    errs = {}
+    for r in ranks:
+        for mode in ("ring", "serpentine"):
+            for what in ("forward", "step", "params"):
+                a, b = r[f"{what}/{mode}"], r[f"{what}/gspmd"]
+                d = np.abs(a - b) / ((1 + np.abs(b)) if what == "step"
+                                     else 1.0)
+                errs[f"{what}/{mode}"] = max(
+                    errs.get(f"{what}/{mode}", 0.0), float(d.max()))
+    losses = {m: ranks[0][f"step/{m}"].tolist()
+              for m in ("gspmd", "ring", "serpentine")}
+    log(f"  (d) 4 gloo ranks: (loss, grad_norm) on (2, 2) {losses}; "
+        f"differences from gspmd {json.dumps(errs)} (limits {limits})")
+    bad = {k: v for k, v in errs.items() if not v <= limits[k.split("/")[0]]}
+    assert not bad, bad
+    return {"diff": errs, "steps": losses}
+
+
 def qwen_cfg():
     from repro_torch.configs import get_model_config
 
@@ -4175,6 +4516,7 @@ def main() -> int:
     dk = dserve = wk = wserve = qslice = ab = cssd = cserve = None
     pparity = pllama = pzamba = pexport = pcli = pcap = ppaper = None
     pcluster = tguard = tparity = tfull = tloop = None
+    rblocks = rone = tmesh = tcpu = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -4315,11 +4657,22 @@ def main() -> int:
         tfull = phase("phase 33c train full width", phase_train_full,
                       train_mods)
         tloop = phase("phase 33d train loop", phase_train_loop)
+        log("[34] tensor-parallel training over a device mesh: (a) the "
+            "ring's block products, (b) the rings on a one-rank NCCL world, "
+            "(c) full-width llama3.2-1b on make_host_mesh(), (d) 4 gloo "
+            "ranks on the host CPU")
+        t34 = time.perf_counter()
+        rblocks = phase("phase 34a ring blocks", phase_ring_blocks, mm_mod)
+        rone = phase("phase 34b rings on one rank", phase_ring_one_rank,
+                     mm_mod)
+        tmesh = phase("phase 34c train on the mesh", phase_train_mesh, tfull)
+        tcpu = phase("phase 34d 4 gloo ranks", phase_train_mesh_cpu)
+        log(f"  phase 34: {time.perf_counter() - t34:.1f} s")
     if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
                           xserve, dk, dserve, wk, wserve, qslice, ab, cssd,
                           cserve, pparity, pllama, pzamba, pexport, pcli,
                           pcap, ppaper, pcluster, tguard, tparity, tfull,
-                          tloop):
+                          tloop, rblocks, rone, tmesh, tcpu):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -4352,6 +4705,15 @@ def main() -> int:
             "library_ms": row["library_ms"], "path": row["path"],
         })
         kernels[-1].update(ms_simt=row["ms_simt"], sass=sass[name])
+    # The rings (phase 34): matmul_cc's launches as their block product on
+    # the one-rank world, and its times at the ring's block shapes.
+    kernels[1]["ring"] = {
+        "launches": rone["launches"],
+        "max_abs_err": rblocks["max_abs_err"],
+        **{what: {k: row[k] for k in ("shape", "ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by",
+                                      "path")}
+           for what, row in rblocks["shapes"].items()}}
     # zamba2-1.2b: the paged kernel's and the SSD scan's serving launches
     # (phase 9), and their times and bounds at its shapes (phase 7).  The
     # SSD scan's main path is now serving; its sweep launches stay beside.
@@ -4462,6 +4824,12 @@ def main() -> int:
         "arch", "seq", "global_batch", "batch_cut_from", "microbatches",
         "step_s", "tokens_per_s", "mfu_bf16_989", "peak_mem_gb",
         "busy_share", "losses")}))
+    # Phase 34's sharded step beside the meshless one.
+    log("training on a mesh: " + json.dumps({k: tmesh[k] for k in (
+        "mesh", "planner", "losses", "losses_meshless", "grad_norms",
+        "grad_norms_meshless", "rel_err", "step_s", "step_s_meshless",
+        "step_s_phase33c", "peak_mem_gb", "peak_mem_gb_meshless",
+        "busy_share")}))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         log(f"FAILED: the main path never launched {missing}")

@@ -12,8 +12,10 @@ paged engine, and those and vlm (Qwen2-VL) with the cohort engine; its
 hand-written Hopper kernels live in ``csrc/`` and are wrapped by
 ``kernels`` (paged attention and the SSD scan on the serving path,
 ``matmul_cc`` and flash attention on the tuning path).  It trains every
-family on one device (``launch.trainer``, ``launch.train``): eager
-autograd over the same layers, with no hand-written kernel on the path.
+family on one device or over a device mesh (``launch.trainer``,
+``launch.train``, ``dist``): eager autograd over the same layers, DTensor
+placements chosen by the planner, and ``matmul_cc`` as the block product
+of the ring collective matmuls on a card.
 Entry points take ``device=None``, meaning ``"cuda"``; pass ``"cpu"`` to run
 the plain PyTorch versions of the kernels instead (the CPU tests do).
 """

@@ -14,8 +14,14 @@ restores in the other.
     memory and hands serialization to a background thread; the train step
     waits only for the copy.
   * **Restore by name**: ``reshard(key, array)`` places each leaf (the
-    trainer: a tensor on its device); keep-k GC and ``latest_checkpoint``
-    auto-resume.
+    trainer: a tensor on its device, or a DTensor distributed to the
+    placements of whatever mesh the relaunch built); keep-k GC and
+    ``latest_checkpoint`` auto-resume.
+  * **Sharded state**: a DTensor leaf is gathered whole (``full_tensor``,
+    a collective every rank joins, on the calling thread) and only rank 0
+    of a running world writes, so the files are the same whatever mesh
+    wrote them; a blocking save returns on every rank once they are
+    written.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import (
     SEP,
@@ -42,10 +50,13 @@ PyTree = Any
 
 
 def to_host(leaf: Any) -> Any:
-    """A leaf as the array the file holds: a tensor's host copy (bfloat16
+    """A leaf as the array the file holds: a tensor's (a DTensor's whole
+    value's) host copy (bfloat16
     as its bits, ``|V2``; a copy on the CPU too, so that the async writer
     saves the values at the time of the save), anything with a dtype
     through ``np.asarray``, anything else as is."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.detach().full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -156,10 +167,15 @@ class CheckpointManager:
             except BaseException as e:  # surfaced on next wait()
                 self._error = e
 
-        self._thread = threading.Thread(target=work, daemon=True)
-        self._thread.start()
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self._thread = threading.Thread(target=work, daemon=True)
+            self._thread.start()              # rank 0 writes
         if blocking:
-            self.wait()
+            try:
+                self.wait()
+            finally:
+                if dist.is_initialized():
+                    dist.barrier()            # the files are there for all
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -178,6 +194,14 @@ class CheckpointManager:
         for s in sorted(steps)[: -self.keep] if self.keep else []:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                           ignore_errors=True)
+
+    def latest_manifest(self) -> Optional[dict]:
+        """The manifest of the latest checkpoint, None if there is none."""
+        path = latest_checkpoint(self.directory)
+        if path is None:
+            return None
+        with open(os.path.join(path, "manifest.json")) as f:
+            return json.load(f)
 
     def restore_latest(self, template: PyTree, reshard=None):
         path = latest_checkpoint(self.directory)

@@ -8,14 +8,15 @@ one package writes the other reads.  ``read_linux_hierarchy`` is the
 paper's proof-of-concept tool over a Linux host's ``/sys`` (the host's
 caches, RAM on top), and ``paper_system_a``/``paper_system_i`` are the
 paper's two evaluation machines.  ``h100_hierarchy`` builds one card's
-tree:
+tree, or a mesh's:
 
   DCN     with ``hosts > 1`` only: the network between hosts, one copy
           of the NVLINK domain per host; the decode walk places whole
           serving replicas there (``HierarchicalPlan.replicas()``)
-  NVLINK  the interconnect level, over one card; its child copy is the
-          card's HBM, so the decode walk sizes the page pool from the HBM
-          left after the weights, as on the TPU mesh
+  NVLINK  the interconnect level, over ``mesh_devices`` cards a host
+          (default one); its child copy is one card's HBM, so the decode
+          walk sizes the page pool from the HBM left after the weights,
+          and ``dist.sharding`` the FSDP degree, as on the TPU mesh
   HBM     80 GB of HBM3 per card
   L2      50 MB, shared by all SMs
   SMEM    232,448 B a block may use, one copy per SM (132 SMs)
@@ -253,8 +254,9 @@ def h100_hierarchy(
     reg_bytes: int = 65536 * 4,
     line_bytes: int = 128,
     hosts: int = 1,
+    mesh_devices: int = 0,
 ) -> MemoryLevel:
-    """One H100 in the paper's schema.
+    """One H100, or a mesh of them, in the paper's schema.
 
     The "cores" below the card level are SMs: each SM owns one copy of the
     shared-memory and register levels, and all SMs share the L2.  The
@@ -262,11 +264,14 @@ def h100_hierarchy(
     4 B); the sharding granule at the NVLINK level is read off the first
     level below HBM that has one.
 
-    With ``hosts > 1`` a ``DCN`` level goes on top, as the reference's
-    ``tpu_hierarchy`` puts one above its ICI: each host's NVLINK domain
-    (one card) is one copy of the DCN's target level, the NVLINK level's
-    ``siblings`` group the global card ids by host, and the DCN level is
-    ``hosts`` NVLINK domains in size.
+    ``mesh_devices`` is the counterpart of the reference's
+    ``tpu_hierarchy(mesh_devices=)``: the NVLINK level spans that many
+    cards a host, each card's HBM one copy of its target level.  The
+    default (0) is one card a host.  With ``hosts > 1`` a ``DCN`` level
+    goes on top, as the reference's puts one above its ICI: each host's
+    NVLINK domain is one copy of the DCN's target level, the NVLINK
+    level's ``siblings`` group the global card ids by host, and the DCN
+    level is ``hosts`` NVLINK domains in size.
     """
     sms = list(range(n_sms))
     per_sm = [[c] for c in sms]
@@ -274,10 +279,12 @@ def h100_hierarchy(
     smem = MemoryLevel(smem_bytes, per_sm, line_bytes, reg, "SMEM")
     l2 = MemoryLevel(l2_bytes, [sms], line_bytes, smem, "L2")
     hosts = max(1, hosts)
-    cards = list(range(hosts))
+    per_host = max(1, mesh_devices)
+    cards = list(range(hosts * per_host))
     hbm = MemoryLevel(hbm_bytes, [[c] for c in cards], None, l2, "HBM")
-    nvlink = MemoryLevel(hbm_bytes, [[c] for c in cards], None, hbm,
-                         "NVLINK")
+    nvlink = MemoryLevel(per_host * hbm_bytes,
+                         [cards[h * per_host:(h + 1) * per_host]
+                          for h in range(hosts)], None, hbm, "NVLINK")
     if hosts <= 1:
         return nvlink
     return MemoryLevel(hosts * nvlink.size, [cards], None, nvlink, "DCN")

@@ -9,8 +9,9 @@ paper's Algorithm-1 / §2.1.1 search once per level with that level's phi:
   ==========  =============  ========================================
   DCN         ``phi_mesh``   a decode workload: how many whole serving
                              replicas the fleet stands up (``cluster``)
-  NVLINK      ``phi_mesh``   KV head sharding over the host's cards
-                             against one card's HBM
+  NVLINK      ``phi_mesh``   KV head sharding (decode) or the FSDP
+                             degree (training state, ``dist.sharding``)
+                             over the host's cards against one card's HBM
   SMEM        ``phi_smem``   a matmul workload: the kernel's tile
               (tile)         (``core.autotile``), against one block's
                              shared memory and the REG level below
@@ -168,8 +169,11 @@ class Workload:
 class PlanPolicy:
     """How to search: ``n_workers`` seeds the outermost level,
     ``quantize`` snaps mesh-level counts to realizable divisors,
-    ``strategy`` is the host-cache search's (the paper's proposal or its
-    horizontal baseline, np = nWorkers), ``tcl`` restricts that search to
+    ``max_np`` caps a mesh level's partition count by name (e.g. the
+    FSDP capacity of the data axes at "NVLINK"), ``strategy`` is every
+    search's (the paper's proposal or its horizontal baseline: np =
+    nWorkers at the mesh and cache levels, one row slab a worker at the
+    tile level), ``tcl`` restricts that search to
     one named level, ``cache_phi`` is its footprint estimator, ``order``
     is the matmul traversal, ``spec`` the card whose granules align the
     tile (default: an H100 SXM), and ``use_tuned`` consults the port's
@@ -177,6 +181,7 @@ class PlanPolicy:
 
     n_workers: int = 1
     quantize: bool = True
+    max_np: Mapping[str, int] = field(default_factory=dict)
     strategy: str = "cache_conscious"   # | "horizontal"
     tcl: Optional[str] = None
     cache_phi: PhiFn = phi_simple
@@ -203,6 +208,10 @@ class LevelPlan:
     partition_bytes: float = 0.0
     fits: bool = True
     detail: Mapping[str, Any] = field(default_factory=dict)
+
+    @property
+    def replicated(self) -> bool:
+        return self.np_raw <= 1
 
 
 _LEVEL_FIELDS = ("level", "kind", "phi", "budget_bytes", "granule_bytes",
@@ -445,6 +454,9 @@ def _plan_mesh_level(level: MemoryLevel, workload: Workload,
     budget = child.size
     granule = _granule_below(child)
     extent = max(1, len(child.siblings))
+    cap = policy.max_np.get(level.name)
+    if cap:
+        extent = min(extent, max(1, cap))
     phi = make_phi_mesh(overhead=workload.overhead)
     if workload.kv_heads > 0 and level.name == "DCN":
         return _plan_replicas(level, workload, policy, n_workers, budget,
@@ -455,12 +467,16 @@ def _plan_mesh_level(level: MemoryLevel, workload: Workload,
     ]
     if workload.replicated_bytes:
         dists.append(ReplicatedDistribution(workload.replicated_bytes))
-    try:
-        np_raw = find_optimal_np(budget, granule, dists, n_workers, phi,
-                                 max_np=extent)
-        fits = True
-    except NoValidDecomposition:
-        np_raw, fits = extent, False
+    if policy.strategy == "horizontal":
+        np_raw = min(extent, max(1, n_workers))
+        fits = validate_np(budget, granule, dists, np_raw, phi) == 1
+    else:
+        try:
+            np_raw = find_optimal_np(budget, granule, dists, n_workers, phi,
+                                     max_np=extent)
+            fits = True
+        except NoValidDecomposition:
+            np_raw, fits = extent, False
     # A decode workload shards the KV cache over its heads: the only
     # degrees one axis realizes for a cache tensor are "unsharded" and "the
     # whole axis", and the heads must divide evenly.
@@ -548,13 +564,17 @@ def _plan_tile_level(level: MemoryLevel, workload: Workload,
     budget = level.per_core_size()
     reg_budget = (level.child.per_core_size() if level.child is not None
                   else spec.regs_per_sm * 4)
-    tile = autotile._search_matmul_tiles(
-        m, k, n, workload.dtype_bytes, spec, policy.order, n_workers,
-        budget, reg_budget)
     tuning = None
-    if policy.use_tuned:
-        tile, tuning = autotile.apply_tuned_matmul(
-            tile, workload.dtype_bytes, spec, budget, reg_budget)
+    if policy.strategy == "horizontal":
+        tile = autotile.plan_matmul_horizontal(
+            m, k, n, dtype_bytes=workload.dtype_bytes, n_workers=n_workers)
+    else:
+        tile = autotile._search_matmul_tiles(
+            m, k, n, workload.dtype_bytes, spec, policy.order, n_workers,
+            budget, reg_budget)
+        if policy.use_tuned:
+            tile, tuning = autotile.apply_tuned_matmul(
+                tile, workload.dtype_bytes, spec, budget, reg_budget)
     detail: Dict[str, Any] = {"tile": {f: getattr(tile, f) for f in (
         "m", "k", "n", "bm", "bk", "bn", "order", "np",
         "est_vmem_bytes", "strategy", "source")}}

@@ -55,9 +55,11 @@ class H100Spec:
         """Elements of one ``wgmma`` depth step: 16 bf16, 8 float32."""
         return max(1, self.mma_depth_bytes // max(1, dtype_bytes))
 
-    def hierarchy(self, hosts: int = 1) -> MemoryLevel:
+    def hierarchy(self, mesh_devices: int = 0, hosts: int = 1
+                  ) -> MemoryLevel:
         """This card in the paper's §3.1 schema:
-        NVLINK -> HBM -> L2 -> SMEM -> REG, under a DCN level over
+        NVLINK -> HBM -> L2 -> SMEM -> REG, the NVLINK level over
+        ``mesh_devices`` cards a host (0: one), under a DCN level over
         ``hosts`` such hosts when ``hosts > 1``."""
         return h100_hierarchy(
             hbm_bytes=self.hbm_bytes,
@@ -67,6 +69,7 @@ class H100Spec:
             reg_bytes=self.regs_per_sm * 4,
             line_bytes=self.smem_line_bytes,
             hosts=hosts,
+            mesh_devices=mesh_devices,
         )
 
 

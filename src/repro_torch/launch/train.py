@@ -4,11 +4,15 @@
 The reference's flags and defaults (``--arch qwen2-0.5b --shape train_4k
 --reduced true --steps 200 --seq_len 256 --batch 8``, dotted overrides
 such as ``--train.learning_rate 1e-3``) and ``--device`` (default the
-card; ``cpu`` runs on the CPU).  It trains on one device: init or restore
-from ``--train.checkpoint_dir``, the prefetching synthetic data pipeline,
-async checkpoints, preemption drain and the step watchdog.  Reduced
-configs train at ``--seq_len`` x ``--batch`` with ``remat="none"``; full
-ones at the named shape with ``remat="full"``.
+card; ``cpu`` runs on the CPU).  It trains on ``make_host_mesh()``: the
+world ``torchrun`` started (several cards: ``torchrun --nproc_per_node N
+-m repro_torch.launch.train ...``), else a one-rank world of its own --
+NCCL on the card, gloo with ``--device cpu``.  Init or restore from
+``--train.checkpoint_dir`` (onto this mesh, whatever mesh wrote it), the
+prefetching synthetic data pipeline, async checkpoints, preemption drain
+and the step watchdog.  Reduced configs train at ``--seq_len`` x
+``--batch`` with ``remat="none"``; full ones at the named shape with
+``remat="full"``.
 """
 
 from __future__ import annotations
@@ -48,11 +52,17 @@ def main(argv=None) -> int:
     for k, v in list(overrides.items()):
         run = apply_overrides(run, {k: v})
 
+    import torch.distributed as dist
+
     from repro_torch.data import DataPipeline, SyntheticLMDataset
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.trainer import Trainer
 
-    trainer = Trainer(run, device)
-    print(f"[train] arch={arch} reduced={reduced} device={trainer.device} "
+    mesh = make_host_mesh(device=device)
+    trainer = Trainer(run, mesh)
+    shape_of = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    print(f"[train] arch={arch} reduced={reduced} mesh={shape_of} "
+          f"device={trainer.device} "
           f"params={trainer.ts.model.n_params() / 1e6:.1f}M")
     try:
         start = trainer.init_or_restore()
@@ -66,6 +76,7 @@ def main(argv=None) -> int:
             pipe.close()
     finally:
         trainer.preempt.uninstall()
+        dist.destroy_process_group()
     if history["loss"]:
         print(f"[train] loss {history['loss'][0]:.3f} -> "
               f"{history['loss'][-1]:.3f} over {len(history['loss'])} steps")

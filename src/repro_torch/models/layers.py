@@ -6,10 +6,15 @@ paged attention blocks the paged engine runs, and the unpaged attention
 the enc-dec encoder, cross-attention and the training forward run, and
 the training loss (``cross_entropy_loss``).
 
-The JAX package's tensor-parallel projections (``tp_matmul`` /
-``fused_column_matmul``) are plain ``torch.matmul`` here: the port runs on
-one card, and the JAX package leaves these products to XLA, outside any
-Pallas kernel.  Attention against the page pool goes through
+Every tensor-parallel projection (attention q/k/v/o, the SwiGLU FFN, the
+LM head) goes through ``tp_matmul``, which routes to ``dist.overlap``'s
+ring/serpentine collective matmuls when the active sharding rules request
+them and is a plain ``torch.matmul`` otherwise -- on one device, or on a
+mesh under gspmd rules, where DTensor's sharding propagation places the
+collectives.  Projections that share an input (q/k/v, the SwiGLU wg/wi)
+go through ``fused_column_matmul``, so ``x`` streams around the ring once
+a block, not once a projection.  The ``constrain`` sites are the
+reference's: the identity off a mesh.  Attention against the page pool goes through
 ``kernels.paged_attention`` -- the hand-written CUDA kernel on a card, its
 plain PyTorch version on the CPU.
 
@@ -31,10 +36,42 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.overlap import overlap_matmul, overlap_matmul_fused
+from repro_torch.dist.sharding import (active_overlap, active_rule, constrain,
+                                       shard_local, split_heads, take_rows)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel projection dispatch
+# ---------------------------------------------------------------------------
+
+
+def tp_matmul(x: torch.Tensor, w: torch.Tensor, parallel: str) -> torch.Tensor:
+    """Projection ``y = x @ w`` over the last dim: through ``dist.overlap``'s
+    ring kernels when the active rules request ring/serpentine collectives
+    and the shapes divide the ring, a plain product otherwise.
+    ``parallel`` is the weight's TP orientation: "column" (n sharded ->
+    all-gather ring) or "row" (k sharded -> reduce-scatter ring)."""
+    if active_overlap() is None:        # one device, serving, gspmd rules
+        return x @ w
+    y = overlap_matmul(x, w, parallel)
+    return x @ w if y is None else y
+
+
+def fused_column_matmul(x: torch.Tensor, ws) -> list:
+    """Several column-parallel projections of the same ``x`` through ONE
+    all-gather ring (``dist.overlap.make_ag_matmul_fused``); per-weight
+    ``tp_matmul`` when the fused ring does not apply."""
+    if active_overlap() is None:        # one device, serving, gspmd rules
+        return [x @ w for w in ws]
+    ys = overlap_matmul_fused(x, tuple(ws))
+    if ys is None:
+        return [tp_matmul(x, w, "column") for w in ws]
+    return ys
 
 
 # ---------------------------------------------------------------------------
@@ -159,13 +196,13 @@ def embed_param_specs(cfg) -> dict:
 
 
 def swiglu_ffn(params: dict, x: torch.Tensor) -> torch.Tensor:
-    g = x @ params["wg"].to(x.dtype)
-    u = x @ params["wi"].to(x.dtype)
-    return (F.silu(g) * u) @ params["wo"].to(x.dtype)
+    g, u = fused_column_matmul(x, (params["wg"].to(x.dtype),
+                                   params["wi"].to(x.dtype)))
+    return tp_matmul(F.silu(g) * u, params["wo"].to(x.dtype), "row")
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["embedding"].to(dtype)[tokens.long()]
+    return take_rows(params["embedding"].to(dtype), tokens)
 
 
 def lm_logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -173,7 +210,7 @@ def lm_logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.tie_embeddings:
         logits = x @ params["embedding"].to(x.dtype).T
     else:
-        logits = x @ params["lm_head"].to(x.dtype)
+        logits = tp_matmul(x, params["lm_head"].to(x.dtype), "column")
     if logits.shape[-1] != cfg.vocab_size:   # padded vocab: mask pad slots
         pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, NEG_INF)
@@ -292,6 +329,27 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)[:, :sq]
 
 
+def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, k_pos: torch.Tensor,
+                      causal: bool = True, window: int = 0,
+                      kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GQA attention without the head-repeated K/V: q ``(B, Sq, H, D)``
+    grouped per KV head and contracted directly against k and v ``(B, Sk,
+    KV, D)`` (a sequence-sharded cache).  Equal to ``repeat_kv`` +
+    ``full_attention``."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, kvh, h // kvh, d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
+    mask = attn_mask(q_pos, k_pos, causal=causal, window=window,
+                     kv_len=kv_len)                  # (B|1, 1, Sq, Sk)
+    logits = logits.masked_fill(~mask[:, :, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq, h, d)
+
+
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_pos: torch.Tensor, k_pos: torch.Tensor, cfg,
                  causal: bool = True,
@@ -301,21 +359,33 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are at most ``cfg.attn_blockwise_threshold`` or the query is one
     token; otherwise ``blockwise_attention`` at the blocks the port's
     decomposer plans for the shape (``core.autotile.plan_attention``, at
-    2-byte elements as the reference plans them)."""
+    2-byte elements as the reference plans them).  Under rules that shard
+    the KV sequence, a one-token query goes to ``grouped_attention``
+    against the sharded K/V instead."""
+    if q.shape[1] == 1 and active_rule("kv_seq") is not None:
+        k = constrain(k, ("batch", "kv_seq", None, None))
+        v = constrain(v, ("batch", "kv_seq", None, None))
+        return grouped_attention(q, k, v, q_pos, k_pos, causal=causal,
+                                 window=cfg.sliding_window, kv_len=kv_len)
     n_rep = q.shape[2] // k.shape[2]
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    # Pin the repeated K/V to the head sharding of Q.
+    k = constrain(k, ("batch", None, "heads", None))
+    v = constrain(v, ("batch", None, "heads", None))
     sk = k.shape[1]
+    # On a mesh each rank attends over its own batch rows and heads.
     if (kv_len is not None or sk <= cfg.attn_blockwise_threshold
             or q.shape[1] == 1):
-        return full_attention(q, k, v, q_pos, k_pos, causal=causal,
-                              window=cfg.sliding_window, kv_len=kv_len)
+        return shard_local(lambda q, k, v: full_attention(
+            q, k, v, q_pos, k_pos, causal=causal,
+            window=cfg.sliding_window, kv_len=kv_len), q, k, v)
     from repro_torch.core.autotile import plan_attention
 
     plan = plan_attention(q.shape[1], sk, q.shape[-1], dtype_bytes=2)
-    return blockwise_attention(q, k, v, q_pos, k_pos,
-                               block_q=int(plan.block_q),
-                               block_kv=int(plan.block_kv), causal=causal,
-                               window=cfg.sliding_window)
+    return shard_local(lambda q, k, v: blockwise_attention(
+        q, k, v, q_pos, k_pos, block_q=int(plan.block_q),
+        block_kv=int(plan.block_kv), causal=causal,
+        window=cfg.sliding_window), q, k, v)
 
 
 def attention_block(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
@@ -380,7 +450,7 @@ def attention_block(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
         cache["len"] += s
     out = attention_op(q, k, v, q_pos, k_pos, cfg, causal=causal,
                        kv_len=kv_len)
-    return out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
+    return tp_matmul(out.reshape(b, s, -1), params["wo"].to(x.dtype), "row")
 
 
 # ---------------------------------------------------------------------------
@@ -391,15 +461,15 @@ def attention_block(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
 def _qkv(params: dict, x: torch.Tensor, cfg):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    q, k, v = fused_column_matmul(x, (params["wq"].to(x.dtype),
+                                      params["wk"].to(x.dtype),
+                                      params["wv"].to(x.dtype)))
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    return (q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd),
-            v.reshape(b, s, kv, hd))
+    return (split_heads(q, h, hd, "heads"), split_heads(k, kv, hd, "kv_heads"),
+            split_heads(v, kv, hd, "kv_heads"))
 
 
 def paged_attention_block(
@@ -442,7 +512,7 @@ def paged_attention_block(
     out = paged_attention(q[:, 0].contiguous(), k_pool[layer], v_pool[layer],
                           table, (pos + 1).to(torch.int32),
                           window=cfg.sliding_window or 0, page_tokens=t)
-    return out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
+    return tp_matmul(out.reshape(b, s, -1), params["wo"].to(x.dtype), "row")
 
 
 def paged_prefill_block(
@@ -485,7 +555,7 @@ def paged_prefill_block(
     out = paged_attention(q[0].contiguous(), k_pool[layer], v_pool[layer],
                           table, (positions + 1).to(torch.int32),
                           window=cfg.sliding_window or 0, page_tokens=t)
-    return out.reshape(b, c, -1) @ params["wo"].to(x.dtype)
+    return tp_matmul(out.reshape(b, c, -1), params["wo"].to(x.dtype), "row")
 
 
 # ---------------------------------------------------------------------------
@@ -497,7 +567,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        z_loss: float = 1e-4) -> torch.Tensor:
     """Mean token NLL in float32, plus ``z_loss`` times the mean squared
     log-sum-exp (the reference's control of logit drift)."""
-    logits = logits.float()
+    # DTensor has no sharded gather: the vocab dim is gathered whole first
+    # (the identity off a mesh).
+    logits = constrain(logits.float(), ("batch", "seq", None))
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels.long()[..., None])[..., 0]
     loss = (lse - ll).mean()

@@ -67,6 +67,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
+from repro_torch.dist.sharding import constrain, split_heads
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
@@ -98,6 +99,10 @@ _UNBATCHED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def _save_unbatched_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return (CheckpointPolicy.MUST_SAVE if op in _UNBATCHED_DOTS
             else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+#: The residual stream's logical axes (the reference's ``constrain``).
+_RESIDUAL = ("batch", "seq", "embed")
 
 
 def _norm_spec(cfg, layers: int = 0) -> ParamSpec:
@@ -138,14 +143,15 @@ def _tf_layer(lp: dict, x: torch.Tensor, cfg,
     training forward) and dropped otherwise (serving has no loss); anything
     else is SwiGLU."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + attn(lp["attn"], h)
+    x = constrain(x + attn(lp["attn"], h), _RESIDUAL)
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if kind in ("moe", "mla"):
         f, a = MOE.moe_ffn(lp["moe"], h, cfg.moe, capacity_factor)
         if aux is not None:
             aux.append(a)
-        return x + f
-    return x + L.swiglu_ffn(lp["ffn"], h)
+    else:
+        f = L.swiglu_ffn(lp["ffn"], h)
+    return constrain(x + f, _RESIDUAL)
 
 
 def _cached_attn(cfg, attn_kind: str, q_pos: torch.Tensor,
@@ -173,11 +179,11 @@ def _dec_layer(lp: dict, x: torch.Tensor, cfg,
     pre-norm cross-attention (``cross_attn(lp["cross"], h)``) and pre-norm
     SwiGLU, each with a residual."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + self_attn(lp["attn"], h)
+    x = constrain(x + self_attn(lp["attn"], h), _RESIDUAL)
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    x = x + cross_attn(lp["cross"], h)
+    x = constrain(x + cross_attn(lp["cross"], h), _RESIDUAL)
     h = L.rms_norm(x, lp["ln3"], cfg.norm_eps)
-    return x + L.swiglu_ffn(lp["ffn"], h)
+    return constrain(x + L.swiglu_ffn(lp["ffn"], h), _RESIDUAL)
 
 
 class Model:
@@ -244,10 +250,10 @@ class Model:
         specs["layers"] = _tf_layer_specs(cfg, n, cfg.family)
         return specs
 
-    def init(self, seed: int = 0, device=None,
-             dtype=torch.float32) -> PyTree:
+    def init(self, seed: int = 0, device=None, dtype=torch.float32,
+             place=None) -> PyTree:
         return init_params(self.param_specs(), seed, resolve_device(device),
-                           dtype)
+                           dtype, place)
 
     def n_params(self) -> int:
         """The parameter tree's element count (from the specs)."""
@@ -280,7 +286,7 @@ class Model:
         fam = cfg.family
         if fam == "enc_dec":
             return self._forward_encdec(params, batch, dtype)
-        x = self._embed_in(params, batch, dtype)
+        x = constrain(self._embed_in(params, batch, dtype), _RESIDUAL)
         q_pos = torch.arange(x.shape[1], device=x.device)
         pos3d = batch.get("positions_3d")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -315,7 +321,9 @@ class Model:
             x = self._hybrid_train(params, x, q_pos)
         else:
             x = self._xlstm_train(params, x)
-        return L.lm_logits(params, x, cfg), aux
+        logits = constrain(L.lm_logits(params, x, cfg),
+                           ("batch", "seq", "vocab"))
+        return logits, aux
 
     def _hybrid_train(self, params: PyTree, x: torch.Tensor,
                       q_pos: torch.Tensor) -> torch.Tensor:
@@ -371,12 +379,13 @@ class Model:
         x = L.embed_tokens(params, batch["tokens"], dtype)
         dec_pos = torch.arange(x.shape[1], device=x.device)
         self_attn = _cached_attn(cfg, "dense", dec_pos, None)
-        kv_shape = (enc.shape[0], enc.shape[1], cfg.n_kv_heads, cfg.head_dim)
 
         def cross(cp, h):
-            kv = (enc @ cp["wk"].to(h.dtype)).reshape(kv_shape), \
-                (enc @ cp["wv"].to(h.dtype)).reshape(kv_shape)
-            return self._cross_attn(cp, h, dec_pos, enc_pos, kv)
+            k, v = L.fused_column_matmul(enc, (cp["wk"].to(h.dtype),
+                                               cp["wv"].to(h.dtype)))
+            return self._cross_attn(cp, h, dec_pos, enc_pos, (
+                split_heads(k, cfg.n_kv_heads, cfg.head_dim, "kv_heads"),
+                split_heads(v, cfg.n_kv_heads, cfg.head_dim, "kv_heads")))
         body = self._maybe_remat(
             lambda lp, x: _dec_layer(lp, x, cfg, self_attn, cross))
         for i in range(cfg.enc_dec.n_decoder_layers):
@@ -643,12 +652,12 @@ class Model:
         reference's branch without ``kv`` does.)"""
         cfg = self.cfg
         b, s, _ = x.shape
-        q = (x @ cp["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads,
-                                                cfg.head_dim)
+        q = split_heads(L.tp_matmul(x, cp["wq"].to(x.dtype), "column"),
+                        cfg.n_heads, cfg.head_dim, "heads")
         k, v = kv
         out = L.attention_op(q, k.to(x.dtype), v.to(x.dtype), q_pos, k_pos,
                              cfg, causal=False, kv_len=kv_len)
-        return out.reshape(b, s, -1) @ cp["wo"].to(x.dtype)
+        return L.tp_matmul(out.reshape(b, s, -1), cp["wo"].to(x.dtype), "row")
 
     def _cross_hook(self, ck: torch.Tensor, cv: torch.Tensor,
                     q_pos: torch.Tensor,
@@ -702,7 +711,7 @@ class Model:
         cfg = self.cfg
         if cfg.family == "enc_dec":
             return self._prefill_encdec(params, batch, max_len, dtype)
-        x = self._embed_in(params, batch, dtype)
+        x = constrain(self._embed_in(params, batch, dtype), _RESIDUAL)
         b, s = x.shape[:2]
         cache = self.init_cache(b, max_len, dtype, device=x.device)
         q_pos = torch.arange(s, device=x.device)
@@ -740,7 +749,8 @@ class Model:
         1)``).  Every layer writes its K/V (or latent, or state) into the
         cache in place; MoE dispatches at ``CAPACITY_FACTOR``.  Returns
         ``(logits (B, V), cache)`` with ``pos`` advanced."""
-        x = self._embed_in(params, batch, dtype)
+        x = constrain(self._embed_in(params, batch, dtype),
+                      ("batch", None, "embed"))
         pos = int(cache["pos"])
         q_pos = torch.arange(pos, pos + 1, device=x.device)
         attn, rows, cross = self._cohort_hooks(cache, q_pos,
@@ -776,7 +786,8 @@ class Model:
         pos, table = cache["pos"], cache["table"]
         kp, vp = cache["pool"].get("k"), cache["pool"].get("v")
         lat = cache["pool"].get("lat")
-        x = L.embed_tokens(params, batch["tokens"], dtype)
+        x = constrain(L.embed_tokens(params, batch["tokens"], dtype),
+                      ("batch", None, "embed"))
 
         def attn(i):
             if lat is not None:
@@ -818,7 +829,8 @@ class Model:
         slot, pos0 = int(batch["slot"]), int(batch["pos0"])
         kp, vp = cache["pool"].get("k"), cache["pool"].get("v")
         lat = cache["pool"].get("lat")
-        x = L.embed_tokens(params, batch["tokens"], dtype)
+        x = constrain(L.embed_tokens(params, batch["tokens"], dtype),
+                      _RESIDUAL)
         c = x.shape[1]
         positions = pos0 + torch.arange(c, device=x.device)
         table_row = cache["table"][slot]

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import active_rule, constrain
 from repro_torch.models.params import ParamSpec
 
 
@@ -98,10 +99,20 @@ def moe_ffn(
         buf.index_put_((b_idx, top_i[:, :, kk], slot[:, :, kk]), x * w,
                        accumulate=True)
 
+    # Tensor-parallel experts (the expert count does not fill the model
+    # axis): pin the dispatch buffers and the expert hidden activations, as
+    # the reference does; under expert parallelism it constrains nothing.
+    tp_experts = active_rule("experts") is None
+    if tp_experts:
+        buf = constrain(buf, ("batch", "experts", None, None))
     h = F.silu(torch.einsum("becd,edf->becf", buf,
                             params["wg"].to(x.dtype)))
     h = h * torch.einsum("becd,edf->becf", buf, params["wi"].to(x.dtype))
+    if tp_experts:
+        h = constrain(h, ("batch", "experts", None, "mlp"))
     out_buf = torch.einsum("becf,efd->becd", h, params["wo"].to(x.dtype))
+    if tp_experts:
+        out_buf = constrain(out_buf, ("batch", "experts", None, None))
 
     y = torch.zeros_like(x)
     for kk in range(k):

@@ -64,7 +64,8 @@ def count_params(specs: PyTree) -> int:
     return total
 
 
-def init_params(specs: PyTree, seed: int, device, dtype=torch.float32
+def init_params(specs: PyTree, seed: int, device, dtype=torch.float32,
+                place: Optional[Callable[[str, torch.Tensor], Any]] = None
                 ) -> PyTree:
     """Seeded weights on ``device``: fan-in scaled normals (``embed``: std
     0.02), ones/zeros where the spec says.  Each leaf draws from its own
@@ -72,10 +73,17 @@ def init_params(specs: PyTree, seed: int, device, dtype=torch.float32
     into a tensor of ``dtype``: a leaf stacked over ``"layers"`` one layer
     at a time, any other leaf whole, each draw made in float32 and cast.
     (Drawn whole, Mixtral's stacked ``moe.wi`` at 24 layers would take
-    45 GB of float32 beside the weights.)"""
+    45 GB of float32 beside the weights.)  ``place(path, leaf)``, when
+    given, takes each leaf as soon as it is drawn and returns what the tree
+    holds (the trainer's shard of it), so no more than one whole leaf is
+    held at a time."""
     device = torch.device(device)
 
     def one(path: str, spec: ParamSpec):
+        leaf = draw(path, spec)
+        return leaf if place is None else place(path, leaf)
+
+    def draw(path: str, spec: ParamSpec):
         if spec.init == "zeros":
             return torch.zeros(spec.shape, device=device, dtype=dtype)
         if spec.init == "ones":

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import replicated_region
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mamba2 import causal_conv1d
 from repro_torch.models.params import ParamSpec
@@ -240,8 +241,10 @@ def mlstm_block(
     else:
         state = None if cache is None else (cache["C"], cache["n"],
                                             cache["m"])
-        hout, (C, n, m) = mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk,
-                                          state)
+        # DTensor has no rule for logsigmoid's backward: on a mesh the
+        # cell runs replicated.
+        hout, (C, n, m) = replicated_region(mlstm_chunkwise, q, k, v, i_pre,
+                                            f_pre, chunk, state)
         if cache is not None:
             new_cache = {"conv": new_conv, "C": C, "n": n, "m": m}
 
@@ -289,7 +292,10 @@ def slstm_block(
     else:
         zero = hidden.new_zeros((b, h, dh), dtype=torch.float32)
         state = (zero, zero, zero, torch.full_like(zero, NEG))
-    hs, (c, n, hstate, m) = slstm_scan(gx, params["r_gates"], state)
+    # DTensor cannot unbind the gate dim it shards: on a mesh the
+    # recurrence runs replicated.
+    hs, (c, n, hstate, m) = replicated_region(slstm_scan, gx,
+                                              params["r_gates"], state)
     new_cache = None
     if cache is not None:
         new_cache = {"c": c, "n": n, "h": hstate, "m": m}

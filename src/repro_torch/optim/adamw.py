@@ -27,8 +27,9 @@ class OptState(NamedTuple):
 
 
 def adamw_init(params: PyTree, state_dtype=torch.float32) -> OptState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+    def zeros(p):        # a DTensor parameter gets moments of its placements
+        return torch.zeros_like(p, dtype=state_dtype,
+                                memory_format=torch.contiguous_format)
     step = torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
     return OptState(step, tree_map(zeros, params), tree_map(zeros, params))

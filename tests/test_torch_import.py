@@ -23,6 +23,9 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
 assert not bad, bad
+for n in ("repro_torch.dist.sharding", "repro_torch.dist.pipeline",
+          "repro_torch.launch.mesh"):
+    assert n in names, n
 """
 
 
@@ -32,7 +35,7 @@ def test_import_loads_no_jax_and_no_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 69            # every submodule was imported
+    assert n_modules >= 72            # every submodule was imported
 
 
 _FORBIDDEN = re.compile(

@@ -179,3 +179,62 @@ def test_other_families_are_not_served_yet():
     with pytest.raises(NotImplementedError, match="unknown"):
         Model(dataclasses.replace(get_model_config("llama3.2-1b").reduced(),
                                   family="unknown"))
+
+
+_GROUPED = {"causal": dict(causal=True), "window": dict(causal=True, window=3),
+            "kv_len": dict(causal=False, kv_len=np.array([5, 8]))}
+
+
+@pytest.mark.parametrize("case", sorted(_GROUPED))
+def test_grouped_attention_matches_repeat_kv_and_reference(case):
+    """GQA against the unrepeated K/V equals ``repeat_kv`` +
+    ``full_attention`` and the reference's ``grouped_attention``."""
+    rng = np.random.default_rng(7)
+    b, sq, sk, h, kv, d = 2, 3, 8, 4, 2, 16
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    q_pos, k_pos = np.arange(sk - sq, sk), np.arange(sk)
+    kw = dict(_GROUPED[case])
+    kv_len = kw.pop("kv_len", None)
+    t = [torch.from_numpy(a) for a in (q, k, v, q_pos, k_pos)]
+    tl = None if kv_len is None else torch.from_numpy(kv_len)
+    mine = L.grouped_attention(*t, kv_len=tl, **kw).numpy()
+    plain = L.full_attention(t[0], L.repeat_kv(t[1], h // kv),
+                             L.repeat_kv(t[2], h // kv), t[3], t[4],
+                             kv_len=tl, **kw).numpy()
+    ref = np.asarray(RL.grouped_attention(
+        *(jnp.asarray(a) for a in (q, k, v, q_pos, k_pos)),
+        kv_len=None if kv_len is None else jnp.asarray(kv_len), **kw))
+    np.testing.assert_allclose(mine, plain, **TOL)
+    np.testing.assert_allclose(mine, ref, **TOL)
+
+
+def test_attention_op_takes_grouped_attention_under_kv_seq_rules(
+        monkeypatch):
+    """A one-token query under rules that shard the KV sequence goes
+    through ``grouped_attention``, with the same result as the plain
+    dispatch (``constrain`` is the identity on plain tensors)."""
+    from repro_torch.dist.sharding import (AbstractMesh, ShardingRules,
+                                           use_mesh_rules)
+
+    cfg = get_model_config("llama3.2-1b").reduced()
+    rng = np.random.default_rng(8)
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.from_numpy(rng.standard_normal((2, 1, h, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 8, kv, d)).astype(
+        np.float32)) for _ in range(2))
+    q_pos, k_pos = torch.tensor([7]), torch.arange(8)
+    plain = L.attention_op(q, k, v, q_pos, k_pos, cfg)
+    calls = []
+    grouped = L.grouped_attention
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return grouped(*a, **kw)
+
+    monkeypatch.setattr(L, "grouped_attention", spy)
+    with use_mesh_rules(AbstractMesh((1, 4), ("data", "model")),
+                        ShardingRules({}, {"kv_seq": "model"})):
+        sharded = L.attention_op(q, k, v, q_pos, k_pos, cfg)
+    assert calls == [1]
+    np.testing.assert_allclose(sharded.numpy(), plain.numpy(), **TOL)

@@ -96,7 +96,7 @@ def test_train_step_matches_reference(arch, extra):
     kw = dict(TRAIN_KW, **extra)
     (params, opt, batch), (ref_p, ref_o, ref_m) = _ref_step(arch, kw)
     cfg = get_model_config(arch).reduced()
-    ts = make_train_step(cfg, SHAPE, TrainConfig(**kw), device="cpu")
+    ts = make_train_step(cfg, SHAPE, train=TrainConfig(**kw), device="cpu")
     tp = params_from_numpy(params, cfg, "cpu")
     to = opt_state_from_numpy(opt, tp, "cpu")
     tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
@@ -129,7 +129,7 @@ def test_int8_ef_step_raises_in_both_packages():
     with pytest.raises(AssertionError):
         _ref_step("llama3.2-1b", kw)
     cfg = get_model_config("llama3.2-1b").reduced()
-    ts = make_train_step(cfg, SHAPE, TrainConfig(**kw), device="cpu")
+    ts = make_train_step(cfg, SHAPE, train=TrainConfig(**kw), device="cpu")
     from repro_torch.launch.trainer import init_train_state
     from repro_torch.launch.specs import make_batch
 
@@ -141,10 +141,17 @@ def test_int8_ef_step_raises_in_both_packages():
 
 
 def test_train_step_rejects_other_collectives():
+    """An unknown collectives value is refused; the reference's values
+    (and "auto") are accepted, with nothing to schedule on one device."""
     cfg = get_model_config("llama3.2-1b").reduced()
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, SHAPE, TrainConfig(collectives="ring"),
+    with pytest.raises(ValueError, match="unknown collectives"):
+        make_train_step(cfg, SHAPE, train=TrainConfig(collectives="ring2"),
                         device="cpu")
+    for mode in ("gspmd", "ring", "serpentine", "auto"):
+        ts = make_train_step(cfg, SHAPE,
+                             train=TrainConfig(collectives=mode),
+                             device="cpu")
+        assert ts.mesh is None and ts.rules is None
 
 
 def _run(tmp_path, steps=60, **kw):

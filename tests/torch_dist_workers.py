@@ -1,0 +1,312 @@
+"""Rank functions for the port's multi-rank CPU tests (no jax here: each
+spawned rank imports this module, and only the port).
+
+``launch.mesh.spawn_world`` runs one of these on every rank of a gloo
+world; each returns numpy arrays (whole values, gathered from DTensors),
+which the test compares against the JAX package's results computed in a
+separate process on the same inputs.
+"""
+
+import numpy as np
+import torch
+
+
+def _np(t):
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().cpu().numpy().copy()
+
+
+def nested(flat: dict) -> dict:
+    """``{"a/b/c": array}`` -> ``{"a": {"b": {"c": array}}}``."""
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = v
+    return out
+
+
+def _load(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _grads(fn, args, seeds):
+    """Outputs of ``fn(*args)`` (DTensors) and the gradients of
+    ``sum_i <y_i, seed_i>`` w.r.t. ``args``, all as numpy."""
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    ys = fn(*leaves)
+    ys = list(ys) if isinstance(ys, (list, tuple)) else [ys]
+    total = sum((y.full_tensor() * torch.from_numpy(s)).sum()
+                for y, s in zip(ys, seeds))
+    total.backward()
+    return [_np(y) for y in ys], [_np(a.grad) for a in leaves]
+
+
+# ---------------------------------------------------------------------------
+# The rings and the pipeline
+# ---------------------------------------------------------------------------
+
+
+def ring_world(rank: int, inputs: str) -> dict:
+    """Every ring in both modes on a 4-way ``model`` axis (forward and
+    gradients), the rings with the batch sharded on a (2, 2) mesh, and the
+    GPipe pipeline on a 4-stage ``pod`` axis."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist.overlap import (make_ag_matmul, make_ag_matmul_fused,
+                                          make_rs_matmul)
+    from repro_torch.dist.pipeline import make_pipeline
+
+    torch.set_num_threads(1)
+    d = _load(inputs)
+    x, w, w2 = d["x"], d["w"], d["w2"]
+    mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("model",))
+    out = {}
+    for mode in ("ring", "serpentine"):
+        for name, make, args, seeds in (
+                ("ag", make_ag_matmul, (x, w), (d["gy"],)),
+                ("rs", make_rs_matmul, (x, w), (d["gy"],)),
+                ("agf", lambda m, a, mo: make_ag_matmul_fused(m, a, mo, 2),
+                 (x, w, w2), (d["gy"], d["gy2"]))):
+            fn = make(mesh, "model", mode)
+            ys, gs = _grads(fn, args, seeds)
+            for i, y in enumerate(ys):
+                out[f"{name}/{mode}/y{i}"] = y
+            for i, g in enumerate(gs):
+                out[f"{name}/{mode}/g{i}"] = g
+    mesh22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    for mode in ("ring", "serpentine"):
+        for name, make in (("ag", make_ag_matmul), ("rs", make_rs_matmul)):
+            fn = make(mesh22, "model", mode, batch_axes=("data",))
+            ys, gs = _grads(fn, (x, w), (d["gy"],))
+            out[f"{name}/{mode}/batch/y0"] = ys[0]
+            for i, g in enumerate(gs):
+                out[f"{name}/{mode}/batch/g{i}"] = g
+    pod = init_device_mesh("cpu", (4,), mesh_dim_names=("pod",))
+    pipe = make_pipeline(
+        pod, lambda p, h: torch.tanh(h @ p["w"]), axis="pod")
+    out["pipeline"] = _np(pipe({"w": torch.from_numpy(d["stages"])},
+                               torch.from_numpy(d["mbs"])))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The model and the sharded train step
+# ---------------------------------------------------------------------------
+
+
+def _cfg(arch: str = "llama3.2-1b"):
+    from repro_torch.configs import get_model_config
+
+    return get_model_config(arch).reduced()
+
+
+def loop_world(rank: int, ckpt_dir: str) -> dict:
+    """40 serpentine steps on (2, 2), a (4, 1) ``Trainer``'s checkpoint
+    restored by a (2, 2) one, a preemption that reaches one rank, and a
+    restore refused when the ranks see different checkpoints."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import RunConfig, ShapeConfig, TrainConfig
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.trainer import (Trainer, init_train_state,
+                                            make_train_step)
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_flatten_with_paths
+
+    torch.set_num_threads(1)
+    cfg = _cfg()
+    out = {}
+    mesh22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+
+    # 40 steps on (2, 2), the reference's mesh test: the loss falls.
+    shape8 = ShapeConfig("tiny", seq_len=32, global_batch=8, kind="train")
+    train8 = TrainConfig(learning_rate=3e-3, warmup_steps=5, total_steps=60,
+                         remat="none", collectives="serpentine")
+    ts8 = make_train_step(cfg, shape8, mesh22, train8)
+    p8, o8 = init_train_state(ts8, 0, train8)
+    # The sharded init holds the one-device init's values, and each rank's
+    # local tensor owns its shard alone (the whole leaf was let go).
+    whole = tree_flatten_with_paths(Model(cfg).init(0, device="cpu"))
+    mine = tree_flatten_with_paths(p8)
+    out["init/err"] = np.array(max(
+        float(np.abs(_np(mine[k]) - v.numpy()).max()) for k, v in whole.items()))
+    locs = [t.to_local() for t in mine.values()]
+    out["init/owned"] = np.array(all(
+        t.untyped_storage().nbytes() == t.numel() * t.element_size()
+        for t in locs))
+    out["init/sharded"] = np.array(sum(
+        t.numel() < mine[k].numel() for k, t in zip(mine, locs)))
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=32, seed=0)
+    losses = []
+    for step in range(40):
+        p8, o8, m8 = ts8.fn(p8, o8, ts8.place_batch(ds.batch(step % 4, 8)))
+        losses.append(float(m8["loss"]))
+    out["losses"] = np.array(losses)
+
+    # Elastic restore: a (4, 1) run's checkpoint onto (2, 2).
+    mesh41 = init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model"))
+    run = RunConfig(model=cfg, shape=shape8, train=TrainConfig(
+        learning_rate=3e-3, warmup_steps=5, total_steps=60, remat="none",
+        checkpoint_dir=ckpt_dir, checkpoint_every=2))
+    first = Trainer(run, mesh41)
+    try:
+        first.init_or_restore()
+        first.fit(2, ((i, ds.batch(i, 8)) for i in range(2)), log_every=0)
+        saved = {k: _np(v) for k, v in
+                 tree_flatten_with_paths((first.params, first.opt)).items()}
+    finally:
+        first.preempt.uninstall()
+    dist.barrier()
+    second = Trainer(run, mesh22)
+    try:
+        out["restore/step"] = np.array(second.init_or_restore())
+        got = tree_flatten_with_paths((second.params, second.opt))
+        out["restore/err"] = np.array(max(
+            float(np.abs(_np(got[k]) - v).max()) for k, v in saved.items()))
+        out["restore/placements"] = np.array(
+            str(got["0/layers/attn/wq"].placements))
+    finally:
+        second.preempt.uninstall()
+
+    # A preemption that reaches rank 1 alone, during the 4th step: every
+    # rank stops after it, and the final checkpoint is on disk when ``fit``
+    # returns.
+    def batches(trainer):
+        for i in range(8):
+            if i == 3 and rank == 1:
+                trainer.preempt.request_stop()
+            yield i, ds.batch(i, 8)
+
+    run3 = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, checkpoint_dir=ckpt_dir + "_preempt",
+        checkpoint_every=100))
+    third = Trainer(run3, mesh22)
+    try:
+        third.init_or_restore()
+        third.fit(8, batches(third), log_every=0)
+        out["preempt/step"] = np.array(third.step)
+        out["preempt/saved"] = np.array(
+            third.ckpt.latest_manifest()["step"])
+    finally:
+        third.preempt.uninstall()
+
+    # Ranks that see different checkpoints (rank 0 alone sees one): every
+    # rank refuses to restore.
+    own = f"{ckpt_dir}_rank{rank}"
+    if rank == 0:
+        shutil.copytree(ckpt_dir + "_preempt", own)
+    run4 = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, checkpoint_dir=own))
+    fourth = Trainer(run4, mesh22)
+    try:
+        fourth.init_or_restore()
+        out["disagree/error"] = np.array("")
+    except RuntimeError as e:
+        out["disagree/error"] = np.array(str(e))
+    finally:
+        fourth.preempt.uninstall()
+    return out
+
+
+def _step(d: dict, arch: str, ts, cfg) -> dict:
+    """One ``ts`` step from ``arch``'s parameters and batch in ``d`` and
+    ``adamw_init``'s state; the new state and metrics, gathered."""
+    from repro_torch.launch.trainer import distribute
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_flatten_with_paths, tree_map
+
+    params = params_from_numpy(_sub(d, f"{arch}/p/"), cfg, "cpu")
+    params = tree_map(lambda p, pl: distribute(p, ts.mesh, pl).requires_grad_(
+        True), params, ts.param_sharding)
+    batch = ts.place_batch(_sub(d, f"{arch}/bt/"))
+    new_p, new_o, metrics = ts.fn(params, adamw_init(params), batch)
+    out = {}
+    for name, tree in (("p", new_p), ("mu", new_o.mu), ("nu", new_o.nu)):
+        for k, v in tree_flatten_with_paths(tree).items():
+            out[f"{name}/{k}"] = _np(v)
+    for k in ("loss", "grad_norm", "lr", "nll", "aux"):
+        out[f"m/{k}"] = _np(metrics[k])
+    out["fsdp"] = np.array(ts.rules.meta["fsdp"])
+    out["collectives"] = np.array(ts.rules.meta.get("collectives", "gspmd"))
+    return out
+
+
+def _sub(d: dict, pre: str) -> dict:
+    """The entries of ``d`` under ``pre``, nested by their paths."""
+    return nested({k[len(pre):]: v for k, v in d.items() if k.startswith(pre)})
+
+
+def family_world(rank: int, inputs: str, spec: str) -> dict:
+    """For each arch of ``spec["archs"]``, from its parameters and batch in
+    ``inputs``: the training forward under gspmd, ring and serpentine rules
+    on a (1, 4) mesh and one step on (2, 2); then, if ``spec["fsdp"]`` is
+    given, one step of its arch on (2, 2) under rules planned against an
+    HBM of ``spec["fsdp"]["hbm"]`` bytes (FSDP, and so the serpentine rings
+    under ``collectives="auto"``)."""
+    import json
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.dist.sharding import (arch_rules, use_mesh_rules,
+                                           with_collectives)
+    from repro_torch.hw.h100 import h100_spec
+    from repro_torch.launch.trainer import distribute, make_train_step
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.tree import tree_map
+
+    torch.set_num_threads(1)
+    spec = json.loads(spec)
+    d = _load(inputs)
+    mesh14 = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    mesh22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    shape = ShapeConfig("tiny", seq_len=spec["seq_len"],
+                        global_batch=spec["batch"], kind="train")
+    train = TrainConfig(dtype="float32", remat="none", warmup_steps=2,
+                        total_steps=10)
+    out = {}
+    for arch in spec["archs"]:
+        cfg = _cfg(arch)
+        ts14 = make_train_step(cfg, shape, mesh14, train)
+        params = tree_map(lambda p, pl: distribute(p, mesh14, pl),
+                          params_from_numpy(_sub(d, f"{arch}/p/"), cfg, "cpu"),
+                          ts14.param_sharding)
+        batch = ts14.place_batch(_sub(d, f"{arch}/bt/"))
+        for mode in ("gspmd", "ring", "serpentine"):
+            rules = with_collectives(ts14.rules, mode)
+            with torch.no_grad(), use_mesh_rules(mesh14, rules), \
+                    implicit_replication():
+                logits, aux = ts14.model.forward(params, batch,
+                                                 dtype=torch.float32)
+            out[f"{arch}/forward/{mode}"] = _np(logits)
+            out[f"{arch}/aux/{mode}"] = _np(aux)
+        ts22 = make_train_step(cfg, shape, mesh22, train)
+        for k, v in _step(d, arch, ts22, cfg).items():
+            out[f"{arch}/step/{k}"] = v
+    if spec["fsdp"] is None:
+        return out
+    arch, hbm = spec["fsdp"]["arch"], spec["fsdp"]["hbm"]
+    cfg = _cfg(arch)
+    auto = TrainConfig(dtype="float32", remat="none", warmup_steps=2,
+                       total_steps=10, collectives="auto")
+    rules = arch_rules(cfg, mesh22, hierarchy=h100_spec(
+        hbm_bytes=hbm).hierarchy(mesh_devices=4))
+    ts = make_train_step(cfg, shape, mesh22, auto, rules=rules)
+    for k, v in _step(d, arch, ts, cfg).items():
+        out[f"fsdp/step/{k}"] = v
+    out["fsdp/embed_placements"] = np.array(
+        str(ts.param_sharding["embedding"]))
+    return out
