@@ -265,6 +265,24 @@ Phases (each prints its results; the script exits non-zero if any fails):
      than 0.5, and 2 + 2 steps across a blocking save and a fresh
      ``Trainer``'s restore equal 4 straight steps (float32).
 
+ 35. serving over a device mesh: (a) full-width llama3.2-1b through
+     ``ServeEngine(mesh=make_host_mesh())`` on a one-rank NCCL world, phase
+     4's first four prompts: float32 greedy tokens of the paged engine (8
+     new) and of the cohort engine on the mesh equal the meshless paged
+     engine's; bf16 on phase 4's whole trace
+     (32 new, after a 2-prompt warm-up), the mesh engine's wall and tok/s
+     beside the meshless engine's and its paged launches, all ``split``
+     (counted in the kernels line under ``mesh``); the world is destroyed
+     after; (b) 4 gloo ranks on the card's host (``spawn_world``) serve
+     the reduced llama3.2-1b at (2, 2), paged and cohort, under a shrunk
+     ``h100_spec(hbm_bytes=250_000)`` (kv_shard 2) and the default spec
+     (kv_shard 1): tokens equal the meshless engine's; (c) the dry run on
+     the host in two subprocesses started together: ``--plan-tree`` for
+     every arch on both production meshes, and ``--calibrate`` of
+     llama3.2-1b x train_4k and x decode_32k on 16 x 16 (each cell's
+     roofline row printed; host-CPU seconds) into a temporary artifact
+     that ``calibration_overhead`` reads back.
+
 Phases 0-4, 7-30 and 32 plan and serve without a tuning artifact (the port's
 tuning path points at a file that does not exist until phase 6 writes
 one), so their numbers compare with earlier runs'.  Each phase prints its
@@ -4384,6 +4402,252 @@ def phase_train_mesh_cpu() -> dict:
     return {"diff": errs, "steps": losses}
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: serving over a device mesh, and the dry run
+# ---------------------------------------------------------------------------
+
+MESH_PARITY_NEW = 8
+#: The float32 parity runs serve the first prompts of phase 4's trace
+#: (64, 1,024, 200 and 512 tokens): DTensor's host dispatch makes the
+#: mesh engine's prefill chunks 3x slower than the meshless engine's.
+MESH_PARITY_PROMPTS = 4
+MESH_B_LENS = (8, 12, 8, 5)
+MESH_B_NEWS = (6, 3, 2, 4)
+#: A shrunk HBM a card under which the reduced llama's decode plan on
+#: (2, 2) shards its KV heads (kv_shard 2); the default spec keeps 1.
+MESH_B_SMALL_HBM = 250_000
+
+
+def mesh_engine_run(engine, prompts, max_new: int, mods: dict) -> dict:
+    """One ``generate`` with every launch counter of ``mods`` at 0 just
+    before it and read just after: outputs, wall seconds, tok/s."""
+    torch.cuda.synchronize()
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    tokens = sum(len(o) for o in outs)
+    return {"outs": outs, "wall_s": wall, "tok_s": tokens / wall,
+            "tokens": tokens, "launches": launches}
+
+
+def phase_serve_mesh(pa_mod) -> dict:
+    """(a) Full-width llama3.2-1b on ``make_host_mesh()`` (a one-rank NCCL
+    world): float32 greedy tokens of the paged and the cohort engine on
+    the mesh equal the meshless paged engine's on the first
+    ``MESH_PARITY_PROMPTS`` prompts of phase 4's trace; then bf16 on the
+    whole trace, the mesh engine's wall and tok/s beside the meshless
+    engine's, with the paged launches of the mesh run (all ``split``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    cfg = get_cfg()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in PROMPT_LENS]
+    mods = {"paged": pa_mod}
+    out = {}
+    mesh = make_host_mesh()
+    log(f"  (a) mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+        f"{mesh.device_type}, backend {dist.get_backend()}")
+    try:
+        for dtype, new, trace in (
+                (torch.float32, MESH_PARITY_NEW,
+                 prompts[:MESH_PARITY_PROMPTS]),
+                (torch.bfloat16, MAX_NEW, prompts)):
+            free_card()
+            name = str(dtype)[6:]
+            pol = dict(max_slots=MAX_SLOTS, max_len=MAX_LEN,
+                       max_new_tokens=new)
+            plain = ServeEngine(cfg, ServePolicy(batching="paged", **pol),
+                                dtype=dtype, seed=0, device=DEVICE)
+            meshed = ServeEngine(cfg, ServePolicy(batching="paged", **pol),
+                                 dtype=dtype, params=plain.params,
+                                 mesh=mesh)
+            if dtype == torch.bfloat16:       # warm both (first-call costs)
+                for eng in (plain, meshed):
+                    eng.generate(prompts[:2], max_new_tokens=2)
+            a = mesh_engine_run(plain, trace, new, mods)
+            b = mesh_engine_run(meshed, trace, new, mods)
+            row = {"kv_shard": meshed.plan.kv_shard(),
+                   "meshless": {k: a[k] for k in ("wall_s", "tok_s",
+                                                  "tokens", "launches")},
+                   "mesh": {k: b[k] for k in ("wall_s", "tok_s", "tokens",
+                                              "launches")},
+                   "tokens_equal": a["outs"] == b["outs"]}
+            if dtype == torch.float32:
+                cohort = ServeEngine(cfg, ServePolicy(batching="cohort",
+                                                      **pol),
+                                     dtype=dtype, params=plain.params,
+                                     mesh=mesh)
+                c = mesh_engine_run(cohort, trace, new, mods)
+                row["cohort_tokens_equal"] = c["outs"] == a["outs"]
+                row["cohort_wall_s"] = c["wall_s"]
+                del cohort
+            log(f"  (a) {name}: " + json.dumps(row))
+            assert row["tokens_equal"], f"{name}: mesh tokens differ"
+            assert row.get("cohort_tokens_equal", True), \
+                f"{name}: cohort mesh tokens differ"
+            paged = b["launches"]["paged"]
+            assert paged["LAUNCHES"] > 0, paged
+            if dtype == torch.bfloat16:
+                assert paged["LAUNCHES"] == paged["LAUNCHES_SPLIT"], paged
+            out[name] = row
+            del plain, meshed
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def world_35b(rank: int, inputs: str) -> list:
+    """(b) On every rank of a 4-rank gloo world on the card's host: the
+    reduced llama3.2-1b on a (2, 2) CPU mesh, paged and cohort, under a
+    shrunk HBM (kv_shard 2) and the default spec (kv_shard 1), float32."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.hw import h100_spec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    torch.set_num_threads(1)
+    with np.load(inputs) as z:
+        d = {k: z[k] for k in z.files}
+    cfg = get_model_config(ARCH).reduced()
+    tree: dict = {}
+    for k, v in d.items():
+        if k.startswith("param/"):
+            node = tree
+            keys = k[len("param/"):].split("/")
+            for kk in keys[:-1]:
+                node = node.setdefault(kk, {})
+            node[keys[-1]] = v
+    prompts = [d[f"prompt/{i}"] for i in range(len(MESH_B_LENS))]
+    mesh = make_host_mesh(model_axis=2, device="cpu")
+    rows = []
+    for hbm in (MESH_B_SMALL_HBM, None):
+        spec = h100_spec(hbm_bytes=hbm) if hbm else h100_spec()
+        for batching in ("paged", "cohort"):
+            eng = ServeEngine(cfg, ServePolicy(
+                max_new_tokens=4, max_len=64, max_slots=4,
+                batching=batching), params=params_from_numpy(tree, cfg,
+                                                              "cpu"),
+                spec=spec, device="cpu", mesh=mesh)
+            rows.append({"hbm": hbm, "batching": batching,
+                         "kv_shard": eng.plan.kv_shard(),
+                         "outs": eng.generate(
+                             prompts, max_new_tokens=list(MESH_B_NEWS))})
+    return rows
+
+
+def phase_serve_mesh_cpu() -> dict:
+    """(b) ``world_35b`` on 4 spawned gloo ranks (a ``FileStore`` in a
+    temporary directory, a 300 s timeout) against the meshless engine on
+    the same weights and prompts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine, ServePolicy
+    from repro_torch.tree import tree_flatten_with_paths
+
+    cfg = get_model_config(ARCH).reduced()
+    params = Model(cfg).init(0, "cpu", torch.float32)
+    flat = {"param/" + k.replace(".", "/"): v.numpy()
+            for k, v in tree_flatten_with_paths(params).items()}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in MESH_B_LENS]
+    for i, p in enumerate(prompts):
+        flat[f"prompt/{i}"] = p
+    root = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    try:
+        inputs = os.path.join(root, "inputs.npz")
+        np.savez(inputs, **flat)
+        ranks = spawn_world(world_35b, 4, os.path.join(root, "store"),
+                            args=(inputs,), timeout_s=300)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = ServeEngine(cfg, ServePolicy(max_new_tokens=4, max_len=64,
+                                        max_slots=4),
+                       params=params, device="cpu").generate(
+        prompts, max_new_tokens=list(MESH_B_NEWS))
+    shards = [(r["batching"], r["hbm"], r["kv_shard"]) for r in ranks[0]]
+    log(f"  (b) 4 gloo ranks at (2, 2): (batching, hbm, kv_shard) {shards}")
+    for rank in ranks:
+        for r in rank:
+            assert r["outs"] == want, (r["batching"], r["hbm"])
+            assert r["kv_shard"] == (2 if r["hbm"] else 1), r
+    return {"cases": shards, "tokens": want}
+
+
+def phase_dryrun() -> dict:
+    """(c) The dry run on the card's host, in subprocesses started
+    together (host-CPU times, not the card's): ``--plan-tree`` for every
+    arch on both production meshes, and ``--calibrate`` of llama3.2-1b x
+    train_4k and x decode_32k on 16 x 16 into a temporary artifact, each
+    cell's roofline row printed; the artifact is read back."""
+    import tempfile
+
+    from repro_torch.configs.base import CALIBRATION_ENV, \
+        calibration_overhead
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    cal = os.path.join(root, "calibration_torch.json")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "CUDA_VISIBLE_DEVICES": "",
+           CALIBRATION_ENV: os.path.join(root, "none.json")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    t0 = time.perf_counter()
+    procs = {
+        "plan_tree": subprocess.Popen(
+            cmd + ["--plan-tree", "--arch", "all", "--mesh", "both"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env),
+        "calibrate": subprocess.Popen(
+            cmd + ["--calibrate", "--arch", ARCH, "--shape",
+                   "train_4k,decode_32k", "--mesh", "single",
+                   "--calibration-out", cal, "--out", root],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env)}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=140)[0]
+            assert proc.returncode == 0, outs[name][-3000:]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    trees = [ln for ln in outs["plan_tree"].splitlines()
+             if ln.startswith("[plan]")]
+    cal_lines = [ln for ln in outs["calibrate"].splitlines()
+                 if ln.startswith("[cal]")]
+    for ln in cal_lines:
+        log("  (c) " + ln)
+    assert len(trees) == 2 * 10, trees
+    assert sum("roofline |" in ln for ln in cal_lines) == 2, cal_lines
+    with open(cal) as f:
+        artifact = json.load(f)
+    os.environ[CALIBRATION_ENV] = cal
+    try:
+        overhead = calibration_overhead(ARCH)
+    finally:
+        os.environ.pop(CALIBRATION_ENV)
+    assert overhead == artifact[ARCH]["overhead"], (overhead, artifact)
+    log(f"  (c) {len(trees)} plan trees; calibration {artifact[ARCH]}; "
+        f"host seconds {secs:.1f}")
+    return {"plan_trees": len(trees), "calibration": artifact[ARCH],
+            "host_s": secs, "cal_lines": cal_lines}
+
+
 def qwen_cfg():
     from repro_torch.configs import get_model_config
 
@@ -4516,7 +4780,7 @@ def main() -> int:
     dk = dserve = wk = wserve = qslice = ab = cssd = cserve = None
     pparity = pllama = pzamba = pexport = pcli = pcap = ppaper = None
     pcluster = tguard = tparity = tfull = tloop = None
-    rblocks = rone = tmesh = tcpu = None
+    rblocks = rone = tmesh = tcpu = smesh = scpu = sdry = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -4668,11 +4932,22 @@ def main() -> int:
         tmesh = phase("phase 34c train on the mesh", phase_train_mesh, tfull)
         tcpu = phase("phase 34d 4 gloo ranks", phase_train_mesh_cpu)
         log(f"  phase 34: {time.perf_counter() - t34:.1f} s")
+        free_card()
+        log("[35] serving over a device mesh: (a) full-width llama3.2-1b "
+            "on make_host_mesh(), (b) 4 gloo ranks at (2, 2) on the host, "
+            "(c) the dry run on the host")
+        t35 = time.perf_counter()
+        smesh = phase("phase 35a serve on the mesh", phase_serve_mesh,
+                      pa_mod)
+        scpu = phase("phase 35b 4 gloo ranks serve", phase_serve_mesh_cpu)
+        sdry = phase("phase 35c dry run", phase_dryrun)
+        log(f"  phase 35: {time.perf_counter() - t35:.1f} s")
     if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
                           xserve, dk, dserve, wk, wserve, qslice, ab, cssd,
                           cserve, pparity, pllama, pzamba, pexport, pcli,
                           pcap, ppaper, pcluster, tguard, tparity, tfull,
-                          tloop, rblocks, rone, tmesh, tcpu):
+                          tloop, rblocks, rone, tmesh, tcpu, smesh, scpu,
+                          sdry):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -4786,6 +5061,18 @@ def main() -> int:
         "launches_bf16_thread": pcluster["serve"]["thread"]["launches"],
         "tok_s": {way: row["tok_s"]
                   for way, row in pcluster["serve"].items()}}
+    # Serving over the one-rank mesh (phase 35 (a)): the paged launches of
+    # the mesh engine's bf16 run, by body, and its tok/s beside the
+    # meshless engine's.
+    kernels[0]["mesh"] = {
+        "launches": smesh["bfloat16"]["mesh"]["launches"]["paged"][
+            "LAUNCHES"],
+        "launches_split": smesh["bfloat16"]["mesh"]["launches"]["paged"][
+            "LAUNCHES_SPLIT"],
+        "launches_f32": smesh["float32"]["mesh"]["launches"]["paged"][
+            "LAUNCHES"],
+        "tok_s": smesh["bfloat16"]["mesh"]["tok_s"],
+        "tok_s_meshless": smesh["bfloat16"]["meshless"]["tok_s"]}
     # Phases 26-27's warm and cold figures, then phase 24's, at the end of
     # the output, where the profiler tables above do not push them out.
     log("prefix serving: " + json.dumps({
@@ -4830,6 +5117,11 @@ def main() -> int:
         "grad_norms_meshless", "rel_err", "step_s", "step_s_meshless",
         "step_s_phase33c", "peak_mem_gb", "peak_mem_gb_meshless",
         "busy_share")}))
+    # Phase 35's serving on the mesh beside the meshless engine.
+    log("serving on a mesh: " + json.dumps({
+        name: {k: row[k] for k in ("kv_shard", "tokens_equal", "meshless",
+                                   "mesh")}
+        for name, row in smesh.items()}))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         log(f"FAILED: the main path never launched {missing}")

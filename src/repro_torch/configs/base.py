@@ -2,14 +2,18 @@
 and the arch registry, the shapes, the training and run records with the
 launchers' ``apply_overrides`` and ``parse_cli``.
 
-Pure dataclasses.  The JAX package additionally overrides ``overhead`` from a
-calibration artifact measured on TPU meshes; that number says nothing about
-an H100, so the port keeps each arch's registered value (its calibration
-accessors belong to the distribution layer, which the port has not yet).
+Pure dataclasses.  ``get_model_config`` takes the measured ``overhead``
+(the ``phi_mesh`` transient factor) of an arch left at 1.0 from the port's
+OWN calibration artifact, which ``python -m repro_torch.launch.dryrun
+--calibrate`` writes from its traced steps: ``$REPRO_TORCH_CALIBRATION``,
+else ``experiments/calibration_torch.json``.  The JAX package's
+``experiments/calibration.json`` holds TPU measurements and is never read.
+Without an artifact every config is as registered.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import tempfile
 from dataclasses import dataclass, field, replace
@@ -320,6 +324,86 @@ class RunConfig:
 
 
 # ---------------------------------------------------------------------------
+# phi_mesh calibration artifact (launch/dryrun.py --calibrate)
+# ---------------------------------------------------------------------------
+
+#: Env var overriding the calibration artifact path (tests point it at a
+#: temporary file; unset, ``experiments/calibration_torch.json`` is used
+#: when present).
+CALIBRATION_ENV = "REPRO_TORCH_CALIBRATION"
+
+
+def calibration_path() -> str:
+    override = os.environ.get(CALIBRATION_ENV)
+    if override:
+        return override
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    return os.path.join(root, "experiments", "calibration_torch.json")
+
+
+#: path -> ((mtime_ns, size) | None, parsed entries).  Keyed on the stat
+#: signature, so a rewrite (``dryrun --calibrate`` mid-process) is picked
+#: up without any manual invalidation.
+_CAL_CACHE: Dict[str, Tuple[Optional[Tuple[int, int]],
+                            Dict[str, Dict[str, float]]]] = {}
+
+#: Calibrated per-arch scalars the artifact may carry: ``overhead`` feeds
+#: ``ModelConfig.overhead``, ``act_scale`` feeds
+#: ``launch.specs.activation_footprint`` (the replicated activation term
+#: the mesh search reserves a card).
+_CAL_FIELDS = ("overhead", "act_scale")
+
+
+def _load_calibration(path: str) -> Dict[str, Dict[str, float]]:
+    """``{arch: {"overhead": x, "act_scale": y}}`` from a calibration
+    artifact (missing fields omitted; empty on any read or parse problem:
+    calibration is advisory, never a hard dependency)."""
+    try:
+        st = os.stat(path)
+        sig: Optional[Tuple[int, int]] = (st.st_mtime_ns, st.st_size)
+    except OSError:
+        sig = None
+    cached = _CAL_CACHE.get(path)
+    if cached is not None and cached[0] == sig:
+        return cached[1]
+    out: Dict[str, Dict[str, float]] = {}
+    if sig is not None:
+        try:
+            with open(path) as f:
+                data = json.load(f)
+        except (OSError, ValueError):
+            data = {}
+        if not isinstance(data, dict):
+            data = {}
+        for arch, entry in data.items():
+            if arch.startswith("_") or not isinstance(entry, dict):
+                continue
+            fields = {}
+            for f_ in _CAL_FIELDS:
+                try:
+                    fields[f_] = float(entry[f_])
+                except (KeyError, TypeError, ValueError):
+                    continue
+            if fields:
+                out[arch] = fields
+    _CAL_CACHE[path] = (sig, out)
+    return out
+
+
+def calibration_overhead(arch_id: str) -> Optional[float]:
+    """The measured ``phi_mesh`` overhead for one arch, or None."""
+    return _load_calibration(calibration_path()).get(arch_id, {}) \
+        .get("overhead")
+
+
+def calibration_act_scale(arch_id: str) -> Optional[float]:
+    """The measured activation-footprint scale for one arch, or None."""
+    return _load_calibration(calibration_path()).get(arch_id, {}) \
+        .get("act_scale")
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -342,7 +426,14 @@ def get_model_config(arch_id: str) -> ModelConfig:
     _ensure_loaded()
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
-    return _REGISTRY[arch_id]()
+    cfg = _REGISTRY[arch_id]()
+    if cfg.overhead == 1.0:
+        # A config left at the default overhead takes the measured one
+        # from the calibration artifact; an explicit overhead always wins.
+        measured = calibration_overhead(arch_id)
+        if measured is not None:
+            cfg = replace(cfg, overhead=max(1.0, measured))
+    return cfg
 
 
 def _ensure_loaded() -> None:

@@ -55,7 +55,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.core.schedule import ring_stream_order
 from repro_torch.dist.sharding import (P, _axis_sizes, active_overlap,
-                                       placements)
+                                       contiguous_stride, placements)
+from repro_torch.roofline.ops import book_collective
 
 #: Collective modes the ring plan understands.
 MODES = ("ring", "serpentine")
@@ -204,6 +205,8 @@ class _Ring:
                                      else [])):
             t = t.contiguous()
             sent.append(t)
+            book_collective("collective-permute",
+                            t.numel() * t.element_size())
             buf = torch.empty_like(t)
             ops.append(dist.P2POp(dist.isend, t, dst, group, tag))
             ops.append(dist.P2POp(dist.irecv, buf, src, group, tag))
@@ -394,7 +397,7 @@ def _local(t: torch.Tensor, mesh, spec,
 
 def _global(y: torch.Tensor, mesh, spec, shape) -> DTensor:
     shape = torch.Size(shape)
-    stride = torch.empty(shape, device="meta").stride()
+    stride = contiguous_stride(shape)
     return DTensor.from_local(y, mesh, placements(mesh, spec),
                               run_check=False, shape=shape, stride=stride)
 

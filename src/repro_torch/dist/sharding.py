@@ -91,6 +91,16 @@ class AbstractMesh:
     mesh_dim_names: Tuple[str, ...]
 
 
+def contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (host arithmetic:
+    nothing is allocated, not even on the meta device)."""
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= max(1, int(n))
+    return tuple(reversed(out))
+
+
 def _axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
 
@@ -700,7 +710,7 @@ def shard_local(fn, *tensors, dims: Sequence[int] = (0, 2)):
             shape[p.dim] *= mesh.size(i)
     shape = torch.Size(shape)
     return DTensor.from_local(out, mesh, want, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=contiguous_stride(shape))
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -731,4 +741,80 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     shape = torch.Size(shape)
     return DTensor.from_local(rows, mesh, ids_pl, run_check=False,
                               shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=contiguous_stride(shape))
+
+
+def local_extent(t: DTensor, dim: int) -> Tuple[int, int]:
+    """``(offset, length)`` of this rank's shard of ``t`` along ``dim``
+    in global coordinates: DTensor's chunking (``ceil(n / parts)`` rows a
+    shard, the last ones short), mesh dim by mesh dim.  Host arithmetic
+    on the mesh coordinate only, so it holds under ``FakeTensorMode``."""
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    off, size = 0, int(t.shape[dim])
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            parts = mesh.size(i)
+            chunk = -(-size // parts)
+            lo = min(coord[i] * chunk, size)
+            hi = min(lo + chunk, size)
+            off, size = off + lo, hi - lo
+    return off, size
+
+
+def write_slice(buf: torch.Tensor, src: torch.Tensor, dim: int,
+                start: int) -> None:
+    """``buf.narrow(dim, start, src.shape[dim]).copy_(src)``, in place.  On
+    a mesh ``buf`` is a DTensor (or a view of one) and the write happens on
+    its local shard: ``src`` takes ``buf``'s placements (replicated along
+    ``dim``), and each rank copies the part of ``[start, start + n)`` its
+    shard of ``dim`` holds -- DTensor's own sharded ``index_put`` and
+    slice assignment are avoided."""
+    n = src.shape[dim]
+    if not isinstance(buf, DTensor):
+        if isinstance(src, DTensor):
+            src = src.full_tensor()
+        buf.narrow(dim, start, n).copy_(src)
+        return
+    mesh = buf.device_mesh
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+                 else p for p in buf.placements)
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    if tuple(src.placements) != want:
+        src = src.redistribute(mesh, want)
+    lo, size = local_extent(buf, dim)
+    a, b = max(start, lo), min(start + n, lo + size)
+    if a < b:
+        buf.to_local().narrow(dim, a - lo, b - a).copy_(
+            src.to_local().narrow(dim, a - start, b - a))
+
+
+def like_heads_of(t: DTensor, pool: DTensor, head_dim: int,
+                  pool_head_dim: int, row_dim: Optional[int] = 0
+                  ) -> tuple:
+    """Placements for ``t`` whose heads (``head_dim``) shard exactly as the
+    pool's (``pool_head_dim``): ``Shard(head_dim)`` on the mesh dims that
+    shard the pool's heads; elsewhere ``t``'s own shard of ``row_dim``
+    (None: replicated rows), or ``Replicate()``."""
+    out = []
+    for p_pool, p_t in zip(pool.placements, t.placements):
+        if isinstance(p_pool, Shard) and p_pool.dim == pool_head_dim:
+            out.append(Shard(head_dim))
+        elif row_dim is not None and isinstance(p_t, Shard) \
+                and p_t.dim == row_dim:
+            out.append(Shard(row_dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def from_local_like(local: torch.Tensor, mesh, place: tuple,
+                    shape: Sequence[int]) -> DTensor:
+    """``local`` (this rank's shard, contiguous) as a DTensor of global
+    ``shape`` with ``place``."""
+    shape = torch.Size(shape)
+    return DTensor.from_local(local.contiguous(), mesh, place,
+                              run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))

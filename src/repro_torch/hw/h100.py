@@ -5,7 +5,10 @@ Numbers are NVIDIA's published ones for the SXM part (data sheet and the
 Hopper architecture white paper): 132 SMs, 232,448 B of shared memory a
 block may use, 65,536 registers per SM, 50 MB of L2, 80 GB of HBM3 at
 3.35 TB/s, 989 TFLOP/s dense bf16 and 67 TFLOP/s float32 outside the
-tensor cores.  They assume the full 700 W power limit.
+tensor cores, and NVLink 4: 18 links a card at 25 GB/s a link and a
+direction (900 GB/s both directions together).  They assume the full
+700 W power limit.  All are data-sheet figures, none a measurement; the
+roofline (``roofline.report``) divides by them.
 ``h100_spec(**overrides)`` replaces fields, e.g. a tiny ``smem_bytes`` so
 that tests see many small pages.
 
@@ -50,6 +53,8 @@ class H100Spec:
     mma_depth_bytes: int = 32           # wgmma depth: 16 bf16 values
     vec_bytes: int = 16                 # fastest per-thread load
     smem_line_bytes: int = 128          # 32 banks x 4 B
+    nvlink_links: int = 18              # NVLink 4 links a card
+    nvlink_bw_per_link: float = 25e9    # bytes/s a link, one direction
 
     def mma_depth(self, dtype_bytes: int) -> int:
         """Elements of one ``wgmma`` depth step: 16 bf16, 8 float32."""

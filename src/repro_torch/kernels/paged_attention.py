@@ -42,6 +42,7 @@ import threading
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.hw.h100 import h100_spec
 from repro_torch.kernels import _build
@@ -261,6 +262,11 @@ def paged_attention(
     other splits; up to ``MAX_SPLIT_PAGES`` on the split body, up to the
     table's width on the mla body).
     """
+    if any(isinstance(x, DTensor)
+           for x in (q, k_pages, v_pages, page_table, lengths)):
+        raise TypeError("paged_attention takes local tensors, not DTensors: "
+                        "on a mesh call it on each rank's shard "
+                        "(models.layers.paged_attention_block does)")
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k "
                          f"{tuple(k_pages.shape)}, v {tuple(v_pages.shape)}")

@@ -11,6 +11,13 @@ a CPU mesh (``device="cpu"``) on gloo; a CUDA mesh without NCCL raises --
 it never drops to gloo or to the CPU.  Every world is made with a timeout,
 so a rank that dies leaves the others an error, not a hang.
 
+``make_production_mesh`` builds the reference's production meshes --
+(16, 16) over ("data", "model"), or (2, 16, 16) over ("pod", "data",
+"model") -- as a CPU ``DeviceMesh`` over a fake world of 256 or 512 ranks
+at rank 0, the port's counterpart of XLA's forced host devices: the dry
+run (``launch.dryrun``) traces each cell's step on it under
+``FakeTensorMode``, with no card and no peer process.
+
 ``spawn_world`` runs a function on every rank of a fresh gloo world of
 spawned processes over a ``FileStore`` (no TCP port), and kills the world
 when it outlives its timeout: how the CPU tests stand up several ranks.
@@ -66,6 +73,41 @@ def make_host_mesh(model_axis: int = 1, device=None) -> DeviceMesh:
                          f"{model_axis}")
     return init_device_mesh(dev.type, (n // model_axis, model_axis),
                             mesh_dim_names=MESH_AXES)
+
+
+#: The production meshes: (shape, axis names) for one pod and for two.
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The reference's production mesh over a fake world: (16, 16) over
+    ("data", "model") -- 256 H100s, the largest NVLink domain NVIDIA's
+    NVLink Switch System joins -- or (2, 16, 16) over ("pod", "data",
+    "model"), two such pods over the data-centre network.
+
+    The world is torch's fake process group (rank 0 of 256 or 512; its
+    collectives move nothing), started here when none is running; a world
+    of the same size is reused, a world of another size raises (one
+    process holds one world: destroy it first).  ``FakeStore`` comes from
+    ``torch.testing._internal.distributed.fake_pg``, a torch-internal
+    module, imported here and nowhere else."""
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    n = 1
+    for v in shape:
+        n *= v
+    if dist.is_initialized():
+        if dist.get_world_size() != n:
+            raise RuntimeError(
+                f"a world of {dist.get_world_size()} ranks is running; the "
+                f"{'multi' if multi_pod else 'single'}-pod production mesh "
+                f"needs {n} (destroy the running world first)")
+    else:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
 def _world_main(rank: int, world: int, store_path: str, timeout_s: float,

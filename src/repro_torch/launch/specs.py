@@ -114,15 +114,20 @@ def activation_footprint(cfg, shape, remat: str = "full",
     stream of each resident layer (~sqrt(L) checkpoints under "full"
     remat, every layer otherwise) times a 4x block working-set factor, and
     the float32 logits.  The mesh-level decomposer reserves it (divided by
-    the data extent) as its replicated term.  The reference scales it by a
-    calibration artifact measured on TPU meshes; the port has none, so it
-    stands as is."""
+    the data extent) as its replicated term.  The whole estimate is scaled
+    by the arch's measured ``act_scale`` from the port's calibration
+    artifact when there is one (``launch/dryrun.py --calibrate`` fits it
+    against the traced step's peak, as it fits ``overhead``); without one
+    the model stands as it is."""
+    from repro_torch.configs.base import calibration_act_scale
+
     resident_layers = (max(2, int(math.isqrt(max(1, cfg.n_layers))))
                        if remat == "full" else cfg.n_layers)
     tokens = shape.global_batch * shape.seq_len
     stream = tokens * cfg.d_model * dtype_bytes * resident_layers * 4
     logits = tokens * cfg.vocab_size * 4
-    return int(stream + logits)
+    scale = calibration_act_scale(getattr(cfg, "arch", "")) or 1.0
+    return int((stream + logits) * scale)
 
 
 def overlap_wire_bytes(m: int, k: int, n: int, p: int, kind: str = "ag",

@@ -37,8 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.overlap import overlap_matmul, overlap_matmul_fused
+from torch.distributed.tensor import DTensor, Replicate
+
 from repro_torch.dist.sharding import (active_overlap, active_rule, constrain,
-                                       shard_local, split_heads, take_rows)
+                                       from_local_like, like_heads_of,
+                                       local_extent, shard_local,
+                                       split_heads, take_rows, write_slice)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.params import ParamSpec
 
@@ -363,6 +367,10 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the KV sequence, a one-token query goes to ``grouped_attention``
     against the sharded K/V instead."""
     if q.shape[1] == 1 and active_rule("kv_seq") is not None:
+        # The query's heads replicate: each rank contracts every head with
+        # its sequence shard (and a head count the model axis does not
+        # divide into KV groups cannot be grouped while sharded).
+        q = constrain(q, ("batch", None, None, None))
         k = constrain(k, ("batch", "kv_seq", None, None))
         v = constrain(v, ("batch", "kv_seq", None, None))
         return grouped_attention(q, k, v, q_pos, k_pos, causal=causal,
@@ -428,8 +436,8 @@ def attention_block(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
         ring = bool(cfg.sliding_window) and w <= cfg.sliding_window
         if s == 1:
             slot = idx % w if ring else idx
-            ck[:, slot] = k[:, 0]
-            cv[:, slot] = v[:, 0]
+            write_slice(ck, k, 1, slot)
+            write_slice(cv, v, 1, slot)
             k, v = ck.to(x.dtype), cv.to(x.dtype)
             j = torch.arange(w, device=x.device)
             if ring:
@@ -442,11 +450,11 @@ def attention_block(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
                 shift = (s - w) % w
                 tail_k = torch.roll(tail_k, shift, dims=1)
                 tail_v = torch.roll(tail_v, shift, dims=1)
-            ck.copy_(tail_k)
-            cv.copy_(tail_v)
+            write_slice(ck, tail_k, 1, 0)
+            write_slice(cv, tail_v, 1, 0)
         else:
-            ck[:, :s] = k
-            cv[:, :s] = v
+            write_slice(ck, k, 1, 0)
+            write_slice(cv, v, 1, 0)
         cache["len"] += s
     out = attention_op(q, k, v, q_pos, k_pos, cfg, causal=causal,
                        kv_len=kv_len)
@@ -505,13 +513,10 @@ def paged_attention_block(
     # A position past the table (a stalled slot riding through the batch)
     # must land on the null page, not clamp onto the slot's last live page.
     page_ids = torch.where(page_slot < n_logical, page_ids, 0)
-    off = pos % t
-    k_pool[layer].index_put_((page_ids, off), k[:, 0].to(k_pool.dtype))
-    v_pool[layer].index_put_((page_ids, off), v[:, 0].to(v_pool.dtype))
-
-    out = paged_attention(q[:, 0].contiguous(), k_pool[layer], v_pool[layer],
-                          table, (pos + 1).to(torch.int32),
-                          window=cfg.sliding_window or 0, page_tokens=t)
+    out = _pool_write_attend(q[:, 0], k[:, 0], v[:, 0], k_pool, v_pool,
+                             layer, page_ids, pos % t, table,
+                             (pos + 1).to(torch.int32),
+                             cfg.sliding_window or 0, t)
     return tp_matmul(out.reshape(b, s, -1), params["wo"].to(x.dtype), "row")
 
 
@@ -544,18 +549,54 @@ def paged_prefill_block(
     n_logical = table_row.shape[0]
     page_ids = table_row.long()[page_slot.clamp(max=n_logical - 1)]
     page_ids = torch.where(page_slot < n_logical, page_ids, 0)
-    off = positions % t
-    k_pool[layer].index_put_((page_ids, off), k[0].to(k_pool.dtype))
-    v_pool[layer].index_put_((page_ids, off), v[0].to(v_pool.dtype))
-
     # Each chunk token is a decode row over the same table with its own
     # causal length: the kernel's per-row length mask does the intra-chunk
     # causal masking.
     table = table_row[None, :].expand(c, n_logical).contiguous()
-    out = paged_attention(q[0].contiguous(), k_pool[layer], v_pool[layer],
-                          table, (positions + 1).to(torch.int32),
-                          window=cfg.sliding_window or 0, page_tokens=t)
+    out = _pool_write_attend(q[0], k[0], v[0], k_pool, v_pool, layer,
+                             page_ids, positions % t, table,
+                             (positions + 1).to(torch.int32),
+                             cfg.sliding_window or 0, t)
     return tp_matmul(out.reshape(b, c, -1), params["wo"].to(x.dtype), "row")
+
+
+def _pool_write_attend(q, k, v, k_pool, v_pool, layer: int,
+                       page_ids: torch.Tensor, off: torch.Tensor,
+                       table: torch.Tensor, lengths: torch.Tensor,
+                       window: int, t: int) -> torch.Tensor:
+    """Write the rows' new K/V ``(R, KV, D)`` into the pool at ``(page_ids,
+    off)`` IN PLACE, then run the paged-attention kernel for the queries
+    ``(R, H, D)``; returns ``(R, H, D)``.
+
+    On a mesh the pool is a DTensor whose KV heads shard over "model"
+    when the plan's ``kv_shard > 1`` (replicated over the data axes), and
+    everything happens on local shards: K/V, gathered over the data axes
+    (every data rank's pool holds every slot's rows) and sharded over
+    heads as the pool is, are written into the local pool; the queries
+    take the pool's head sharding (contiguous head blocks, so GQA's groups
+    stay whole) and keep their rows' data sharding, and the kernel runs on
+    this rank's rows and heads with the table rows and lengths those rows
+    own.  The kernel wrapper sees plain tensors only."""
+    if not isinstance(k_pool, DTensor):
+        k_pool[layer].index_put_((page_ids, off), k.to(k_pool.dtype))
+        v_pool[layer].index_put_((page_ids, off), v.to(v_pool.dtype))
+        return paged_attention(q.contiguous(), k_pool[layer], v_pool[layer],
+                               table, lengths, window=window, page_tokens=t)
+    mesh = k_pool.device_mesh
+    kv_place = like_heads_of(k, k_pool, 1, 3, row_dim=None)
+    kp, vp = k_pool.to_local(), v_pool.to_local()
+    for buf, new in ((kp, k), (vp, v)):
+        if tuple(new.placements) != kv_place:
+            new = new.redistribute(mesh, kv_place)
+        buf[layer].index_put_((page_ids, off), new.to_local().to(buf.dtype))
+    q_place = like_heads_of(q, k_pool, 1, 3, row_dim=0)
+    if tuple(q.placements) != q_place:
+        q = q.redistribute(mesh, q_place)
+    lo, n = local_extent(q, 0)
+    out = paged_attention(q.to_local().contiguous(), kp[layer], vp[layer],
+                          table[lo:lo + n].contiguous(), lengths[lo:lo + n],
+                          window=window, page_tokens=t)
+    return from_local_like(out, mesh, q_place, q.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -566,10 +607,29 @@ def paged_prefill_block(
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        z_loss: float = 1e-4) -> torch.Tensor:
     """Mean token NLL in float32, plus ``z_loss`` times the mean squared
-    log-sum-exp (the reference's control of logit drift)."""
-    # DTensor has no sharded gather: the vocab dim is gathered whole first
-    # (the identity off a mesh).
+    log-sum-exp (the reference's control of logit drift).
+
+    On a mesh the vocab dim is gathered whole first (DTensor has no
+    sharded gather) and each rank computes its own tokens' terms on local
+    shards: DTensor's ``gather`` backward would allocate the whole global
+    logits' gradient on every rank."""
     logits = constrain(logits.float(), ("batch", "seq", None))
+    if isinstance(logits, DTensor):
+        if not isinstance(labels, DTensor):
+            labels = DTensor.from_local(
+                labels, logits.device_mesh,
+                [Replicate()] * logits.device_mesh.ndim, run_check=False)
+
+        def terms(lg, lb):
+            lse = torch.logsumexp(lg, dim=-1)
+            ll = lg.gather(-1, lb.long()[..., None])[..., 0]
+            return torch.stack([lse - ll, lse.square()], dim=-1)
+
+        t = shard_local(terms, logits, labels, dims=(0, 1))
+        loss = t[..., 0].mean()
+        if z_loss:
+            loss = loss + z_loss * t[..., 1].mean()
+        return loss
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels.long()[..., None])[..., 0]
     loss = (lse - ll).mean()

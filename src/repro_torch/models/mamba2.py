@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamSpec
 
@@ -357,6 +358,12 @@ def mamba2_block(
     s_cfg = cfg.ssm
     b, s, d = hidden.shape
     d_inner = s_cfg.expand * d
+    # On a mesh the residual stream may arrive as a partial sum over
+    # "model" (the previous mixer's row-parallel output); the scan
+    # multiplies B by C, so it is reduced here first (DTensor's einsum
+    # gave a wrong product of two partial sums when the batch was
+    # replicated).  The identity off a mesh.
+    hidden = constrain(hidden, ("batch", "seq", "embed"))
     h = d_inner // s_cfg.head_dim
     p = s_cfg.head_dim
     n = s_cfg.state_dim

@@ -701,19 +701,22 @@ class Model:
 
     # ------------------------------------------------------- cohort steps
     def prefill(self, params: PyTree, batch: Dict[str, Any], max_len: int,
-                dtype=torch.bfloat16) -> Tuple[torch.Tensor, PyTree]:
+                dtype=torch.bfloat16, place: Optional[Callable] = None
+                ) -> Tuple[torch.Tensor, PyTree]:
         """A batch of same-length prompts into a fresh contiguous cache of
         ``max_len`` tokens: ``batch`` holds ``tokens`` ``(B, S)`` (vlm:
         or ``embeds`` ``(B, S, d)``, with ``positions_3d`` ``(3, B, S)``
         for M-RoPE; enc_dec: ``enc_embeds`` ``(B, Se, d)`` and the decoder
-        prompt's ``tokens``).  MoE dispatches dropless.  Returns the
+        prompt's ``tokens``).  MoE dispatches dropless.  ``place`` puts the
+        fresh cache on the serving mesh (``serve.steps``).  Returns the
         last-token logits ``(B, V)`` and the cache, at ``pos`` S."""
         cfg = self.cfg
+        place = place or (lambda c: c)
         if cfg.family == "enc_dec":
-            return self._prefill_encdec(params, batch, max_len, dtype)
+            return self._prefill_encdec(params, batch, max_len, dtype, place)
         x = constrain(self._embed_in(params, batch, dtype), _RESIDUAL)
         b, s = x.shape[:2]
-        cache = self.init_cache(b, max_len, dtype, device=x.device)
+        cache = place(self.init_cache(b, max_len, dtype, device=x.device))
         q_pos = torch.arange(s, device=x.device)
         attn, rows, _ = self._cohort_hooks(cache, q_pos,
                                            batch.get("positions_3d"))
@@ -723,7 +726,8 @@ class Model:
         return logits[:, -1], cache
 
     def _prefill_encdec(self, params: PyTree, batch: Dict[str, Any],
-                        max_len: int, dtype) -> Tuple[torch.Tensor, PyTree]:
+                        max_len: int, dtype, place: Callable
+                        ) -> Tuple[torch.Tensor, PyTree]:
         """enc_dec's prefill: the encoder over ``enc_embeds``, the cross
         K/V into the cache, then the decoder over the prompt ``tokens``."""
         enc = self._encode(params, batch["enc_embeds"], dtype)
@@ -732,6 +736,7 @@ class Model:
                                 device=enc.device)
         ck, cv = self.cross_kv(params, enc)
         cache["cross_k"], cache["cross_v"] = ck.to(dtype), cv.to(dtype)
+        cache = place(cache)
         x = L.embed_tokens(params, batch["tokens"], dtype)
         sd = x.shape[1]
         attn, rows, cross = self._cohort_hooks(

@@ -21,7 +21,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import replicated_region
+from repro_torch.dist.sharding import constrain, replicated_region, \
+    split_heads
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mamba2 import causal_conv1d
 from repro_torch.models.params import ParamSpec
@@ -226,15 +227,19 @@ def mlstm_block(
     xc, new_conv = causal_conv1d(xm, params["conv_w"], params["conv_b"],
                                  cache["conv"] if cache is not None
                                  else None)
-    q = (xc @ params["wq"].to(xc.dtype)).reshape(b, s, h, dh)
-    k = (xc @ params["wk"].to(xc.dtype)).reshape(b, s, h, dh)
-    v = (xm @ params["wv"].to(xm.dtype)).reshape(b, s, h, dh)
+    # On a mesh whose model axis the heads do not fill (4 heads on 16),
+    # the flat dim is gathered before the head split (``split_heads``).
+    q = split_heads(xc @ params["wq"].to(xc.dtype), h, dh, "state_heads")
+    k = split_heads(xc @ params["wk"].to(xc.dtype), h, dh, "state_heads")
+    v = split_heads(xm @ params["wv"].to(xm.dtype), h, dh, "state_heads")
     i_pre, f_pre = (xm @ params["wif"].to(xm.dtype)).chunk(2, dim=-1)
 
     new_cache = None
     if cache is not None and s == 1:
-        hout, (C, n, m) = mlstm_step(
-            q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0],
+        # DTensor has no rule for logsigmoid: on a mesh the step runs
+        # replicated, as the chunkwise cell does.
+        hout, (C, n, m) = replicated_region(
+            mlstm_step, q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0],
             (cache["C"], cache["n"], cache["m"]))
         hout = hout[:, None]
         new_cache = {"conv": new_conv, "C": C, "n": n, "m": m}
@@ -285,8 +290,12 @@ def slstm_block(
     b, s, d = hidden.shape
     h = cfg.n_heads
     dh = d // h
-    gx = (hidden @ params["w_gates"].to(hidden.dtype)).reshape(
-        b, s, 4, h, dh).movedim(2, 3)                   # (B, S, H, 4, dh)
+    # The recurrence runs replicated on a mesh (below), so the gate
+    # pre-activations are gathered whole before the gate split: a model
+    # axis wider than the 4 gates cannot split them while sharded.
+    gx = constrain(hidden @ params["w_gates"].to(hidden.dtype),
+                   ("batch", None, None))
+    gx = gx.reshape(b, s, 4, h, dh).movedim(2, 3)       # (B, S, H, 4, dh)
     if cache is not None:
         state = (cache["c"], cache["n"], cache["h"], cache["m"])
     else:

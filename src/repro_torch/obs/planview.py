@@ -37,8 +37,8 @@ from repro_torch.core.plan import PAGE_BUFFERING
 DEFAULT_BAND = (0.0, 1.0)
 
 CALIBRATE_HINT = ("plan-vs-actual residual outside band -- the planner's "
-                  "fitted overhead terms may be stale; re-fit them on this "
-                  "card (the port's dry-run calibration is not ported yet)")
+                  "fitted overhead terms may be stale; re-fit them: "
+                  "`python -m repro_torch.launch.dryrun --calibrate`")
 
 
 def _row(level: str, kind: str, metric: str, predicted, observed,

@@ -17,6 +17,7 @@ from repro_torch.serve.pages import (
     PagePool,
     PagedScheduler,
     init_paged_cache,
+    paged_cache_logical_axes,
     reset_slot,
 )
 from repro_torch.serve.prefix import (
@@ -55,6 +56,7 @@ __all__ = [
     "make_paged_steps",
     "make_serve_steps",
     "page_spec_from_plan",
+    "paged_cache_logical_axes",
     "plan_decode",
     "request_state_bytes",
     "reset_slot",

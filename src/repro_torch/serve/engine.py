@@ -53,13 +53,13 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.plan import HierarchicalPlan, PlanError, PlanPolicy, \
     Workload, plan_run
 from repro_torch.models.model import Model
@@ -107,8 +107,23 @@ PyTree = Any
 # ---------------------------------------------------------------------------
 
 
+def _mesh_extents(mesh) -> Tuple[int, int]:
+    """``(model_n, data_n)`` of a mesh (anything with ``mesh_dim_names``
+    and ``shape``): the "model" extent and the product of the others;
+    ``(1, 1)`` without one."""
+    if mesh is None:
+        return 1, 1
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    model_n = max(1, sizes.get("model", 1))
+    total = 1
+    for v in sizes.values():
+        total *= v
+    return model_n, max(1, total // model_n)
+
+
 def plan_decode(
     cfg: ModelConfig,
+    mesh=None,
     *,
     max_len: int = 4096,
     batch: int = 1,
@@ -117,13 +132,20 @@ def plan_decode(
     hierarchy=None,
     cluster: Optional[int] = None,
 ) -> HierarchicalPlan:
-    """``plan_run`` over the decode workload on one card.
+    """``plan_run`` over the decode workload: the serving counterpart of
+    ``dist.sharding.mesh_plan``.
 
-    The shardable state is the resident KV of ``batch`` sequences of
-    ``max_len`` tokens; the weights, the per-slot activation stream and
-    any per-request state ride along as the replicated reserve.  The
-    hierarchy is ``hierarchy``, else ``spec.hierarchy(hosts=cluster or 1)``
-    (default spec: an H100 SXM).
+    ``mesh`` is anything with ``mesh_dim_names`` and ``shape`` (a
+    ``DeviceMesh`` or ``dist.sharding.AbstractMesh``); None is one card.
+    The hierarchy's NVLINK level spans the tensor-parallel ("model") axis
+    -- the axis KV heads can shard over; the KV cache's batch dim already
+    shards over the data axes, so the shardable state is one data shard's
+    resident KV (``batch`` sequences of ``max_len`` tokens over
+    ``data_n``), and the weight shard (over ``model_n``), the per-slot
+    activation stream and any per-request state (over ``data_n``) ride
+    along as the replicated reserve.  The hierarchy is ``hierarchy``, else
+    ``spec.hierarchy(mesh_devices=model_n, hosts=cluster or 1)`` (default
+    spec: an H100 SXM).
 
     ``cluster=N`` plans a multi-replica fleet: the hierarchy grows a DCN
     level over N hosts and the requested replica count seeds the
@@ -134,17 +156,19 @@ def plan_decode(
     level raises ``PlanError`` (``level="DCN"``): one ``ServeEngine``
     cannot realize multi-host placement.
     """
+    model_n, data_n = _mesh_extents(mesh)
     tok_bytes, layers, heads = kv_token_bytes(cfg, dtype_bytes)
-    kv_state = tok_bytes * max_len * batch
-    weights = cfg.param_count() * dtype_bytes
+    kv_state = (tok_bytes * max_len * batch) // data_n
+    weights = cfg.param_count() * dtype_bytes // model_n
     stream = batch * cfg.d_model * dtype_bytes * 4
     fixed = batch * request_state_bytes(cfg, enc_len=max_len,
-                                        dtype_bytes=dtype_bytes)
+                                        dtype_bytes=dtype_bytes) // data_n
     if hierarchy is None:
         if spec is None:
             from repro_torch.hw.h100 import h100_spec
             spec = h100_spec()
-        hierarchy = spec.hierarchy(hosts=max(1, cluster or 1))
+        hierarchy = spec.hierarchy(mesh_devices=model_n,
+                                   hosts=max(1, cluster or 1))
     plan = plan_run(
         hierarchy,
         Workload(
@@ -170,14 +194,26 @@ def plan_decode(
 
 
 def kv_budget(plan: HierarchicalPlan, cfg: ModelConfig, dtype_bytes: int,
-              kv_fraction: float = 0.8) -> int:
-    """An engine's planned KV budget in logical bytes: ``kv_fraction`` of
-    the card's HBM left after one copy of the weights (the NVLINK level's
-    budget is one card's HBM), and at least one page."""
-    mesh = plan.level("NVLINK")
-    hbm = mesh.budget_bytes if mesh is not None else plan.leaf().budget_bytes
-    weights = cfg.param_count() * dtype_bytes
-    budget = int(kv_fraction * max(0, hbm - weights))
+              kv_fraction: float = 0.8, mesh=None) -> int:
+    """An engine's planned KV budget in the scheduler's logical bytes
+    (tokens x the global per-token KV), and at least one page.
+
+    Without a mesh: ``kv_fraction`` of the card's HBM left after one copy
+    of the weights (the NVLINK level's budget is one card's HBM).  On a
+    mesh the fleet's HBM is the NVLINK level's per-card budget times the
+    cards; the weights are TP-sharded over "model" and replicated over the
+    data axes, so one copy a data shard is reserved first; the cache
+    shards over the data axes but replicates over "model" wherever the
+    plan left its heads unsharded, so one logical byte costs ``model_n /
+    kv_shard`` physical bytes and the headroom is divided by that."""
+    ici = plan.level("NVLINK")
+    per_card = ici.budget_bytes if ici is not None \
+        else plan.leaf().budget_bytes
+    model_n, data_n = _mesh_extents(mesh)
+    hbm_total = per_card * model_n * data_n
+    weights = cfg.param_count() * dtype_bytes * data_n
+    replication = max(1, model_n // max(1, plan.kv_shard()))
+    budget = int(kv_fraction * max(0, hbm_total - weights) / replication)
     return max(page_spec_from_plan(plan, cfg, dtype_bytes).page_bytes,
                budget)
 
@@ -265,8 +301,33 @@ class ServeEngine:
     ``params`` (the ``Model.param_specs`` tree of tensors) default to
     seeded random weights from ``seed``.  ``replica`` is this engine's id
     in a cluster: its tracer's ``pid``, so a merged cluster trace shows
-    one process per replica.
+    one process per replica.  ``hierarchy`` replaces the spec's for the
+    decode plan.
+
+    ``mesh`` (keyword-only: the port's callers pass ``policy`` second,
+    where the reference's second positional is the mesh) serves over a
+    ``DeviceMesh`` with axes ``("data", "model")``, from
+    ``launch.mesh.make_host_mesh``: every rank runs the same engine on the
+    same prompts.  The plan is made for the mesh (``plan_decode(cfg,
+    mesh)``), the budget is the fleet's (``kv_budget(mesh=)``), the
+    parameters are DTensors with the steps' placements, the pool's (or
+    cohort cache's) KV heads shard over "model" exactly when the plan's
+    ``kv_shard > 1``, and the host side -- scheduler, page pool, page
+    table, sampling -- is the same on every rank, which samples the same
+    tokens from the logits gathered whole.  ``mesh=None`` is the meshless
+    engine, the reference's one-device host mesh.  On a mesh the engine
+    serves the families ``MESH_FAMILIES`` names for its batching, without
+    the radix prefix cache.
     """
+
+    #: Families each batching serves on a mesh.  Off the list: the paged
+    #: path of the families with per-slot state rows (hybrid_ssm, xlstm,
+    #: enc_dec) or a latent pool (mla_moe), and hybrid_ssm whole (its
+    #: serving scan is the ``ssd_scan`` kernel, which has no route to
+    #: local shards yet).
+    MESH_FAMILIES = {"paged": ("dense", "moe"),
+                     "cohort": ("dense", "moe", "vlm", "mla_moe", "xlstm",
+                                "enc_dec")}
 
     #: Ring-buffer bounds: the tracer's event ring, the interleave log and
     #: each request's token-time log cap here (overflow drops the oldest).
@@ -284,15 +345,24 @@ class ServeEngine:
         spec=None,
         device=None,
         replica: int = 0,
+        *,
+        mesh=None,
+        hierarchy=None,
     ):
+        if mesh is not None:
+            if policy.prefix_cache != "off":
+                raise NotImplementedError(
+                    "the radix prefix cache is not implemented on a mesh")
+            device = device if device is not None else mesh.device_type
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.policy = policy
         self.dtype = dtype if dtype is not None else torch.float32
         self._dtype_bytes = torch.tensor([], dtype=self.dtype).element_size()
         self.plan = plan_decode(
-            cfg, max_len=policy.max_len, batch=policy.max_slots,
-            dtype_bytes=self._dtype_bytes, spec=spec)
+            cfg, mesh, max_len=policy.max_len, batch=policy.max_slots,
+            dtype_bytes=self._dtype_bytes, spec=spec, hierarchy=hierarchy)
         self.page: PageSpec = page_spec_from_plan(self.plan, cfg,
                                                   self._dtype_bytes)
         self.batching = policy.batching
@@ -303,20 +373,46 @@ class ServeEngine:
                              and cfg.family in PAGED_FAMILIES else "cohort")
         elif self.batching == "paged" and cfg.family not in PAGED_FAMILIES:
             self.batching = "cohort"        # no paged decode path
+        if mesh is not None and \
+                cfg.family not in self.MESH_FAMILIES[self.batching]:
+            raise NotImplementedError(
+                f"{self.batching} serving of family {cfg.family!r} on a "
+                f"mesh is not implemented; on a mesh: {self.MESH_FAMILIES}")
         self.model = Model(cfg)
-        self.params = (params if params is not None
-                       else self.model.init(seed, self.device, self.dtype))
         self.budget_bytes = (int(policy.kv_budget_bytes)
                              if policy.kv_budget_bytes is not None
                              else kv_budget(self.plan, cfg,
                                             self._dtype_bytes,
-                                            policy.kv_fraction))
+                                            policy.kv_fraction, mesh=mesh))
         # Each engine builds only its own steps and bookkeeping: the paged
         # engine its pool steps, the cohort engine its scheduler (its
         # contiguous-cache steps are made per cohort, at its capacity).
         paged = self.batching == "paged"
-        self.steps = make_paged_steps(self.model, self.dtype) if paged \
-            else None
+        self._steps_cache: Dict[Any, Any] = {}
+        self.steps = self._paged_steps(policy.max_slots) if paged else None
+        self._param_sharding = None
+        if mesh is None:
+            self.params = (params if params is not None
+                           else self.model.init(seed, self.device,
+                                                self.dtype))
+        else:
+            # Placed as the widest paged steps (or a cohort of max_slots)
+            # place them; steps that place them otherwise redistribute.
+            ref = self.steps or self._steps(policy.max_slots, 1, 1)
+            self._param_sharding = ref.param_sharding
+            if params is not None:
+                self.params = ref.place_params(params)
+            else:
+                from repro_torch.launch.trainer import distribute
+
+                def place(path, leaf):
+                    pl = ref.param_sharding
+                    for k in path.split("."):
+                        pl = pl[k]
+                    return distribute(leaf, mesh, pl)
+
+                self.params = self.model.init(seed, self.device, self.dtype,
+                                              place=place)
         self.scheduler = None if paged else ServeScheduler(
             self.budget_bytes, self.page, max_slots=policy.max_slots)
         self._live_pool: Optional[PagePool] = None
@@ -354,6 +450,59 @@ class ServeEngine:
             "capacities": [],
             "prefix_cache": policy.prefix_cache,
         })
+
+    # ------------------------------------------------------------------ steps
+    def _paged_steps(self, n_slots: int):
+        """The paged steps for a decode batch of ``n_slots``.  Off a mesh
+        one set serves every slot count (``self.steps``); on a mesh the
+        slots' data sharding depends on it, and the steps are kept, one
+        set a slot count."""
+        key = ("paged", n_slots)
+        ss = self._steps_cache.get(key)
+        if ss is None:
+            ss = make_paged_steps(self.cfg, self.mesh, n_slots=n_slots,
+                                  max_len=self.policy.max_len,
+                                  dtype=self.dtype, decode_plan=self.plan)
+            if self.mesh is not None:
+                self._steps_cache[key] = ss
+        return ss
+
+    def _steps(self, n_slots: int, prompt_len: int, capacity: int
+               ) -> ServeSteps:
+        """The cohort steps for ``n_slots`` prompts of ``prompt_len`` tokens
+        into a cache of ``capacity``: made afresh a cohort off a mesh; on
+        a mesh kept, one set a shape (the reference's engine keeps its
+        compiled steps so)."""
+        key = (n_slots, prompt_len, capacity)
+        ss = self._steps_cache.get(key)
+        if ss is None:
+            ss = make_serve_steps(
+                self.cfg, ShapeConfig("serve", prompt_len, n_slots, "decode"),
+                self.mesh, dtype=self.dtype,
+                max_len_extra=capacity - prompt_len, decode_plan=self.plan)
+            if self.mesh is not None:
+                self._steps_cache[key] = ss
+        return ss
+
+    def _params_for(self, ss) -> PyTree:
+        """The parameters placed as ``ss`` takes them (redistributed, and
+        kept so, when its placements differ from the current ones)."""
+        if self.mesh is not None and ss.param_sharding != \
+                self._param_sharding:
+            self.params = ss.place_params(self.params)
+            self._param_sharding = ss.param_sharding
+        return self.params
+
+    def _regather(self, ss, fn, cache: PyTree) -> PyTree:
+        """``fn(cache)`` on a cache gathered whole, placed again after (the
+        cohort cache's growth and compaction change its shape; the
+        identity of a gather off a mesh)."""
+        if self.mesh is None:
+            return fn(cache)
+        from repro_torch.serve.steps import full_tensor
+        from repro_torch.tree import tree_map
+
+        return ss.place_cache(fn(tree_map(full_tensor, cache)))
 
     # -------------------------------------------------------------- telemetry
     def stats(self) -> Dict[str, Any]:
@@ -535,7 +684,7 @@ class ServeEngine:
             capacity = align_capacity(prompt_len + 1, self.page)
         else:
             capacity = prompt_len + max_new + 1
-        ss = make_serve_steps(self.model, capacity, self.dtype)
+        ss = self._steps(len(reqs), prompt_len, capacity)
         batch = self._stack_features(reqs)
         for r in reqs:
             now = time.monotonic()
@@ -544,7 +693,7 @@ class ServeEngine:
                                  args={"rid": r.rid, "cohort": cid})
             self.obs.observe("queue_wait_s", now - t_sub)
         tp0 = time.monotonic()
-        logits, cache = ss.prefill(self.params, batch)
+        logits, cache = ss.prefill(self._params_for(ss), batch)
         self.tracer.complete("prefill", tp0, time.monotonic(), tid=0,
                              args={"cohort": cid, "slots": len(reqs),
                                    "prompt": prompt_len})
@@ -600,7 +749,8 @@ class ServeEngine:
             return
         keep = [r for r in run.reqs if r.rid in run.active]
         idx = [run.active[r.rid] for r in keep]
-        run.cache = take_slots(run.cache, idx)
+        run.cache = self._regather(run.steps,
+                                   lambda c: take_slots(c, idx), run.cache)
         run.next_tokens = run.next_tokens[idx]
         run.reqs = keep
         run.active = {r.rid: i for i, r in enumerate(keep)}
@@ -632,7 +782,8 @@ class ServeEngine:
                 self._notify(r.rid, None)
             del runs[victim]
             self.metrics["evictions"] += 1
-        run.cache = grow_cache(self.cfg, run.cache, needed)
+        run.cache = self._regather(
+            run.steps, lambda c: grow_cache(self.cfg, c, needed), run.cache)
         run.capacity = needed
         self.metrics["capacities"].append(needed)
 
@@ -648,7 +799,8 @@ class ServeEngine:
                 (3, len(run.reqs), 1), int(run.cache["pos"]),
                 dtype=torch.int64, device=self.device)
         td0 = time.monotonic()
-        logits, run.cache = run.steps.decode(self.params, run.cache, batch)
+        logits, run.cache = run.steps.decode(self._params_for(run.steps),
+                                             run.cache, batch)
         toks = sample(logits, scfg, gen)
         self.tracer.complete("decode_tick", td0, time.monotonic(), tid=0,
                              args={"cohort": run.cid,
@@ -922,11 +1074,16 @@ class ServeEngine:
                                      page.page_tokens, pages_per_slot,
                                      self.dtype, dev, enc_len=enc_max)
             prefix = None
+        # Off a mesh one set of steps serves every slot count; on a mesh
+        # the slots' data sharding depends on it.
+        steps = self.steps if self.mesh is None \
+            else self._paged_steps(n_slots)
+        cache = steps.place_cache(cache)
+        params = self._params_for(steps)
         sched = PagedScheduler(pool, page, n_slots, pages_per_slot,
                                window=window, prefix=prefix)
         self._live_pool = pool          # stats() reads these while
         self._live_sched = sched        # generate runs
-        steps = self.steps
         gen = make_generator(scfg, dev)
         self.metrics["pages_total"] = pages_total - 1     # usable pages
         self.metrics["pages_per_slot"] = pages_per_slot
@@ -1166,7 +1323,7 @@ class ServeEngine:
                         np.int64))[None].to(dev)
                 tc0 = time.monotonic()
                 logits, cache = steps.prefill_chunk(
-                    self.params, cache, toks, done, slot)
+                    params, cache, toks, done, slot)
                 self.tracer.complete(
                     "prefill_chunk", tc0, time.monotonic(),
                     tid=req.rid + 1,
@@ -1237,7 +1394,7 @@ class ServeEngine:
                              for buf in cache["state"][g].values()]
                 td0 = time.monotonic()
                 logits, cache = steps.decode(
-                    self.params, cache,
+                    params, cache,
                     {"tokens": torch.from_numpy(next_np).to(dev)})
                 for buf, rows_before in saved or ():
                     set_slot_rows(buf, rows, rows_before)

@@ -508,6 +508,44 @@ def set_slot_rows(buf: torch.Tensor, slots, value) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Sharding axes for the pooled layout (consumed by serve.steps)
+# ---------------------------------------------------------------------------
+
+
+def paged_cache_logical_axes(cfg: ModelConfig, cache: PyTree) -> PyTree:
+    """Logical sharding axes for the pooled cache: the pool's KV heads
+    shard like the dense cache's ("kv_heads", which ``with_kv_sharding``
+    maps to the model axis or not); the page dim ("kv_pages") is a pool
+    dim and never shards -- a page is the shared-memory streaming granule
+    of ONE card.  The per-slot state takes the dense cache's axis names
+    (``launch.specs.cache_logical_axes``); enc_dec's cross rows shard
+    over heads.  The page table and positions are replicated (and stay
+    on the host side of the engine, the same on every rank)."""
+    from repro_torch.launch.specs import cache_logical_axes
+
+    axes: Dict[str, Any] = {"table": (None, None), "pos": (None,),
+                            "pool": {}, "state": {}}
+    if cache.get("pool"):
+        pool_ax = ("layers", "kv_pages", None, "kv_heads", None)
+        axes["pool"] = {name: pool_ax[:cache["pool"][name].dim()]
+                        for name in cache["pool"]}
+    if cache.get("state"):
+        state = dict(cache["state"])
+        cross = {}
+        for name in ("cross_k", "cross_v"):
+            if name in state:
+                state.pop(name)
+                cross[name] = ("layers", None, None, "kv_heads", None)
+        if "enc_len" in state:
+            state.pop("enc_len")
+            cross["enc_len"] = (None,)
+        axes["state"] = cache_logical_axes(cfg, state, False) if state \
+            else {}
+        axes["state"].update(cross)
+    return axes
+
+
+# ---------------------------------------------------------------------------
 # Page serialization (export from one engine's pool, install into another)
 # ---------------------------------------------------------------------------
 

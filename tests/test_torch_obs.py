@@ -75,7 +75,10 @@ def test_report_matches_reference(engine, band):
     if warned:
         assert lines[-1].startswith("WARNING: plan-vs-actual residual "
                                     "outside band")
-        assert "repro." not in lines[-1] and "dryrun" not in lines[-1]
+        # The hint names the port's own calibration, never the JAX
+        # package's (whose artifact holds TPU measurements).
+        assert "python -m repro_torch.launch.dryrun --calibrate" in lines[-1]
+        assert "repro.launch" not in lines[-1]
 
 
 def _run(module, *args):

@@ -310,3 +310,148 @@ def family_world(rank: int, inputs: str, spec: str) -> dict:
     out["fsdp/embed_placements"] = np.array(
         str(ts.param_sharding["embedding"]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Serving over a mesh
+# ---------------------------------------------------------------------------
+
+
+def serve_mesh_world(rank: int, inputs: str, cases: list) -> list:
+    """The reduced llama served by ``ServeEngine(mesh=)`` on a (2, 2) CPU
+    mesh, once a case: ``(batching, hbm_bytes, leaf_bytes, max_slots,
+    max_len, dtype)``.  The parameters and prompts come from ``inputs``
+    (``param/<path>`` and ``prompt/<i>`` arrays, ``news``); each case
+    returns its greedy tokens, the plan's ``kv_shard`` and the pool's (or
+    cache's) placements as strings."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.hw import h100_spec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    d = _load(inputs)
+    cfg = get_model_config("llama3.2-1b").reduced()
+    tree = nested({k[len("param/"):]: v for k, v in d.items()
+                   if k.startswith("param/")})
+    prompts = [d[f"prompt/{i}"] for i in range(
+        sum(k.startswith("prompt/") for k in d))]
+    news = [int(n) for n in d["news"]]
+    mesh = make_host_mesh(model_axis=2, device="cpu")
+    out = []
+    for batching, hbm, leaf, slots, max_len, dtype in cases:
+        params = params_from_numpy(tree, cfg, "cpu")
+        eng = ServeEngine(
+            cfg, ServePolicy(max_new_tokens=4, max_len=max_len,
+                             max_slots=slots, batching=batching),
+            params=params, dtype=getattr(torch, dtype),
+            spec=h100_spec(smem_bytes=leaf, hbm_bytes=hbm), device="cpu",
+            mesh=mesh)
+        toks = eng.generate(prompts, max_new_tokens=news)
+        out.append({"tokens": toks, "kv_shard": eng.plan.kv_shard(),
+                    "budget": eng.budget_bytes,
+                    "page_tokens": eng.page.page_tokens,
+                    "local_kv_heads": _local_kv_heads(eng, batching)})
+    out.append(_seq_sharded_steps(tree, d, mesh))
+    return out
+
+
+def _local_kv_heads(eng, batching: str) -> int:
+    """The KV heads one rank holds of the cache the engine's steps place:
+    the pool's (paged) or a cohort cache's."""
+    from repro_torch.serve.pages import init_paged_cache
+
+    if batching == "paged":
+        steps = eng._paged_steps(eng.policy.max_slots)
+        cache = steps.place_cache(init_paged_cache(
+            eng.cfg, eng.policy.max_slots, 2, eng.page.page_tokens, 1,
+            eng.dtype, "cpu"))
+        return int(cache["pool"]["k"].to_local().shape[3])
+    steps = next(iter(eng._steps_cache.values()))
+    cache = steps.place_cache(steps.model.init_cache(2, 8, eng.dtype,
+                                                     device="cpu"))
+    return int(cache["layers"]["k"].to_local().shape[3])
+
+
+def _seq_sharded_steps(tree: dict, d: dict, mesh) -> dict:
+    """``make_serve_steps(cache_seq_sharded=True)``: the cohort cache's
+    sequence dim over "model" and the one-token query through
+    ``attention_op``'s ``kv_seq`` branch; prefill of ``seq/prompt`` and
+    three greedy decode steps, float32.  Returns the four logits rows."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.serve.steps import make_serve_steps
+
+    cfg = get_model_config("llama3.2-1b").reduced()
+    prompt = torch.from_numpy(d["seq/prompt"].astype(np.int64))
+    shape = ShapeConfig("d", prompt.shape[1], prompt.shape[0], "decode")
+    ss = make_serve_steps(cfg, shape, mesh, dtype=torch.float32,
+                          max_len_extra=8, cache_policy="baseline",
+                          cache_seq_sharded=True)
+    params = ss.place_params(params_from_numpy(tree, cfg, "cpu"))
+    logits, cache = ss.prefill(params, {"tokens": prompt})
+    rows = [_np(logits)]
+    for _ in range(3):
+        tok = logits.argmax(-1)[:, None]
+        logits, cache = ss.decode(params, cache, {"tokens": tok})
+        rows.append(_np(logits))
+    k = cache["layers"]["k"]
+    return {"logits": np.stack(rows), "spec": list(map(str, k.placements)),
+            "local_seq": int(k.to_local().shape[2])}
+
+
+def serve_families_world(rank: int, cases: list, prompts: dict) -> list:
+    """``ServeEngine(mesh=)`` on a (2, 2) CPU mesh for each ``(arch,
+    batching)`` of ``cases``: the reduced config's seeded weights
+    (``Model.init(0)``), ``prompts[arch]``, four new tokens a request,
+    float32.  Returns each case's greedy tokens."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    mesh = make_host_mesh(model_axis=2, device="cpu")
+    out = []
+    for arch, batching in cases:
+        cfg = get_model_config(arch).reduced()
+        eng = ServeEngine(cfg, ServePolicy(max_new_tokens=4, max_len=64,
+                                           max_slots=4, batching=batching),
+                          params=Model(cfg).init(0, "cpu", torch.float32),
+                          device="cpu", mesh=mesh)
+        out.append(eng.generate(prompts[arch]))
+    return out
+
+
+def forward_world(rank: int, arch: str, tokens: np.ndarray) -> np.ndarray:
+    """The reduced ``arch``'s training forward (remat none, float32) on a
+    (2, 2) CPU mesh under its ``arch_rules``, the batch guarded
+    (``with_batch_guard``): a batch the data axis does not divide runs
+    replicated over it.  Returns the logits gathered whole."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.dist.sharding import (arch_rules, param_shardings,
+                                           placements, use_mesh_rules,
+                                           with_batch_guard)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.trainer import distribute
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_map
+
+    torch.set_num_threads(1)
+    cfg = get_model_config(arch).reduced()
+    model = Model(cfg, remat="none")
+    mesh = make_host_mesh(model_axis=2, device="cpu")
+    rules = with_batch_guard(arch_rules(cfg, mesh), mesh, tokens.shape[0])
+    shard = param_shardings(mesh, rules, model.param_specs())
+    params = tree_map(lambda p, pl: distribute(p, mesh, pl),
+                      model.init(0, "cpu", torch.float32), shard)
+    tok = torch.from_numpy(tokens.astype(np.int64))
+    tok = distribute(tok, mesh, placements(mesh, rules.act_spec(
+        ("batch", "seq"))))
+    with torch.no_grad(), use_mesh_rules(mesh, rules), \
+            implicit_replication():
+        logits, _ = model.forward(params, {"tokens": tok, "labels": tok},
+                                  torch.float32)
+    return _np(logits)
