@@ -2613,6 +2613,9 @@ PARITY_NEW = 8
 SYSTEM_PROMPT = 1000
 SYSTEM_TAILS = (24, 56, 88, 120, 152, 184, 216, 248)
 PREFIX_NEW = 32
+#: Phase 27's zamba2 depth: half its 38 mixers, which keeps the script
+#: inside its time limit since phase 35 serves zamba2 on a mesh too.
+PREFIX_ZAMBA_LAYERS = 19
 #: Engine counters read as deltas over one call.
 CALL_KEYS = ("prefix_hits", "prefix_misses", "prefix_hit_tokens",
              "pages_saved", "cow_copies", "prefill_tokens",
@@ -4503,6 +4506,159 @@ def phase_serve_mesh(pa_mod) -> dict:
     return out
 
 
+#: zamba2-1.2b on the one-rank mesh: full width, cut to 8 mixers (two
+#: shared-block applications), as phases 22 and 25 cut it; its mesh steps
+#: pay DTensor's host dispatch on every op, which the whole depth would
+#: pay 38 times a token.
+MESH_ZAMBA_LAYERS = 8
+MESH_ZAMBA_NEW = 16
+
+
+def mesh_ssd_route(ssd_mod, cfg, mesh) -> dict:
+    """``ssd_scan`` through the mesh route (``models.mamba2._chunked_scan``
+    on DTensors over ``mesh``, which hands the kernel each rank's rows and
+    heads) at zamba2's serving shape -- S = 8 with state, bf16 -- held to
+    the plain version on the same inputs, timed (device ms), its bound,
+    and the body it ran."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.models.mamba2 import _chunked_scan, kernel_chunk
+
+    sc = cfg.ssm
+    p, n = sc.head_dim, sc.state_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    args, init = ssd_state_case(gen, 8, torch.bfloat16, cfg)
+    rep = [Replicate()] * mesh.ndim
+
+    def dt(t):
+        return DTensor.from_local(t, mesh, rep, run_check=False)
+
+    dargs = [dt(a) for a in args]
+    dinit = dt(init)
+
+    def run(i):
+        return _chunked_scan(*dargs, sc.chunk, dinit)
+
+    before = counters(ssd_mod, ("tc", "simt"))
+    y, fin = run(0)
+    torch.cuda.synchronize()
+    ran = body(ssd_mod, before, "ssd_scan on the mesh route")
+    assert isinstance(y, DTensor) and isinstance(fin, DTensor)
+    ry, rfin = ssd_ref(*args, init_state=init, return_final=True)
+    err = max(held_to(y.to_local(), ry, SSD_TOL[torch.bfloat16],
+                      "mesh-route ssd_scan: y"),
+              held_to(fin.to_local(), rfin, SSD_TOL[torch.bfloat16],
+                      "mesh-route ssd_scan: final state"))
+    b, s, h, _ = args[0].shape
+    q = kernel_chunk(sc.chunk, p, n, 2)
+    nbytes, ops = ssd_work(b, s, h, p, n, min(q, s), 2, True)
+    bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
+    row = {"ms": cuda_ms(run), "path": ran, "max_abs_err": err,
+           "plain_ms": cuda_ms(lambda i: ssd_ref(
+               *args, init_state=init, return_final=True), reps=10),
+           "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+           "bytes": nbytes, "ops": ops}
+    log(f"  (a) mesh-route ssd_scan S=8 with state ({ran}): "
+        f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+        f"bound_ms={bound:.5f} ({bound_by}) max_abs_err={err:.3g}")
+    return row
+
+
+def phase_serve_mesh_zamba(pa_mod, ssd_mod) -> dict:
+    """(a) zamba2-1.2b at full width (cut to ``MESH_ZAMBA_LAYERS`` mixers)
+    on ``make_host_mesh()``, paged and cohort: in float32 on the first
+    ``MESH_PARITY_PROMPTS`` prompts of phase 4's trace each mesh engine's
+    greedy tokens equal the meshless engine's of its batching; in bf16
+    each mesh engine's ``ssd_scan`` launches (through the mesh route, on
+    local tensors) are all ``tc`` and as many as the meshless engine's,
+    and the paged one's attention launches are all ``split``;
+    then the mesh route's ``ssd_scan`` at the serving shape
+    (``mesh_ssd_route``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    cfg = parity_cfg(ZAMBA, MESH_ZAMBA_LAYERS)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in PROMPT_LENS][:MESH_PARITY_PROMPTS]
+    mods = {"paged": pa_mod, "ssd": ssd_mod}
+    out = {}
+    mesh = make_host_mesh()
+    try:
+        for dtype, new in ((torch.float32, MESH_PARITY_NEW),
+                           (torch.bfloat16, MESH_ZAMBA_NEW)):
+            free_card()
+            name = str(dtype)[6:]
+            pol = dict(max_slots=MAX_SLOTS, max_len=MAX_LEN,
+                       max_new_tokens=new)
+            row = {}
+            params = None
+            for batching in ("paged", "cohort"):
+                plain = ServeEngine(cfg, ServePolicy(batching=batching,
+                                                     **pol),
+                                    dtype=dtype, params=params, seed=0,
+                                    device=DEVICE)
+                params = plain.params
+                meshed = ServeEngine(cfg, ServePolicy(batching=batching,
+                                                      **pol),
+                                     dtype=dtype, params=params, mesh=mesh)
+                a = mesh_engine_run(plain, prompts, new, mods)
+                b = mesh_engine_run(meshed, prompts, new, mods)
+                row[batching] = {
+                    "tokens_equal": b["outs"] == a["outs"],
+                    "meshless": {k: a[k] for k in ("wall_s", "tok_s",
+                                                   "launches")},
+                    "mesh": {k: b[k] for k in ("wall_s", "tok_s",
+                                               "launches")}}
+                del plain, meshed
+            log(f"  (a) zamba2 {name}: " + json.dumps(row))
+            for batching, r in row.items():
+                ssd = r["mesh"]["launches"]["ssd"]
+                assert ssd["LAUNCHES"] > 0, (batching, ssd)
+                if dtype == torch.float32:
+                    assert r["tokens_equal"], \
+                        f"zamba2 {batching} {name}: mesh tokens differ"
+                    continue
+                assert ssd["LAUNCHES"] == ssd["LAUNCHES_TC"], ssd
+                assert ssd["LAUNCHES"] == \
+                    r["meshless"]["launches"]["ssd"]["LAUNCHES"], r
+                if batching == "paged":
+                    paged = r["mesh"]["launches"]["paged"]
+                    assert 0 < paged["LAUNCHES"] == \
+                        paged["LAUNCHES_SPLIT"], paged
+            out[name] = row
+        out["route"] = mesh_ssd_route(ssd_mod, cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+#: The four reduced cases the 4-rank world gains: per-slot state rows on
+#: local shards (paged xlstm and whisper) and zamba2's scan (cohort and
+#: paged).
+MESH_B_STATE = (("xlstm-1.3b", "paged"), (WHISPER, "paged"),
+                (ZAMBA, "cohort"), (ZAMBA, "paged"))
+
+
+def mesh_b_prompts(arch: str) -> list:
+    """Four token prompts (whisper: two requests of encoder frames and
+    decoder tokens) for a reduced ``arch``."""
+    from repro_torch.configs import get_model_config
+
+    cfg = get_model_config(arch).reduced()
+    rng = np.random.default_rng(1)
+    if cfg.family == "enc_dec":
+        return [{"enc_embeds": (0.02 * rng.standard_normal(
+                    (n, cfg.d_model))).astype(np.float32),
+                 "tokens": rng.integers(0, cfg.vocab_size, 4,
+                                        dtype=np.int32)} for n in (8, 12)]
+    return [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+            for n in MESH_B_LENS]
+
+
 def world_35b(rank: int, inputs: str) -> list:
     """(b) On every rank of a 4-rank gloo world on the card's host: the
     reduced llama3.2-1b on a (2, 2) CPU mesh, paged and cohort, under a
@@ -4510,6 +4666,7 @@ def world_35b(rank: int, inputs: str) -> list:
     from repro_torch.configs import get_model_config
     from repro_torch.hw import h100_spec
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
     from repro_torch.models.params import params_from_numpy
     from repro_torch.serve import ServeEngine, ServePolicy
 
@@ -4540,6 +4697,14 @@ def world_35b(rank: int, inputs: str) -> list:
                          "kv_shard": eng.plan.kv_shard(),
                          "outs": eng.generate(
                              prompts, max_new_tokens=list(MESH_B_NEWS))})
+    for arch, batching in MESH_B_STATE:
+        scfg = get_model_config(arch).reduced()
+        eng = ServeEngine(scfg, ServePolicy(
+            max_new_tokens=4, max_len=64, max_slots=4, batching=batching),
+            params=Model(scfg).init(0, "cpu", torch.float32), device="cpu",
+            mesh=mesh)
+        rows.append({"arch": arch, "batching": batching,
+                     "outs": eng.generate(mesh_b_prompts(arch))})
     return rows
 
 
@@ -4577,13 +4742,28 @@ def phase_serve_mesh_cpu() -> dict:
                                         max_slots=4),
                        params=params, device="cpu").generate(
         prompts, max_new_tokens=list(MESH_B_NEWS))
-    shards = [(r["batching"], r["hbm"], r["kv_shard"]) for r in ranks[0]]
+    shards = [(r["batching"], r["hbm"], r["kv_shard"]) for r in ranks[0]
+              if "hbm" in r]
     log(f"  (b) 4 gloo ranks at (2, 2): (batching, hbm, kv_shard) {shards}")
+    state = {}
+    for arch, batching in MESH_B_STATE:
+        scfg = get_model_config(arch).reduced()
+        state[f"{arch}/{batching}"] = ServeEngine(
+            scfg, ServePolicy(max_new_tokens=4, max_len=64, max_slots=4,
+                              batching=batching),
+            params=Model(scfg).init(0, "cpu", torch.float32),
+            device="cpu").generate(mesh_b_prompts(arch))
+    log(f"  (b) state-row and scan cases, tokens equal the meshless "
+        f"engine's: {list(state)}")
     for rank in ranks:
         for r in rank:
-            assert r["outs"] == want, (r["batching"], r["hbm"])
-            assert r["kv_shard"] == (2 if r["hbm"] else 1), r
-    return {"cases": shards, "tokens": want}
+            if "hbm" in r:
+                assert r["outs"] == want, (r["batching"], r["hbm"])
+                assert r["kv_shard"] == (2 if r["hbm"] else 1), r
+            else:
+                assert r["outs"] == state[f"{r['arch']}/{r['batching']}"], \
+                    (r["arch"], r["batching"])
+    return {"cases": shards + list(state), "tokens": want}
 
 
 def phase_dryrun() -> dict:
@@ -4780,7 +4960,7 @@ def main() -> int:
     dk = dserve = wk = wserve = qslice = ab = cssd = cserve = None
     pparity = pllama = pzamba = pexport = pcli = pcap = ppaper = None
     pcluster = tguard = tparity = tfull = tloop = None
-    rblocks = rone = tmesh = tcpu = smesh = scpu = sdry = None
+    rblocks = rone = tmesh = tcpu = smesh = zmesh = scpu = sdry = None
     if build_s is not None:
         log("[2] kernel against its plain version")
         kern = phase("phase 2 kernel", phase_kernel, t)
@@ -4888,9 +5068,11 @@ def main() -> int:
             "the radix cache warm beside a cold engine")
         pllama = phase("phase 26 llama prefix serve", phase_prefix_serve,
                        get_cfg(), {"paged": pa_mod})
-        log("[27] the system-prompt trace on full-width zamba2-1.2b, bf16")
+        log(f"[27] the system-prompt trace on full-width zamba2-1.2b cut "
+            f"to {PREFIX_ZAMBA_LAYERS} of 38 mixers, bf16")
         pzamba = phase("phase 27 zamba2 prefix serve", phase_prefix_serve,
-                       zamba_cfg(), {"paged": pa_mod, "ssd": ssd_mod})
+                       parity_cfg(ZAMBA, PREFIX_ZAMBA_LAYERS),
+                       {"paged": pa_mod, "ssd": ssd_mod})
         log("[28] export_pages / import_pages between two llama3.2-1b "
             "engines (4 layers, float32)")
         pexport = phase("phase 28 export import", phase_export_import)
@@ -4934,11 +5116,13 @@ def main() -> int:
         log(f"  phase 34: {time.perf_counter() - t34:.1f} s")
         free_card()
         log("[35] serving over a device mesh: (a) full-width llama3.2-1b "
-            "on make_host_mesh(), (b) 4 gloo ranks at (2, 2) on the host, "
-            "(c) the dry run on the host")
+            "and zamba2-1.2b on make_host_mesh(), (b) 4 gloo ranks at "
+            "(2, 2) on the host, (c) the dry run on the host")
         t35 = time.perf_counter()
         smesh = phase("phase 35a serve on the mesh", phase_serve_mesh,
                       pa_mod)
+        zmesh = phase("phase 35a zamba2 on the mesh",
+                      phase_serve_mesh_zamba, pa_mod, ssd_mod)
         scpu = phase("phase 35b 4 gloo ranks serve", phase_serve_mesh_cpu)
         sdry = phase("phase 35c dry run", phase_dryrun)
         log(f"  phase 35: {time.perf_counter() - t35:.1f} s")
@@ -4946,8 +5130,8 @@ def main() -> int:
                           xserve, dk, dserve, wk, wserve, qslice, ab, cssd,
                           cserve, pparity, pllama, pzamba, pexport, pcli,
                           pcap, ppaper, pcluster, tguard, tparity, tfull,
-                          tloop, rblocks, rone, tmesh, tcpu, smesh, scpu,
-                          sdry):
+                          tloop, rblocks, rone, tmesh, tcpu, smesh, zmesh,
+                          scpu, sdry):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -5073,6 +5257,22 @@ def main() -> int:
             "LAUNCHES"],
         "tok_s": smesh["bfloat16"]["mesh"]["tok_s"],
         "tok_s_meshless": smesh["bfloat16"]["meshless"]["tok_s"]}
+    # zamba2 on the one-rank mesh (phase 35 (a)): ssd_scan through the
+    # mesh route, on local tensors -- the bf16 paged and cohort runs'
+    # launches by body (the main path's count is phase 9's), and its time
+    # and bound at the serving shape.
+    zr = zmesh["route"]
+    ssd["mesh"] = {
+        "layers": MESH_ZAMBA_LAYERS,
+        "launches_paged": zmesh["bfloat16"]["paged"]["mesh"]["launches"][
+            "ssd"],
+        "launches_cohort": zmesh["bfloat16"]["cohort"]["mesh"]["launches"][
+            "ssd"],
+        "S=8": {k: zr[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "path",
+                                   "max_abs_err")}}
+    kernels[0]["mesh"]["zamba2_launches"] = zmesh["bfloat16"]["paged"][
+        "mesh"]["launches"]["paged"]
     # Phases 26-27's warm and cold figures, then phase 24's, at the end of
     # the output, where the profiler tables above do not push them out.
     log("prefix serving: " + json.dumps({
@@ -5122,6 +5322,12 @@ def main() -> int:
         name: {k: row[k] for k in ("kv_shard", "tokens_equal", "meshless",
                                    "mesh")}
         for name, row in smesh.items()}))
+    log("zamba2 on a mesh: " + json.dumps({
+        name: {b: {"tokens_equal": r["tokens_equal"],
+                   "wall_s": [r["meshless"]["wall_s"], r["mesh"]["wall_s"]],
+                   "tok_s": [r["meshless"]["tok_s"], r["mesh"]["tok_s"]]}
+               for b, r in zmesh[name].items()}
+        for name in ("float32", "bfloat16")}))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         log(f"FAILED: the main path never launched {missing}")

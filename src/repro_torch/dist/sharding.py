@@ -681,38 +681,6 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def shard_local(fn, *tensors, dims: Sequence[int] = (0, 2)):
-    """``fn(*tensors)`` on the local shards of DTensors placed alike: a
-    region whose work is independent along ``dims`` (attention: batch and
-    heads).  Every DTensor argument takes the first one's placements, less
-    any shard of another dim; the result is wrapped with them.  Exact,
-    differentiable, and with no communication inside; DTensor's einsum
-    decomposition would flatten two sharded dims, which some torch
-    versions refuse.  Off a mesh it is ``fn(*tensors)``."""
-    first = tensors[0]
-    if not isinstance(first, DTensor):
-        return fn(*tensors)
-    mesh = first.device_mesh
-    want = tuple(p if isinstance(p, Shard) and p.dim in dims
-                 else Replicate() for p in first.placements)
-
-    def local(t):
-        if not isinstance(t, DTensor):
-            return t
-        if tuple(t.placements) != want:
-            t = t.redistribute(mesh, want)
-        return _ContiguousGrad.apply(t.to_local())
-
-    out = fn(*(local(t) for t in tensors)).contiguous()
-    shape = list(out.shape)
-    for i, p in enumerate(want):
-        if isinstance(p, Shard):
-            shape[p.dim] *= mesh.size(i)
-    shape = torch.Size(shape)
-    return DTensor.from_local(out, mesh, want, run_check=False, shape=shape,
-                              stride=contiguous_stride(shape))
-
-
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]``: the embedding lookup.  On a mesh the table is
     gathered whole and each rank looks up its own ids' rows; the result
@@ -789,6 +757,144 @@ def write_slice(buf: torch.Tensor, src: torch.Tensor, dim: int,
     if a < b:
         buf.to_local().narrow(dim, a - lo, b - a).copy_(
             src.to_local().narrow(dim, a - start, b - a))
+
+
+def _row_list(rows) -> list:
+    if isinstance(rows, torch.Tensor):
+        return [int(r) for r in rows.reshape(-1).tolist()]
+    if isinstance(rows, (list, tuple)):
+        return [int(r) for r in rows]
+    return [int(rows)]
+
+
+def read_rows(buf: DTensor, dim: int, rows) -> DTensor:
+    """The rows ``rows`` (an index or a list) of ``buf`` along ``dim``, as
+    a DTensor whose ``dim`` is replicated and whose other dims keep
+    ``buf``'s placements: each rank takes the rows its shard of ``dim``
+    holds, zeros elsewhere, and one all-reduce of the rows alone (over the
+    mesh dims that shard ``dim``) replicates them.  Exact: a row is summed
+    with zeros.  An index gives the row without ``dim`` (``buf[:, i]``'s
+    shape for ``dim`` 1); DTensor's own sharded indexing is avoided."""
+    idx = _row_list(rows)
+    mesh = buf.device_mesh
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+                 else p for p in buf.placements)
+    local = buf.to_local()
+    lo, size = local_extent(buf, dim)
+    shape = list(local.shape)
+    shape[dim] = len(idx)
+    out = local.new_zeros(shape)
+    for j, r in enumerate(idx):
+        if lo <= r < lo + size:
+            out.select(dim, j).copy_(local.select(dim, r - lo))
+    split = [i for i, p in enumerate(buf.placements)
+             if isinstance(p, Shard) and p.dim == dim]
+    gshape = list(buf.shape)
+    gshape[dim] = len(idx)
+    rep = from_local_like(
+        out, mesh, tuple(Partial() if i in split else p
+                         for i, p in enumerate(want)), gshape)
+    if split:
+        rep = rep.redistribute(mesh, want)
+    if not isinstance(rows, (list, tuple, torch.Tensor)):
+        rep = rep.select(dim, 0)
+    return rep
+
+
+def write_rows(buf: DTensor, dim: int, rows, value) -> None:
+    """Write ``value`` into the rows ``rows`` of ``buf`` along ``dim``, in
+    place, on the local shards: ``value`` (a tensor shaped as
+    ``read_rows`` returns, plain or DTensor, or a scalar) takes ``buf``'s
+    placements with ``dim`` replicated, and each rank writes the rows its
+    shard of ``dim`` holds -- no sharded ``index_put`` and no slice
+    assignment on a DTensor."""
+    idx = _row_list(rows)
+    mesh = buf.device_mesh
+    local = buf.to_local()
+    lo, size = local_extent(buf, dim)
+    if isinstance(value, torch.Tensor):
+        if not isinstance(rows, (list, tuple, torch.Tensor)):
+            value = value.unsqueeze(dim)
+        want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+                     else p for p in buf.placements)
+        if not isinstance(value, DTensor):
+            value = DTensor.from_local(value, mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False)
+        if tuple(value.placements) != want:
+            value = value.redistribute(mesh, want)
+        value = value.to_local()
+    for j, r in enumerate(idx):
+        if lo <= r < lo + size:
+            dst = local.select(dim, r - lo)
+            if isinstance(value, torch.Tensor):
+                dst.copy_(value.select(dim, j))
+            else:
+                dst.fill_(value)
+
+
+def rows_heads_roles(t: DTensor, row: Optional[int],
+                     head: Optional[int]) -> Tuple[Optional[str], ...]:
+    """``local_rows_heads``' roles as ``t`` is placed: "row" on the mesh
+    dims that shard its ``row`` dim, "head" on those that shard its
+    ``head`` dim, None elsewhere."""
+    return tuple("row" if isinstance(p, Shard) and p.dim == row
+                 else "head" if isinstance(p, Shard) and p.dim == head
+                 else None for p in t.placements)
+
+
+def local_rows_heads(fn, args: Sequence,
+                     outs: Sequence[Tuple[Optional[int], Optional[int]]],
+                     roles: Sequence[Optional[str]]):
+    """``fn`` on the local shards of tensors that share a row dim and a
+    head dim, whose work is independent along both (a recurrent scan over
+    batch rows and state heads).  ``args`` holds ``(tensor, row_dim,
+    head_dim)`` triples (``tensor`` a DTensor, or None; either dim None
+    where the tensor has none); ``roles`` names, for each mesh dim,
+    whether it splits the rows ("row"), the heads ("head") or neither
+    (None).  Each argument is redistributed so that every "row" mesh dim
+    shards its row dim and every "head" one its head dim, the rest
+    replicated; ``fn`` gets the local tensors; each tensor it returns,
+    whose ``(row_dim, head_dim)`` ``outs`` gives, comes back as a DTensor
+    placed alike.  Differentiable: an argument replicated over a mesh dim
+    that splits the work gets a partial-sum gradient there."""
+    tensors = [a for a, _, _ in args if isinstance(a, DTensor)]
+    mesh = tensors[0].device_mesh
+    n_rows = n_heads = None
+    locals_ = []
+    for t, row, head in args:
+        if t is None:
+            locals_.append(None)
+            continue
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if row is not None:
+            n_rows = t.shape[row]
+        if head is not None:
+            n_heads = t.shape[head]
+        want, grad = [], []
+        for role in roles:
+            d = row if role == "row" else head if role == "head" else None
+            want.append(Shard(d) if d is not None else Replicate())
+            grad.append(Partial() if d is None and role else want[-1])
+        if tuple(t.placements) != tuple(want):
+            t = t.redistribute(mesh, want)
+        locals_.append(_ContiguousGrad.apply(
+            t.to_local(grad_placements=grad)))
+    result = fn(*locals_)
+    single = isinstance(result, torch.Tensor)
+    wrapped = []
+    for y, (row, head) in zip((result,) if single else result, outs):
+        place = tuple(Shard(row) if role == "row" else Shard(head)
+                      if role == "head" else Replicate() for role in roles)
+        shape = list(y.shape)
+        if row is not None:
+            shape[row] = n_rows
+        if head is not None:
+            shape[head] = n_heads
+        wrapped.append(from_local_like(y, mesh, place, shape))
+    return wrapped[0] if single else tuple(wrapped)
 
 
 def like_heads_of(t: DTensor, pool: DTensor, head_dim: int,

@@ -32,6 +32,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.hw.h100 import h100_spec
 from repro_torch.kernels import _build
@@ -140,6 +141,11 @@ def ssd_scan(
     The chunk is ``call_chunk``'s; a ragged final chunk is masked.
     ``path="simt"`` runs the CUDA-core body where ``ssd_path`` would pick
     tc (to compare the two); a body that cannot take the shape raises."""
+    if any(isinstance(t, DTensor)
+           for t in (x, dt, A, Bm, Cm, init_state)):
+        raise TypeError("ssd_scan takes local tensors, not DTensors: on a "
+                        "mesh call it on each rank's shard "
+                        "(models.mamba2._chunked_scan does)")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P); got {tuple(x.shape)}")
     b, s, h, p = x.shape

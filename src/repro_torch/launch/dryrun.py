@@ -18,7 +18,14 @@ The port's counterpart runs each cell's step ONCE under ``FakeTensorMode``
     ``roofline.report.roofline_terms`` turns the counts into the H100's
     bounds;
   * torch's ``MemTracker`` reads the rank's peak bytes (the counterpart of
-    XLA's memory analysis).
+    XLA's memory analysis);
+  * a step whose loops run more than ``MAX_BLOCK_TRIPS`` trips (every
+    prefill_32k cell's blockwise attention, the xLSTM's tokens and chunks)
+    runs each loop's first, second and last trips, the second counted for
+    every middle one (``roofline.ops.loop``), as the reference traces a
+    ``lax.scan`` body once; the peak is then the traced trips' on top of
+    the state that persists across them.  The report's ``counted`` says
+    which way a cell was counted.
 
 The report keeps the reference's keys, less the compile: ``lower_s`` and
 ``compile_s`` become ``trace_s`` (host seconds of the traced step: a
@@ -65,9 +72,12 @@ from repro_torch.launch.mesh import make_production_mesh
 SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 #: Loop trips of the eager step (all layers) past which a cell is not
-#: traced: blockwise attention runs every (query block, key block) pair
-#: as its own ops, the sLSTM one token at a time and the mLSTM one chunk
-#: at a time, and the host traces some 20 ops a trip.
+#: traced whole: blockwise attention runs every (query block, key block)
+#: pair as its own ops, the sLSTM one token at a time and the mLSTM one
+#: chunk at a time, and the host traces some 20 ops a trip.  Past it each
+#: such loop runs one trip, counted for all of them
+#: (``roofline.ops.sampling_loops``), as the reference counts a
+#: ``lax.scan`` traced once.
 MAX_BLOCK_TRIPS = 20_000
 
 
@@ -173,17 +183,22 @@ def _local_mem_tracker():
     return LocalMemTracker()
 
 
-def _trace(fn, args, externals):
+def _trace(fn, args, externals, sample: bool = False):
     """``fn(*args)`` once under the op counter and the memory tracker:
-    ``(OpSummary, peak bytes, output bytes, seconds)``."""
-    from repro_torch.roofline.ops import analyze_ops_with_result
+    ``(OpSummary, peak bytes, output bytes, seconds)``.  ``sample`` runs
+    the step's long loops one trip each, counted for all of them; the
+    peak is then the traced trip's on top of what persists across
+    trips."""
+    from repro_torch.roofline.ops import analyze_ops_with_result, \
+        sampling_loops
     from repro_torch.tree import tree_leaves
 
     mt = _local_mem_tracker()
     ext = [t for t in tree_leaves(externals) if isinstance(t, torch.Tensor)]
     mt.track_external(*ext)
     t0 = time.time()
-    summary, out = analyze_ops_with_result(_under(mt, fn), *args)
+    with sampling_loops(sample):
+        summary, out = analyze_ops_with_result(_under(mt, fn), *args)
     return summary, _peak_bytes(mt), _local_bytes(out), time.time() - t0
 
 
@@ -202,7 +217,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     artifact beside it, so the reference's ``out_root`` has no
     counterpart).  ``mesh``, ``cfg`` and ``shape`` replace the production mesh
     (any ``DeviceMesh`` over a running world, fake or not), the registered
-    config and the named shape (a reduced cell)."""
+    config and the named shape (a reduced cell).  A step of more than
+    ``MAX_BLOCK_TRIPS`` loop trips samples its loops (the report's
+    ``counted`` says so)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.specs import decode_batch_specs, \
@@ -220,11 +237,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     cfg = cfg or get_model_config(arch)
     shape = shape or get_shape(shape_name)
     trips = block_trips(cfg, shape)
-    if trips > MAX_BLOCK_TRIPS:
-        raise RuntimeError(
-            f"the eager step runs {trips} loop trips (blockwise "
-            f"attention's blocks, or the xLSTM's tokens and chunks), past "
-            f"the trace budget of {MAX_BLOCK_TRIPS}")
+    sample = trips > MAX_BLOCK_TRIPS
     t_build = time.time()
     with FakeTensorMode(allow_non_fake_inputs=True):
         if shape.kind == "train":
@@ -266,7 +279,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                 step_kind = "serve_step"
         build_s = time.time() - t_build
         arg_bytes = _local_bytes(externals)
-        summary, peak, out_bytes, trace_s = _trace(fn, args, externals)
+        summary, peak, out_bytes, trace_s = _trace(fn, args, externals,
+                                                   sample)
     terms = roofline_terms(cfg, shape, mesh_name, step_kind, summary,
                            n_chips=mesh.size())
     return {
@@ -277,9 +291,14 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "status": "ok",
         "build_s": round(build_s, 1),
         "trace_s": round(trace_s, 1),
+        "counted": {"loops": "sampled loops" if sample else "whole step",
+                    "trips": trips},
         "flops": summary.flops,
         "hbm_bytes": summary.hbm_bytes,
         "collective_bytes": dict(summary.collective_bytes),
+        "collective_shapes": sorted({(kind, tuple(shape))
+                                     for kind, shapes in summary.collectives
+                                     for shape in shapes}),
         "roofline": {
             "compute_s": terms.compute_s,
             "memory_s": terms.memory_s,
@@ -566,6 +585,7 @@ def main(argv=None) -> int:
                                          cache_policy=args.cache_policy)
                         n_ok += 1
                         print(f"[ok]   {tag}  trace={rep['trace_s']}s "
+                              f"counted={rep['counted']['loops']} "
                               f"flops={rep['flops']:.4g} "
                               f"peak={rep['memory']['peak_bytes']}")
                     except Exception as e:      # report, keep going

@@ -31,20 +31,23 @@ the reference's model never calls its own.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.overlap import overlap_matmul, overlap_matmul_fused
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.dist.sharding import (active_overlap, active_rule, constrain,
                                        from_local_like, like_heads_of,
-                                       local_extent, shard_local,
-                                       split_heads, take_rows, write_slice)
+                                       local_extent, local_rows_heads,
+                                       rows_heads_roles, split_heads,
+                                       take_rows, write_slice)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.params import ParamSpec
+from repro_torch.roofline.ops import loop
 
 NEG_INF = -1e30
 
@@ -54,16 +57,105 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
+class _RowParallelMatmul(torch.autograd.Function):
+    """Megatron's row-parallel pair on local shards: the forward is the
+    local product ``x_local @ w_local`` (the contraction dim split over
+    "model"), all-reduced over "model"; the backward takes ``dY`` whole
+    (the caller's ``DTensor.from_local`` has reduced it to ``Replicate``
+    over "model", one all-reduce where it arrived as a partial sum) and
+    computes ``dX_local = dY @ w_localᵀ`` and ``dW_local = x_localᵀ @ dY``
+    on the local shards -- nothing is gathered at full width."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        import torch.distributed._functional_collectives as funcol
+
+        ctx.save_for_backward(x, w)
+        y = funcol.all_reduce(x @ w, "sum", group)
+        return funcol.wait_tensor(y)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dy @ w.T if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = x.reshape(-1, x.shape[-1]).T @ dy.reshape(-1, dy.shape[-1])
+        return dx, dw, None
+
+
+def _row_parallel(x: DTensor, w: DTensor) -> Optional[torch.Tensor]:
+    """``x @ w`` for a row-parallel weight on a mesh, through
+    ``_RowParallelMatmul``: ``x``'s last dim and ``w``'s first shard over
+    "model"; ``x`` keeps its batch-row shards and ``w`` replicates over
+    the other mesh dims (its gradient a partial sum over those that shard
+    ``x``'s rows).  The result is replicated over "model" and keeps
+    ``x``'s row shards.  None where it does not apply (no "model" axis of
+    size > 1, a contraction dim it does not divide, or a shard of another
+    dim of ``x``)."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    if "model" not in names:
+        return None
+    m = names.index("model")
+    k = x.dim() - 1
+    if mesh.size(m) <= 1 or w.shape[0] % mesh.size(m) \
+            or x.shape[k] != w.shape[0]:
+        return None
+    x_place, w_place, w_grad, y_place = [], [], [], []
+    for i, p in enumerate(x.placements):
+        if i == m:
+            x_place.append(Shard(k))
+            w_place.append(Shard(0))
+            w_grad.append(Shard(0))
+            y_place.append(Replicate())
+        elif isinstance(p, Shard) and p.dim < k:
+            if p.dim != 0:
+                return None
+            x_place.append(p)
+            w_place.append(Replicate())
+            w_grad.append(Partial())
+            y_place.append(p)
+        else:
+            x_place.append(Replicate())
+            w_place.append(Replicate())
+            w_grad.append(Replicate())
+            y_place.append(Replicate())
+    if tuple(x.placements) != tuple(x_place):
+        x = x.redistribute(mesh, x_place)
+    if tuple(w.placements) != tuple(w_place):
+        w = w.redistribute(mesh, w_place)
+    y = _RowParallelMatmul.apply(x.to_local(), w.to_local(
+        grad_placements=w_grad), (mesh, m))
+    return from_local_like(y, mesh, tuple(y_place),
+                           tuple(x.shape[:-1]) + (w.shape[1],))
+
+
 def tp_matmul(x: torch.Tensor, w: torch.Tensor, parallel: str) -> torch.Tensor:
     """Projection ``y = x @ w`` over the last dim: through ``dist.overlap``'s
     ring kernels when the active rules request ring/serpentine collectives
-    and the shapes divide the ring, a plain product otherwise.
+    and the shapes divide the ring, a plain product otherwise -- on a mesh
+    under gspmd rules a row-parallel product runs on local shards
+    (``_RowParallelMatmul``), the rest through DTensor's propagation.
     ``parallel`` is the weight's TP orientation: "column" (n sharded ->
     all-gather ring) or "row" (k sharded -> reduce-scatter ring)."""
-    if active_overlap() is None:        # one device, serving, gspmd rules
-        return x @ w
-    y = overlap_matmul(x, w, parallel)
-    return x @ w if y is None else y
+    if active_overlap() is not None:
+        y = overlap_matmul(x, w, parallel)
+        if y is not None:
+            return y
+    return row_parallel(x, w) if parallel == "row" else x @ w
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a row-parallel weight (its rows shard over "model"):
+    on a mesh through ``_RowParallelMatmul`` on local shards where it
+    applies, a plain product otherwise.  The Mamba2 mixer's output
+    projection takes it directly (it has no ring route)."""
+    if isinstance(x, DTensor) and isinstance(w, DTensor):
+        y = _row_parallel(x, w)
+        if y is not None:
+            return y
+    return x @ w
 
 
 def fused_column_matmul(x: torch.Tensor, ws) -> list:
@@ -304,32 +396,39 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vp = F.pad(v, (0, 0, 0, 0, 0, pk))
     qpos = F.pad(q_pos, (0, pq), value=-1)
     kpos = F.pad(k_pos, (0, pk), value=2 ** 30)
-    outs = []
-    for i in range(nq):
+
+    def kv_block(j, qi, qpos_i, kp, vp, m, l, acc):
+        kj = kp[:, j * block_kv:(j + 1) * block_kv]
+        vj = vp[:, j * block_kv:(j + 1) * block_kv]
+        logits = torch.einsum("bqhd,bkhd->bhqk", qi, kj).float() * scale
+        if causal or window:
+            kpos_j = kpos[j * block_kv:(j + 1) * block_kv]
+            mask = kpos_j[None, :] <= qpos_i[:, None]
+            if window:
+                mask = mask & (kpos_j[None, :] > qpos_i[:, None] - window)
+            logits = logits.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(qi.dtype), vj).float()
+        return None, m_new, l, acc
+
+    def q_block(i, qp, kp, vp):
         qi = qp[:, i * block_q:(i + 1) * block_q]
         qpos_i = qpos[i * block_q:(i + 1) * block_q]
         m = q.new_full((b, h, block_q), NEG_INF, dtype=torch.float32)
         l = q.new_zeros((b, h, block_q), dtype=torch.float32)
         acc = q.new_zeros((b, h, block_q, d), dtype=torch.float32)
-        for j in range(nk):
-            kj = kp[:, j * block_kv:(j + 1) * block_kv]
-            vj = vp[:, j * block_kv:(j + 1) * block_kv]
-            logits = torch.einsum("bqhd,bkhd->bhqk", qi, kj).float() * scale
-            if causal or window:
-                kpos_j = kpos[j * block_kv:(j + 1) * block_kv]
-                mask = kpos_j[None, :] <= qpos_i[:, None]
-                if window:
-                    mask = mask & (kpos_j[None, :] > qpos_i[:, None] - window)
-                logits = logits.masked_fill(~mask, NEG_INF)
-            m_new = torch.maximum(m, logits.amax(dim=-1))
-            p = torch.exp(logits - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhqk,bkhd->bhqd", p.to(qi.dtype), vj).float()
-            m = m_new
+        _, (m, l, acc) = loop(nk, kv_block, (qi, qpos_i, kp, vp),
+                              (m, l, acc))
         out = acc / l[..., None].clamp_min(1e-30)
-        outs.append(out.movedim(1, 2).to(q.dtype))          # (B, bq, H, D)
+        return (out.movedim(1, 2).to(q.dtype),)            # (B, bq, H, D)
+
+    # The block loops run through ``roofline.ops.loop``, which a dry run's
+    # trace of a long prompt samples (three trips a loop, counted for all).
+    outs, _ = loop(nq, q_block, (qp, kp, vp), ())
     return torch.cat(outs, dim=1)[:, :sq]
 
 
@@ -381,19 +480,44 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k = constrain(k, ("batch", None, "heads", None))
     v = constrain(v, ("batch", None, "heads", None))
     sk = k.shape[1]
-    # On a mesh each rank attends over its own batch rows and heads.
+    # On a mesh each rank attends over its own batch rows and heads (and
+    # takes its rows' positions and valid lengths).
+    if isinstance(q, DTensor):
+        lo, n = local_extent(q, 0)
+
+        def own_rows(t, row_dims):
+            if not isinstance(t, torch.Tensor) or t.dim() != row_dims:
+                return t
+            if isinstance(t, DTensor):
+                t = t.full_tensor()
+            return t[lo:lo + n]
+
+        q_pos, k_pos = own_rows(q_pos, 2), own_rows(k_pos, 2)
+        kv_len = own_rows(kv_len, 1)
     if (kv_len is not None or sk <= cfg.attn_blockwise_threshold
             or q.shape[1] == 1):
-        return shard_local(lambda q, k, v: full_attention(
+        return _on_rows_and_heads(lambda q, k, v: full_attention(
             q, k, v, q_pos, k_pos, causal=causal,
             window=cfg.sliding_window, kv_len=kv_len), q, k, v)
     from repro_torch.core.autotile import plan_attention
 
     plan = plan_attention(q.shape[1], sk, q.shape[-1], dtype_bytes=2)
-    return shard_local(lambda q, k, v: blockwise_attention(
+    return _on_rows_and_heads(lambda q, k, v: blockwise_attention(
         q, k, v, q_pos, k_pos, block_q=int(plan.block_q),
         block_kv=int(plan.block_kv), causal=causal,
         window=cfg.sliding_window), q, k, v)
+
+
+def _on_rows_and_heads(fn, q, k, v):
+    """``fn(q, k, v)`` -- attention, independent along batch rows and
+    heads -- on each rank's rows and heads of DTensors ``(B, S, H, D)``
+    placed as ``q`` is (``dist.sharding.local_rows_heads``): DTensor's
+    einsum decomposition would flatten two sharded dims, which some torch
+    versions refuse.  Off a mesh it is ``fn(q, k, v)``."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    return local_rows_heads(fn, [(q, 0, 2), (k, 0, 2), (v, 0, 2)], [(0, 2)],
+                            rows_heads_roles(q, 0, 2))
 
 
 def attention_block(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
@@ -604,28 +728,85 @@ def _pool_write_attend(q, k, v, k_pool, v_pool, layer: int,
 # ---------------------------------------------------------------------------
 
 
+class _VocabParallelTerms(torch.autograd.Function):
+    """Each token's ``(lse - logit[label], lse**2)`` from this rank's
+    vocab shard of the float32 logits ``(..., V_local)``, whose global
+    vocab offset is ``lo``: the max, the sum of exponentials and the
+    label's logit are each all-reduced over ``group`` (the mesh dim that
+    shards the vocab; None where it is whole).  The backward is the local
+    softmax times the terms' weights less the local one-hot: nothing of
+    full vocab width is made on any rank."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, lo, group):
+        import torch.distributed._functional_collectives as funcol
+
+        def reduce(t, op):
+            if group is None:
+                return t
+            return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+
+        n = lg.shape[-1]
+        m = reduce(lg.amax(dim=-1), "max")
+        lse = m + torch.log(reduce(torch.exp(lg - m[..., None]).sum(-1),
+                                   "sum"))
+        own = (labels >= lo) & (labels < lo + n)
+        idx = torch.where(own, labels - lo, 0)
+        ll = reduce(torch.where(own, lg.gather(-1, idx[..., None])[..., 0],
+                                0.0), "sum")
+        ctx.save_for_backward(lg, lse, own, idx)
+        return torch.stack([lse - ll, lse.square()], dim=-1)
+
+    @staticmethod
+    def backward(ctx, dt):
+        lg, lse, own, idx = ctx.saved_tensors
+        d_nll, d_sq = dt[..., 0], dt[..., 1]
+        grad = torch.exp(lg - lse[..., None]) \
+            * (d_nll + 2.0 * lse * d_sq)[..., None]
+        grad.scatter_add_(-1, idx[..., None],
+                          torch.where(own, -d_nll, 0.0)[..., None])
+        return grad, None, None, None
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        z_loss: float = 1e-4) -> torch.Tensor:
     """Mean token NLL in float32, plus ``z_loss`` times the mean squared
     log-sum-exp (the reference's control of logit drift).
 
-    On a mesh the vocab dim is gathered whole first (DTensor has no
-    sharded gather) and each rank computes its own tokens' terms on local
-    shards: DTensor's ``gather`` backward would allocate the whole global
-    logits' gradient on every rank."""
-    logits = constrain(logits.float(), ("batch", "seq", None))
+    On a mesh the logits keep their vocab shard over "model" (as the
+    reference's GSPMD keeps them) and each rank computes its own tokens'
+    terms from its vocab shard (``_VocabParallelTerms``): the log-sum-exp
+    and the label's logit are all-reduced over the vocab's mesh dim, and
+    no rank gathers the vocab or holds the global logits' gradient."""
+    logits = constrain(logits.float(), ("batch", "seq", "vocab"))
     if isinstance(logits, DTensor):
+        mesh = logits.device_mesh
+        v = logits.dim() - 1
+        place, group = [], None
+        for i, p in enumerate(logits.placements):
+            if isinstance(p, Shard) and p.dim == v:
+                place.append(p)
+                group = (mesh, i)
+            elif isinstance(p, Shard) and p.dim < v:
+                place.append(p)
+            else:
+                place.append(Replicate())
+        place = tuple(place)
+        if tuple(logits.placements) != place:
+            logits = logits.redistribute(mesh, place)
         if not isinstance(labels, DTensor):
-            labels = DTensor.from_local(
-                labels, logits.device_mesh,
-                [Replicate()] * logits.device_mesh.ndim, run_check=False)
-
-        def terms(lg, lb):
-            lse = torch.logsumexp(lg, dim=-1)
-            ll = lg.gather(-1, lb.long()[..., None])[..., 0]
-            return torch.stack([lse - ll, lse.square()], dim=-1)
-
-        t = shard_local(terms, logits, labels, dims=(0, 1))
+            labels = DTensor.from_local(labels, mesh,
+                                        [Replicate()] * mesh.ndim,
+                                        run_check=False)
+        lb_place = tuple(p if isinstance(p, Shard) and p.dim < v
+                         else Replicate() for p in place)
+        if tuple(labels.placements) != lb_place:
+            labels = labels.redistribute(mesh, lb_place)
+        lo, _ = local_extent(logits, v)
+        t = _VocabParallelTerms.apply(
+            logits.to_local(grad_placements=place),
+            labels.to_local().long(), lo, group)
+        t = from_local_like(t, mesh, lb_place, tuple(labels.shape) + (2,))
         loss = t[..., 0].mean()
         if z_loss:
             loss = loss + z_loss * t[..., 1].mean()

@@ -41,9 +41,11 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
-from repro_torch.dist.sharding import constrain
-from repro_torch.models.layers import rms_norm
+from repro_torch.dist.sharding import (active_rule, constrain,
+                                       local_rows_heads, rows_heads_roles)
+from repro_torch.models.layers import rms_norm, row_parallel
 from repro_torch.models.params import ParamSpec
 
 #: Chunks the tc body's planner chooses among.
@@ -309,7 +311,14 @@ def ssd_step(
     Cm: torch.Tensor,       # (B, N)
     state: torch.Tensor,    # (B, H, P, N) float32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decode step of the recurrence: ``(y (B, H, P), new_state)``."""
+    """One decode step of the recurrence: ``(y (B, H, P), new_state)``.
+    On a mesh it runs on local shards, rows and heads split as the
+    state's are (as ``_chunked_scan`` does)."""
+    if isinstance(state, DTensor):
+        return local_rows_heads(
+            ssd_step, [(x, 0, 1), (dt, 0, 1), (A, None, 0), (Bm, 0, None),
+                       (Cm, 0, None), (state, 0, 1)],
+            [(0, 1), (0, 1)], _scan_roles(x, state, 0, 1))
     dec = torch.exp(dt * A)                           # (B,H)
     upd = torch.einsum("bh,bhp,bn->bhpn", dt, x.float(), Bm.float())
     new_state = state * dec[..., None, None] + upd
@@ -317,12 +326,46 @@ def ssd_step(
     return y.to(x.dtype), new_state
 
 
+def _scan_roles(x: torch.Tensor, state: Optional[torch.Tensor],
+                row: int, head: int) -> Tuple[Optional[str], ...]:
+    """For each mesh dim of a mixer's DTensors, what it splits
+    (``local_rows_heads``' roles): as the state's rows and heads shard;
+    without a state, the batch rows where ``x``'s ``row`` dim shards and
+    the heads where the active rules map "state_heads" and the heads
+    divide."""
+    if isinstance(state, DTensor):
+        return rows_heads_roles(state, 0, 1)
+    mesh = x.device_mesh
+    axes = active_rule("state_heads")
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    return tuple(
+        "row" if isinstance(p, Shard) and p.dim == row
+        else "head" if name in axes and x.shape[head] % mesh.size(i) == 0
+        else None
+        for i, (name, p) in enumerate(zip(mesh.mesh_dim_names,
+                                          x.placements)))
+
+
 def _chunked_scan(x, dt, A, Bm, Cm, chunk: int,
                   init: Optional[torch.Tensor], plain: bool = False):
     """``ssd_chunked``'s function: the hand-written kernel for CUDA tensors
     (no fallback: it launches or raises), the plain port for CPU ones, and
     the plain port on any device when ``plain`` is asked for (the
-    differentiable training forward)."""
+    differentiable training forward).
+
+    On a mesh (DTensor arguments) the scan runs on local shards, as
+    ``models.layers._pool_write_attend`` runs the paged kernel: the batch
+    rows shard as the state's (the cache's slots) do and the heads as the
+    state's heads do, B and C (no head dim) replicate over the head axes,
+    and the kernel -- or ``ssd_chunked`` on the CPU -- gets this rank's
+    rows and heads as plain tensors; ``y`` and the final state come back
+    as DTensors placed alike."""
+    if isinstance(x, DTensor):
+        roles = _scan_roles(x, init, 0, 2)
+        return local_rows_heads(
+            lambda *t: _chunked_scan(*t[:5], chunk, t[5], plain),
+            [(x, 0, 2), (dt, 0, 2), (A, None, 0), (Bm, 0, None),
+             (Cm, 0, None), (init, 0, 1)], [(0, 2), (0, 1)], roles)
     if plain or x.device.type != "cuda":
         return ssd_chunked(x, dt, A, Bm, Cm, chunk, init)
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -359,9 +402,9 @@ def mamba2_block(
     b, s, d = hidden.shape
     d_inner = s_cfg.expand * d
     # On a mesh the residual stream may arrive as a partial sum over
-    # "model" (the previous mixer's row-parallel output); the scan
-    # multiplies B by C, so it is reduced here first (DTensor's einsum
-    # gave a wrong product of two partial sums when the batch was
+    # "model" (a row-parallel output that did not take the local route);
+    # the scan multiplies B by C, so it is reduced here first (DTensor's
+    # einsum gave a wrong product of two partial sums when the batch was
     # replicated).  The identity off a mesh.
     hidden = constrain(hidden, ("batch", "seq", "embed"))
     h = d_inner // s_cfg.head_dim
@@ -403,5 +446,5 @@ def mamba2_block(
     y = y + xh * params["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(b, s, d_inner)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = y @ params["out"].to(y.dtype)
+    out = row_parallel(y, params["out"].to(y.dtype))
     return out, new_cache

@@ -36,9 +36,12 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.sharding import local_rows_heads, rows_heads_roles
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.models.layers import NEG_INF, apply_rope, rms_norm
+from repro_torch.models.layers import (NEG_INF, apply_rope, rms_norm,
+                                       tp_matmul)
 from repro_torch.models.params import ParamSpec
 
 
@@ -73,16 +76,33 @@ def mla_param_specs(cfg, layers: int = 0) -> dict:
     return specs
 
 
+def _rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a down-projection with no tensor-parallel dim (the
+    compressed query's): on a mesh each rank takes its own rows with the
+    weight whole, since DTensor's propagation of the weight gradient's
+    product refuses the uneven strided token shards the backward brings
+    on a pod mesh."""
+    if not isinstance(x, DTensor):
+        return x @ w
+    return local_rows_heads(lambda x, w: x @ w,
+                            [(x, 0, None), (w, None, None)], [(0, None)],
+                            rows_heads_roles(x, 0, None))
+
+
 def _project_q(params: dict, x: torch.Tensor, cfg
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(q_nope (B,S,H,dn), q_rope (B,S,H,dr))``."""
     m = cfg.mla
     if m.q_lora_rank:
-        ql = rms_norm(x @ params["wq_a"].to(x.dtype), params["q_norm"],
-                      cfg.norm_eps)
-        q = torch.einsum("bsr,rhe->bshe", ql, params["wq_b"].to(x.dtype))
+        x = rms_norm(_rows_matmul(x, params["wq_a"].to(x.dtype)),
+                     params["q_norm"], cfg.norm_eps)
+        w = params["wq_b"].to(x.dtype)                     # (r, H, qk)
     else:
-        q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(x.dtype))
+        w = params["wq"].to(x.dtype)                       # (d, H, qk)
+    # One product over the flattened heads (einsum "bsr,rhe->bshe"): on a
+    # mesh a column-parallel matmul, whose backward DTensor propagates
+    # without the strided token shards its einsum decomposition made.
+    q = (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
     return q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
 
 
@@ -109,13 +129,27 @@ def mla_attention(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
         k_nope = torch.einsum("bsr,rhe->bshe", ckv,
                               params["wk_b"].to(x.dtype))
         v = torch.einsum("bsr,rhe->bshe", ckv, params["wv_b"].to(x.dtype))
-        logits = (torch.einsum("bqhe,bkhe->bhqk", q_nope, k_nope)
-                  + torch.einsum("bqhe,bke->bhqk", q_rope, k_rope)
-                  ).float() * scale
-        mask = q_pos[None, :] <= q_pos[:, None]
-        logits = logits.masked_fill(~mask, NEG_INF)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhqk,bkhe->bqhe", probs, v)      # (B,S,H,dv)
+
+        def attend(q_nope, k_nope, q_rope, k_rope, v):
+            logits = (torch.einsum("bqhe,bkhe->bhqk", q_nope, k_nope)
+                      + torch.einsum("bqhe,bke->bhqk", q_rope, k_rope)
+                      ).float() * scale
+            mask = q_pos[None, :] <= q_pos[:, None]
+            logits = logits.masked_fill(~mask, NEG_INF)
+            probs = torch.softmax(logits, dim=-1).to(x.dtype)
+            return torch.einsum("bhqk,bkhe->bqhe", probs, v)  # (B,S,H,dv)
+
+        if isinstance(q_nope, DTensor):
+            # On a mesh each rank attends over its own rows and heads (the
+            # shared rope key replicates over the heads' axes): DTensor's
+            # batched products of the flattened (batch, heads) refuse
+            # uneven strided shards.
+            out = local_rows_heads(
+                attend, [(q_nope, 0, 2), (k_nope, 0, 2), (q_rope, 0, 2),
+                         (k_rope, 0, None), (v, 0, 2)], [(0, 2)],
+                rows_heads_roles(q_nope, 0, 2))
+        else:
+            out = attend(q_nope, k_nope, q_rope, k_rope, v)
     else:                                                    # absorbed
         idx = int(cache["len"])
         s = x.shape[1]
@@ -126,17 +160,37 @@ def mla_attention(params: dict, x: torch.Tensor, q_pos: torch.Tensor,
         kr_all = cache["krope"].to(x.dtype)                  # (B,W,dr)
         q_lat = torch.einsum("bqhe,rhe->bqhr", q_nope,
                              params["wk_b"].to(x.dtype))
-        logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_all)
-                  + torch.einsum("bqhe,bke->bhqk", q_rope, kr_all)
-                  ).float() * scale
         k_pos = torch.arange(ckv_all.shape[1], device=x.device)
         mask = (k_pos[None, :] <= q_pos[:, None]) & (k_pos < idx + s)[None]
-        logits = logits.masked_fill(~mask, NEG_INF)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        o_lat = torch.einsum("bhqk,bkr->bqhr", probs, ckv_all)
+
+        def attend_latent(q_lat, ckv_all, q_rope, kr_all):
+            logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_all)
+                      + torch.einsum("bqhe,bke->bhqk", q_rope, kr_all)
+                      ).float() * scale
+            logits = logits.masked_fill(~mask, NEG_INF)
+            probs = torch.softmax(logits, dim=-1).to(x.dtype)
+            return torch.einsum("bhqk,bkr->bqhr", probs, ckv_all)
+
+        if isinstance(q_lat, DTensor):
+            # As the expanded form: each rank's rows and heads, the shared
+            # latent rows replicated over the heads' axes.
+            o_lat = local_rows_heads(
+                attend_latent, [(q_lat, 0, 2), (ckv_all, 0, None),
+                                (q_rope, 0, 2), (kr_all, 0, None)],
+                [(0, 2)], rows_heads_roles(q_lat, 0, 2))
+        else:
+            o_lat = attend_latent(q_lat, ckv_all, q_rope, kr_all)
         out = torch.einsum("bqhr,rhe->bqhe", o_lat,
                            params["wv_b"].to(x.dtype))
-    return torch.einsum("bqhe,hed->bqd", out, params["wo"].to(x.dtype))
+    return _out_proj(out, params["wo"].to(x.dtype))
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bqhe,hed->bqd", out, wo)`` as the row-parallel product of
+    the flattened heads (``layers.tp_matmul``): on a mesh it runs on local
+    shards."""
+    b, s, h, e = out.shape
+    return tp_matmul(out.reshape(b, s, h * e), wo.reshape(h * e, -1), "row")
 
 
 def _mla_latent_row(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -166,7 +220,7 @@ def _mla_latent_row(params: dict, x: torch.Tensor, positions: torch.Tensor,
 def _mla_out(params: dict, o_lat: torch.Tensor, x_dtype) -> torch.Tensor:
     """Latent kernel output (...,H,R) -> d_model via wv_b, then wo."""
     out = torch.einsum("bqhr,rhe->bqhe", o_lat, params["wv_b"].to(x_dtype))
-    return torch.einsum("bqhe,hed->bqd", out, params["wo"].to(x_dtype))
+    return _out_proj(out, params["wo"].to(x_dtype))
 
 
 def _write_rows(lat_pool: torch.Tensor, layer: int, table_rows: torch.Tensor,

@@ -63,11 +63,13 @@ from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
-from repro_torch.dist.sharding import constrain, split_heads
+from repro_torch.dist.sharding import (constrain, local_rows_heads,
+                                       read_rows, split_heads, write_rows)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
@@ -629,8 +631,27 @@ class Model:
         b, se = enc.shape[0], enc.shape[1]
         cp = params["dec_layers"]["cross"]
         shape = (-1, b, se, cfg.n_kv_heads, cfg.head_dim)
-        k = enc[None] @ cp["wk"].to(enc.dtype)[:, None]
-        v = enc[None] @ cp["wv"].to(enc.dtype)[:, None]
+        wk, wv = cp["wk"].to(enc.dtype), cp["wv"].to(enc.dtype)
+
+        def project(enc, wk, wv):
+            return enc[None] @ wk[:, None], enc[None] @ wv[:, None]
+
+        if isinstance(enc, DTensor):
+            # On a mesh each rank projects its own rows onto its KV heads'
+            # columns (where the heads divide the axis: the result is then
+            # viewed as heads): DTensor's batched product of the flattened
+            # (layers, batch) dims refuses the strided shard it makes.
+            mesh = enc.device_mesh
+            k, v = local_rows_heads(
+                project, [(enc, 0, None), (wk, None, 2), (wv, None, 2)],
+                [(1, 3), (1, 3)],
+                tuple("row" if isinstance(p, Shard) and p.dim == 0
+                      else "head" if isinstance(q, Shard) and q.dim == 2
+                      and cfg.n_kv_heads % mesh.size(i) == 0 else None
+                      for i, (p, q) in enumerate(zip(enc.placements,
+                                                     wk.placements))))
+        else:
+            k, v = project(enc, wk, wv)
         return k.reshape(shape), v.reshape(shape)
 
     def encode_cross(self, params: PyTree, batch: Dict[str, torch.Tensor],
@@ -848,8 +869,14 @@ class Model:
                 ap, h, positions, cfg, kp, vp, i, table_row)
 
         def rows(group, i):
-            return {k: buf[i, slot:slot + 1]
-                    for k, buf in cache["state"][group].items()}
+            bufs = {k: buf[i] for k, buf in cache["state"][group].items()}
+            if not any(isinstance(b, DTensor) for b in bufs.values()):
+                return {k: b[slot:slot + 1] for k, b in bufs.items()}
+            # On a mesh the slot axis may shard over the data axes: the
+            # slot's rows are read off the local shards and written back
+            # through them.
+            return _SlotRows({k: read_rows(b, 0, [slot])
+                              for k, b in bufs.items()}, bufs, slot)
 
         st, one = cache["state"], slice(slot, slot + 1)
         cross = (self._cross_hook(st["cross_k"][:, one], st["cross_v"][:, one],
@@ -860,7 +887,21 @@ class Model:
         return logits[:, -1], dict(cache)
 
 
+class _SlotRows(dict):
+    """One slot's state rows read off mesh-sharded buffers (copies, not
+    views): ``_write_back`` writes a block's new state into the buffers
+    through their local shards (``dist.sharding.write_rows``)."""
+
+    def __init__(self, rows: dict, bufs: dict, slot: int):
+        super().__init__(rows)
+        self.bufs, self.slot = bufs, slot
+
+
 def _write_back(rows: dict, new: dict) -> None:
     """A block's new state into its cache rows (views), in place."""
+    if isinstance(rows, _SlotRows):
+        for k, buf in rows.bufs.items():
+            write_rows(buf, 0, [rows.slot], new[k])
+        return
     for k, buf in rows.items():
         buf.copy_(new[k])

@@ -26,6 +26,7 @@ from repro_torch.dist.sharding import constrain, replicated_region, \
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mamba2 import causal_conv1d
 from repro_torch.models.params import ParamSpec
+from repro_torch.roofline.ops import loop
 
 NEG = -1e30
 
@@ -83,8 +84,7 @@ def mlstm_chunkwise(
         C, n, m = state
     tri = torch.tril(torch.ones(qs, qs, dtype=torch.bool, device=q.device))
 
-    outs = []
-    for c in range(nc):
+    def chunk_step(c, qc, kc, vc, bcum, ic, C, n, m):
         qq, kk, vv = qc[:, c], kc[:, c], vc[:, c]       # (B, H, Q, D)
         bb, ii = bcum[:, c], ic[:, c]                   # (B, H, Q)
         # Intra-chunk log weights D_ij = b_i - b_j + i_j (j <= i).
@@ -94,7 +94,6 @@ def mlstm_chunkwise(
         inter_log = bb + m[..., None]
         m_new = torch.maximum(dlog.amax(-1), inter_log)
         m_new = torch.maximum(m_new, -m_new * 0 - 50.0)  # floor
-
         sc = (qq @ kk.transpose(-1, -2)) * scale
         w = torch.exp(dlog - m_new[..., None]) * sc     # (B, H, Q, Q)
         num = w @ vv
@@ -103,9 +102,7 @@ def mlstm_chunkwise(
         q32 = qq * scale
         num = num + (q32 @ C) * inter_w[..., None]
         den = den + (q32 @ n[..., None])[..., 0] * inter_w
-        outs.append(num / torch.maximum(den.abs(),
-                                        torch.exp(-m_new))[..., None])
-
+        out = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
         # The state at the chunk's end.
         btot = bb[..., -1:]                             # (B, H, 1)
         m_end = torch.maximum(btot[..., 0] + m, (btot - bb + ii).amax(-1))
@@ -114,7 +111,11 @@ def mlstm_chunkwise(
         kws = kk * kw[..., None]
         C = C * decay[..., None, None] + kws.transpose(-1, -2) @ vv
         n = n * decay[..., None] + kws.sum(-2)
-        m = m_end
+        return out, C, n, m_end
+
+    # The chunk loop runs through ``roofline.ops.loop``, which a dry
+    # run's trace of a long prompt samples.
+    outs, (C, n, m) = loop(nc, chunk_step, (qc, kc, vc, bcum, ic), (C, n, m))
     hs = torch.stack(outs, 1)                           # (B, nc, H, Q, D)
     out = hs.movedim(2, 3).reshape(b, nc * qs, h, d)[:, :s]
     return out.to(q.dtype), (C, n, m)
@@ -163,8 +164,8 @@ def slstm_scan(
     c, n, hprev, m = state
     r32 = R.float()
     g_all = gx.float()
-    hs = []
-    for t in range(gx.shape[1]):
+
+    def token_step(t, g_all, r32, c, n, hprev, m):
         g = g_all[:, t] + torch.einsum("bhd,hdge->bhge", hprev, r32)
         z_pre, i_pre, f_pre, o_pre = g.unbind(2)
         logf = F.logsigmoid(f_pre)
@@ -174,8 +175,12 @@ def slstm_scan(
         c = fw * c + iw * torch.tanh(z_pre)
         n = fw * n + iw
         hprev = torch.sigmoid(o_pre) * c / n.clamp_min(1e-6)
-        m = m_new
-        hs.append(hprev)
+        return hprev, c, n, hprev, m_new
+
+    # The token loop runs through ``roofline.ops.loop``, which a dry
+    # run's trace of a long prompt samples.
+    hs, (c, n, hprev, m) = loop(gx.shape[1], token_step, (g_all, r32),
+                                (c, n, hprev, m))
     return torch.stack(hs, 1), (c, n, hprev, m)
 
 

@@ -8,7 +8,7 @@ back (``NotImplemented``) to DTensor, which runs it as local ops and
 collectives that the mode then sees.  So every op is counted once, at its
 local size, which is what the reference's per-device HLO counts (torch's
 ``FlopCounterMode`` over DTensors counts the DTensor-level ops at their
-global sizes and the ``shard_local`` regions at their local ones).  It
+global sizes and the regions run on local shards at their local ones).  It
 works under ``FakeTensorMode`` (no storage) and on real tensors alike.
 
 Three quantities, per rank, as ``OpSummary``:
@@ -29,16 +29,22 @@ Three quantities, per rank, as ``OpSummary``:
     collective-permute (``dist.overlap`` books them through
     ``book_collective``: P2P is not a dispatcher op).
 
-The reference's ``loop_trip_counts`` has no counterpart: eager execution
-runs every trip of every loop, so nothing is counted once for many.
+Eager execution runs every trip of every loop.  Where a step's loops run
+too many trips to trace whole (the dry run's long prefills: blockwise
+attention's block pairs, the xLSTM's tokens and chunks), the dry run turns
+on ``sampling_loops``: each loop run through ``loop`` then runs its first,
+second and last trips, the second counted -- forward and backward -- for
+every middle one (the counterpart of the reference's ``loop_trip_counts``,
+which multiplies a ``lax.scan`` body traced once).
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+from functools import partial
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -82,13 +88,16 @@ _FREE = {"wait_tensor", "detach", "_to_copy_meta", "lift_fresh",
 class OpSummary:
     """``HLOSummary``'s fields for an eager step: per-rank ``flops``,
     ``hbm_bytes``, ``collective_bytes`` keyed by the five collective
-    names, and ``n_collective_ops``."""
+    names, and ``n_collective_ops``; ``collectives`` records each
+    dispatcher collective as ``(name, operand shapes)``."""
 
     flops: float = 0.0
     hbm_bytes: float = 0.0
     collective_bytes: Dict[str, float] = field(
         default_factory=lambda: {k: 0.0 for k in COLLECTIVES})
     flops_by_op: Dict[str, float] = field(default_factory=dict)
+    collectives: List[Tuple[str, List[Tuple[int, ...]]]] = field(
+        default_factory=list)
     n_collective_ops: int = 0
     n_ops: int = 0
 
@@ -122,8 +131,114 @@ def book_collective(kind: str, nbytes: int) -> None:
     analysis running in this thread; a no-op without one."""
     counter = getattr(_ACTIVE, "counter", None)
     if counter is not None and not counter.suppress:
-        counter.summary.collective_bytes[kind] += float(nbytes)
+        counter.summary.collective_bytes[kind] += counter.weight * nbytes
         counter.summary.n_collective_ops += 1
+
+
+@contextlib.contextmanager
+def counted_as(n: float):
+    """Count every op of the block ``n`` times (nested blocks multiply);
+    a no-op without an analysis running in this thread."""
+    counter = getattr(_ACTIVE, "counter", None)
+    if counter is None:
+        yield
+        return
+    prev = counter.weight
+    counter.weight = prev * n
+    try:
+        yield
+    finally:
+        counter.weight = prev
+
+
+@contextlib.contextmanager
+def _uncounted():
+    counter = getattr(_ACTIVE, "counter", None)
+    if counter is not None:
+        counter.suppress += 1
+    try:
+        yield
+    finally:
+        if counter is not None:
+            counter.suppress -= 1
+
+
+@contextlib.contextmanager
+def sampling_loops(on: bool = True):
+    """Within the block (and this thread), loops run through ``loop`` run
+    three trips -- the first, the second counted for every middle one,
+    and the last -- where they have more.  Only for counting: the
+    skipped trips' outputs keep their shapes, not their values."""
+    prev = getattr(_ACTIVE, "sampling", False)
+    _ACTIVE.sampling = bool(on)
+    try:
+        yield
+    finally:
+        _ACTIVE.sampling = prev
+
+
+class _SampledTrip(torch.autograd.Function):
+    """``fn(*args)`` -- one middle trip of a loop -- run once and counted
+    ``n`` times, forward and backward, with ``n - 1`` more accumulations
+    of each ``shared`` argument's gradient (``n`` trips add up their
+    gradients of an argument every trip reads whole).  The backward
+    recomputes the trip uncounted, as a checkpoint does."""
+
+    @staticmethod
+    def forward(ctx, fn, n, shared, *args):
+        ctx.fn, ctx.n, ctx.shared = fn, n, shared
+        ctx.save_for_backward(*args)
+        with counted_as(n):
+            return fn(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with torch.enable_grad():
+            ins = [a.detach().requires_grad_(a.requires_grad)
+                   for a in ctx.saved_tensors]
+            with _uncounted():
+                outs = ctx.fn(*ins)
+            pairs = [(o, g) for o, g in zip(outs, grads)
+                     if g is not None and o.requires_grad]
+            want = [i for i in ins if i.requires_grad]
+            with counted_as(ctx.n):
+                got = iter(torch.autograd.grad(
+                    [o for o, _ in pairs], want, [g for _, g in pairs],
+                    allow_unused=True))
+        out = [next(got) if i.requires_grad else None for i in ins]
+        with counted_as(ctx.n - 1):
+            for j in ctx.shared:
+                if out[j] is not None:
+                    out[j] + out[j]
+        return (None, None, None) + tuple(out)
+
+
+def loop(n: int, step, shared: tuple, carry: tuple):
+    """``for t in range(n): y, *carry = step(t, *shared, *carry)``:
+    returns ``([y_0, ..., y_{n-1}], carry)``.  ``shared`` are the
+    tensors every trip reads whole (slicing its own part), ``carry`` what
+    each trip hands the next.  Under ``sampling_loops`` a loop of more
+    than three trips runs the first, the second and the last: the second
+    stands for all the middle ones, its ops -- forward and backward --
+    counted ``n - 2`` times (``_SampledTrip``), and its ``y`` repeated
+    for theirs."""
+    sample = getattr(_ACTIVE, "sampling", False) and n > 3
+    trips = [(0, 1), (1, n - 2), (n - 1, 1)] if sample else \
+        [(t, 1) for t in range(n)]
+    ys = []
+    for t, w in trips:
+        args = tuple(shared) + tuple(carry)
+        if w > 1 and torch.is_grad_enabled() and any(
+                a.requires_grad for a in args):
+            out = _SampledTrip.apply(partial(step, t), w,
+                                     tuple(range(len(shared))), *args)
+        else:
+            with counted_as(w):
+                out = step(t, *args)
+        if out[0] is not None:
+            ys += [out[0]] + [out[0].detach()] * (w - 1)
+        carry = tuple(out[1:])
+    return ys, carry
 
 
 class _OpCounter(TorchDispatchMode):
@@ -133,6 +248,7 @@ class _OpCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.summary = OpSummary()
+        self.weight = 1.0
         self.suppress = 0
         self.propagating = 0
         from torch.utils.flop_counter import flop_registry
@@ -151,22 +267,23 @@ class _OpCounter(TorchDispatchMode):
         return out
 
     def _count(self, func, args, kwargs, out) -> None:
-        s = self.summary
+        s, wt = self.summary, self.weight
         name = func._overloadpacket.__name__
         s.n_ops += 1
         kind = _COLLECTIVE_OPS.get(name)
         if kind is not None:
-            s.collective_bytes[kind] += float(sum(
-                _nbytes(t) for t in _tensors(args[:1])))
+            ins = _tensors(args[:1])
+            s.collective_bytes[kind] += wt * sum(_nbytes(t) for t in ins)
             s.n_collective_ops += 1
+            s.collectives.append((kind, [tuple(t.shape) for t in ins]))
             return
         f = self._flops.get(func._overloadpacket)
         if f is not None:
-            n = float(f(*args, **kwargs, out_val=out))
+            n = wt * float(f(*args, **kwargs, out_val=out))
             s.flops += n
             s.flops_by_op[name] = s.flops_by_op.get(name, 0.0) + n
-        if name in _FREE or func.is_view:
-            return
+        if name in _FREE or func.is_view or func.namespace == "prim":
+            return                      # prim ops read metadata only
         if name in _UPDATES:
             src = _UPDATES[name]
             others = [t for i, a in enumerate(args) if i != 0
@@ -177,10 +294,10 @@ class _OpCounter(TorchDispatchMode):
                       else _nbytes(args[0]))
             if name == "copy_":
                 region = args[0].numel() * args[0].element_size()
-            s.hbm_bytes += float(sum(_nbytes(t) for t in others) + region)
+            s.hbm_bytes += wt * (sum(_nbytes(t) for t in others) + region)
             return
         ins = _tensors(args) + _tensors(kwargs)
-        s.hbm_bytes += float(sum(_nbytes(t) for t in ins)
+        s.hbm_bytes += wt * (sum(_nbytes(t) for t in ins)
                              + sum(_nbytes(t) for t in _tensors(out)))
 
 

@@ -316,18 +316,23 @@ class ServeEngine:
     table, sampling -- is the same on every rank, which samples the same
     tokens from the logits gathered whole.  ``mesh=None`` is the meshless
     engine, the reference's one-device host mesh.  On a mesh the engine
-    serves the families ``MESH_FAMILIES`` names for its batching, without
-    the radix prefix cache.
+    serves the families ``MESH_FAMILIES`` names for its batching -- every
+    family cohort, every family but mla_moe paged -- without the radix
+    prefix cache.  The per-slot state rows of the paged engine (slots
+    over the data axes, heads over "model") are reset, saved and restored
+    through each rank's own shard.
     """
 
-    #: Families each batching serves on a mesh.  Off the list: the paged
-    #: path of the families with per-slot state rows (hybrid_ssm, xlstm,
-    #: enc_dec) or a latent pool (mla_moe), and hybrid_ssm whole (its
-    #: serving scan is the ``ssd_scan`` kernel, which has no route to
-    #: local shards yet).
-    MESH_FAMILIES = {"paged": ("dense", "moe"),
+    #: Families each batching serves on a mesh.  The per-slot state rows
+    #: (xLSTM and Mamba2 state, enc_dec's cross K/V) are read and written
+    #: through each rank's local shard (``serve.pages.slot_rows``), and
+    #: hybrid_ssm's scan and step run on local shards (``models.mamba2``:
+    #: the ``ssd_scan`` kernel on the card).  Off the list: the paged path
+    #: of mla_moe, whose latent pool has no local-shard route yet.
+    MESH_FAMILIES = {"paged": ("dense", "moe", "xlstm", "enc_dec",
+                               "hybrid_ssm"),
                      "cohort": ("dense", "moe", "vlm", "mla_moe", "xlstm",
-                                "enc_dec")}
+                                "enc_dec", "hybrid_ssm")}
 
     #: Ring-buffer bounds: the tracer's event ring, the interleave log and
     #: each request's token-time log cap here (overflow drops the oldest).

@@ -39,8 +39,10 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import read_rows, write_rows
 from repro_torch.serve.kvcache import PageSpec, attn_apps
 from repro_torch.serve.scheduler import Request
 
@@ -482,7 +484,14 @@ def reset_slot(cfg: ModelConfig, cache: PyTree, slot: int,
     if cfg.family == "enc_dec":
         state = cache["state"]
         for name, src in zip(("cross_k", "cross_v"), cross_kv):
-            row = slot_rows(state[name], slot)        # (nd, Se_max, KV, D)
+            buf = state[name]
+            if isinstance(buf, DTensor):
+                # The whole row, zero past Se, through the local shards.
+                row = src.new_zeros((buf.shape[0],) + tuple(buf.shape[2:]))
+                row[:, :src.shape[2]] = src[:, 0]
+                set_slot_rows(buf, slot, row)
+                continue
+            row = slot_rows(buf, slot)                # (nd, Se_max, KV, D)
             row[:, :src.shape[2]] = src[:, 0]
             row[:, src.shape[2]:] = 0
         set_slot_rows(state["enc_len"], slot, enc_len)
@@ -493,15 +502,24 @@ def slot_rows(buf: torch.Tensor, slots) -> torch.Tensor:
     """The rows of ``slots`` (an index or an index tensor) in a per-slot
     state buffer: the slot is axis 1 of a layer-stacked buffer (two or
     more dims) and axis 0 of a per-slot vector, as the reference's engine
-    takes it."""
-    return buf[:, slots] if buf.dim() >= 2 else buf[slots]
+    takes it.  On a mesh (``buf`` a DTensor whose slot axis may shard over
+    the data axes) the rows come off the local shards, replicated over the
+    slot axis (``dist.sharding.read_rows``): a copy, not a view."""
+    dim = 1 if buf.dim() >= 2 else 0
+    if isinstance(buf, DTensor):
+        return read_rows(buf, dim, slots)
+    return buf[:, slots] if dim else buf[slots]
 
 
 def set_slot_rows(buf: torch.Tensor, slots, value) -> None:
     """Write ``value`` (a tensor or a scalar) into the rows of ``slots`` of
     a per-slot state buffer (the axis as in ``slot_rows``), in place, cast
-    to its dtype."""
-    if buf.dim() >= 2:
+    to its dtype; on a mesh each rank writes the rows its shard holds
+    (``dist.sharding.write_rows``)."""
+    dim = 1 if buf.dim() >= 2 else 0
+    if isinstance(buf, DTensor):
+        write_rows(buf, dim, slots, value)
+    elif dim:
         buf[:, slots] = value
     else:
         buf[slots] = value

@@ -25,10 +25,16 @@
     (``cache_seq_sharded=True``) give the reference's logits at 1e-5
     (float32), prefill and three decode steps.
   * The other families the mesh engine admits (mixtral paged and cohort;
-    the cohort engine of qwen2-vl, whisper, deepseek-v2 and xlstm) give
-    the greedy tokens of the meshless engine and of the reference's engine
-    on a (2, 2) host mesh, on the same 4-rank world shape and the same
-    weights and prompts; the rest is refused with ``NotImplementedError``.
+    the cohort engine of qwen2-vl, whisper, deepseek-v2 and xlstm; the
+    paged engine of xlstm and whisper; zamba2 paged and cohort) give the
+    greedy tokens of the meshless engine and of the reference's engine on
+    a (2, 2) host mesh, on the same 4-rank world shape and the same
+    weights and prompts.  The paged engine's per-slot state buffers shard
+    on each rank (their rows reached through local shards), zamba2's scan
+    runs on local tensors, and a zamba2 slot that stalls under a
+    three-page pool resumes on its saved state with the tokens of both
+    engines.  Paged mla_moe and the prefix cache are refused with
+    ``NotImplementedError``.
     zamba2's training forward on (2, 2) equals the reference's forward on
     a (2, 2) ``jax.sharding.Mesh`` and the meshless one at 2e-4.
 """
@@ -323,9 +329,22 @@ def test_seq_sharded_steps_match_reference(world):
 #: The other families ``ServeEngine.MESH_FAMILIES`` admits on a mesh.
 FAMILY_CASES = [("mixtral-8x7b", "paged"), ("mixtral-8x7b", "cohort"),
                 ("qwen2-vl-7b", "cohort"), ("whisper-large-v3", "cohort"),
-                ("deepseek-v2-236b", "cohort"), ("xlstm-1.3b", "cohort")]
+                ("deepseek-v2-236b", "cohort"), ("xlstm-1.3b", "cohort"),
+                ("xlstm-1.3b", "paged"), ("whisper-large-v3", "paged"),
+                ("zamba2-1.2b", "cohort"), ("zamba2-1.2b", "paged")]
+#: The cases whose per-slot state rows (or whose Mamba2 scan) a mesh
+#: reaches through local shards.
+STATE_CASES = FAMILY_CASES[-4:]
 HYBRID = "zamba2-1.2b"
 HYBRID_BATCHES = (1, 2)
+#: zamba2 paged under a pool of three 16-token pages (16 KiB of shared
+#: memory plans 16-token pages on (2, 2) and in the reference alike): the
+#: younger slot stalls, riding through decode ticks with its Mamba2 state
+#: saved and restored around each, and resumes when the older one ends
+#: (``tests/test_torch_serve_hybrid.py``'s resuming trace).
+STALL = {"key": "stall", "max_len": 64, "max_slots": 2,
+         "kv_budget_bytes": 3 * 16 * 1024, "smem": LEAF, "news": [12, 24]}
+STALL_CASE = (HYBRID, "paged", STALL)
 
 _REF_FAMILIES = textwrap.dedent("""
     import os, sys, json, dataclasses
@@ -337,6 +356,7 @@ _REF_FAMILIES = textwrap.dedent("""
     from repro.configs import get_model_config
     from repro.dist.sharding import (arch_rules, param_shardings,
                                      use_mesh_rules, with_batch_guard)
+    from repro.hw.tpu import chip_spec
     from repro.models.model import build_model
     from repro.serve import ServeEngine, ServePolicy
 
@@ -368,22 +388,48 @@ _REF_FAMILIES = textwrap.dedent("""
         eng._steps = steps
         return eng
 
-    out = {"tokens": []}
-    for arch, batching in cases:
+    def placed_cache(eng):
+        # The paged enc_dec engine installs the encoder's cross K/V as the
+        # encoder left them (heads over "model"), which its jitted steps
+        # refuse against their replicated in_sharding; placed first, jit
+        # takes them.
+        make = eng._paged_steps
+        def steps(*args, **kw):
+            ss = make(*args, **kw)
+            def placed(step):
+                return lambda p, c, *a: step(
+                    p, jax.device_put(c, ss.cache_sharding), *a)
+            return dataclasses.replace(
+                ss, decode=placed(ss.decode),
+                prefill_chunk=placed(ss.prefill_chunk))
+        eng._paged_steps = steps
+        return eng
+
+    out = {"tokens": [], "stalls": []}
+    for case in cases:
+        arch, batching = case[:2]
+        opts = case[2] if len(case) > 2 else {}
+        key = opts.get("key", arch)
         cfg = get_model_config(arch).reduced()
         n = len({k.split("/")[2] for k in d
-                 if k.startswith(arch + "/prompt/")})
+                 if k.startswith(key + "/prompt/")})
         prompts = [{k.split("/")[3]: v for k, v in d.items()
-                    if k.startswith(f"{arch}/prompt/{i}/")}
+                    if k.startswith(f"{key}/prompt/{i}/")}
                    for i in range(n)]
         prompts = [p["tokens"] if list(p) == ["tokens"] else p
                    for p in prompts]
+        spec = (chip_spec(vmem_bytes=opts["smem"], vmem_reserved_bytes=0)
+                if "smem" in opts else None)
         eng = ServeEngine(cfg, mesh, policy=ServePolicy(
-            max_new_tokens=4, max_len=64, max_slots=4, batching=batching),
-            params=nested(arch + "/p/"))
-        eng = _synchronous(eng) if batching == "paged" \
+            max_new_tokens=4, max_len=opts.get("max_len", 64),
+            max_slots=opts.get("max_slots", 4), batching=batching,
+            kv_budget_bytes=opts.get("kv_budget_bytes")),
+            params=nested(arch + "/p/"), spec=spec)
+        eng = _synchronous(placed_cache(eng)) if batching == "paged" \
             else host_decode_batch(eng)
-        out["tokens"].append(eng.generate(prompts))
+        out["tokens"].append(eng.generate(prompts,
+                                          max_new_tokens=opts.get("news")))
+        out["stalls"].append(eng.metrics["stalls"])
 
     arch = sys.argv[3]
     cfg = get_model_config(arch).reduced()
@@ -423,6 +469,13 @@ def _family_prompts(arch: str) -> list:
             for n in (8, 12, 8, 5)]
 
 
+def _stall_prompts() -> list:
+    cfg = get_model_config(HYBRID).reduced()
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, cfg.vocab_size, 8, dtype=np.int32)
+            for _ in range(2)]
+
+
 def _hybrid_tokens(batch: int) -> np.ndarray:
     cfg = get_model_config(HYBRID).reduced()
     return np.random.default_rng(2).integers(0, cfg.vocab_size, (batch, 12))
@@ -436,8 +489,10 @@ def families(tmp_path_factory):
     reference's zamba2 forward on that mesh."""
     tmp = tmp_path_factory.mktemp("serve_mesh_families")
     prompts = {arch: _family_prompts(arch) for arch, _ in FAMILY_CASES}
+    prompts["stall"] = _stall_prompts()
+    cases = FAMILY_CASES + [STALL_CASE]
     flat = {}
-    for arch in list(prompts) + [HYBRID]:
+    for arch in dict.fromkeys(arch for arch, _ in FAMILY_CASES):
         cfg = get_model_config(arch).reduced()
         for k, v in tree_flatten_with_paths(
                 Model(cfg).init(0, "cpu", torch.float32)).items():
@@ -455,12 +510,12 @@ def families(tmp_path_factory):
            "REPRO_CALIBRATION": str(tmp / "none.json")}
     proc = subprocess.Popen(
         [sys.executable, "-c", _REF_FAMILIES, inputs,
-         json.dumps(FAMILY_CASES), HYBRID, os.path.join(REPO, "tests"),
+         json.dumps(cases), HYBRID, os.path.join(REPO, "tests"),
          json.dumps(HYBRID_BATCHES)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     try:
         ranks = spawn_world(W.serve_families_world, 4,
-                            str(tmp / "store"), args=(FAMILY_CASES, prompts),
+                            str(tmp / "store"), args=(cases, prompts),
                             timeout_s=400)
     finally:
         out, err = proc.communicate(timeout=600)
@@ -469,9 +524,10 @@ def families(tmp_path_factory):
 
 
 def test_other_families_on_mesh_match_meshless(families):
-    """moe (mixtral: its window and expert dispatch), paged and cohort, and
-    the cohort engine of vlm, enc_dec, mla_moe and xlstm on 4 gloo ranks
-    at (2, 2): the greedy tokens of the meshless engine and of the
+    """moe (mixtral: its window and expert dispatch), paged and cohort, the
+    cohort engine of vlm, enc_dec, mla_moe and xlstm, the paged engine of
+    xlstm and enc_dec, and hybrid_ssm paged and cohort on 4 gloo ranks at
+    (2, 2): the greedy tokens of the meshless engine and of the
     reference's engine on a (2, 2) host mesh, on the same seeded
     weights."""
     prompts, ranks, ref = families
@@ -483,7 +539,67 @@ def test_other_families_on_mesh_match_meshless(families):
                            device="cpu").generate(prompts[arch])
         assert want == ref["tokens"][i], (arch, batching)
         for rank in ranks:
-            assert rank[i] == want, (arch, batching)
+            assert rank[i]["tokens"] == want, (arch, batching)
+
+
+@pytest.mark.parametrize("case", STATE_CASES,
+                         ids=["-".join(c) for c in STATE_CASES])
+def test_state_rows_and_scan_on_local_shards(families, case):
+    """The new mesh cases reach their state through local shards: the
+    paged engine's recurrent state buffers shard their slots over "data"
+    (and enc_dec's cross K/V stay whole, as its plan's ``kv_shard`` of 1
+    lays them out), so the admission reset, the chunks' rows and the
+    frozen slots' save and restore wrote each rank's own shard; zamba2's
+    scan ran on local tensors only, and its one-token step was handed on
+    from DTensors to local ones."""
+    _, ranks, _ = families
+    i = FAMILY_CASES.index(case)
+    arch, batching = case
+    for rank in ranks:
+        got = rank[i]
+        if batching == "paged":
+            assert got["state"]
+            for k, (g, l) in got["state"].items():
+                if arch == "whisper-large-v3":
+                    assert l == g, (k, g, l)
+                else:
+                    assert l[1] == g[1] // 2, (k, g, l)   # slots over data
+        if arch == HYBRID:
+            calls = got["calls"]
+            assert calls.get("scan/local", 0) >= 1
+            assert calls.get("scan/dtensor", 0) == 0
+            assert calls.get("step/local", 0) >= \
+                calls.get("step/dtensor", 0) >= 1
+
+
+def test_stalled_hybrid_slot_on_mesh(families):
+    """zamba2 paged under a three-page pool on (2, 2): the younger slot
+    stalls, its Mamba2 state rows saved and restored through the local
+    shards around each tick it rides through, and the greedy tokens equal
+    the meshless engine's under the same pool, the unconstrained
+    engine's, and the reference's engine on a (2, 2) host mesh."""
+    prompts, ranks, ref = families
+    cfg = get_model_config(HYBRID).reduced()
+    params = Model(cfg).init(0, "cpu", torch.float32)
+    spec = h100_spec(smem_bytes=LEAF)
+    news = STALL["news"]
+
+    def engine(budget):
+        return ServeEngine(cfg, ServePolicy(
+            max_new_tokens=4, max_len=STALL["max_len"],
+            max_slots=STALL["max_slots"], batching="paged",
+            kv_budget_bytes=budget), params=params, spec=spec,
+            device="cpu")
+
+    tight = engine(STALL["kv_budget_bytes"])
+    want = tight.generate(prompts["stall"], max_new_tokens=news)
+    assert tight.metrics["stalls"] >= 1
+    assert engine(None).generate(prompts["stall"],
+                                 max_new_tokens=news) == want
+    assert ref["tokens"][-1] == want and ref["stalls"][-1] >= 1
+    for rank in ranks:
+        assert rank[-1]["tokens"] == want
+        assert rank[-1]["stalls"] >= 1
 
 
 @pytest.mark.parametrize("batch", HYBRID_BATCHES)
@@ -512,13 +628,12 @@ def test_hybrid_forward_with_replicated_batch(families, tmp_path, batch):
 
 
 def test_mesh_engine_refuses_what_it_does_not_serve():
+    """Still refused on a mesh: paged mla_moe (its latent pool) and the
+    radix prefix cache."""
     mesh = AbstractMesh((1, 1), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="xlstm"):
-        ServeEngine(get_model_config("xlstm-1.3b").reduced(), device="cpu",
-                    mesh=mesh)
-    with pytest.raises(NotImplementedError, match="hybrid_ssm"):
-        ServeEngine(get_model_config("zamba2-1.2b").reduced(),
-                    ServePolicy(batching="cohort"), device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="mla_moe"):
+        ServeEngine(get_model_config("deepseek-v2-236b").reduced(),
+                    ServePolicy(batching="paged"), device="cpu", mesh=mesh)
     with pytest.raises(NotImplementedError, match="prefix"):
         ServeEngine(get_model_config("llama3.2-1b").reduced(),
                     ServePolicy(prefix_cache="radix"), device="cpu",

@@ -402,24 +402,69 @@ def _seq_sharded_steps(tree: dict, d: dict, mesh) -> dict:
 
 
 def serve_families_world(rank: int, cases: list, prompts: dict) -> list:
-    """``ServeEngine(mesh=)`` on a (2, 2) CPU mesh for each ``(arch,
-    batching)`` of ``cases``: the reduced config's seeded weights
-    (``Model.init(0)``), ``prompts[arch]``, four new tokens a request,
-    float32.  Returns each case's greedy tokens."""
+    """``ServeEngine(mesh=)`` on a (2, 2) CPU mesh for each case of
+    ``cases``: ``(arch, batching)`` or ``(arch, batching, opts)``, the
+    reduced config's seeded weights (``Model.init(0)``), four new tokens a
+    request (``opts["news"]`` where given), float32, the prompts of
+    ``prompts[opts.get("key", arch)]``; ``opts`` may also set ``max_len``,
+    ``max_slots``, ``kv_budget_bytes`` and ``smem`` (the planner's shared
+    memory).  Returns for each case its greedy tokens, the engine's stall
+    count, each per-slot state buffer's global and local shapes (paged
+    engines), and how the Mamba2 scans and steps were called: on
+    DTensors (which the mixer hands to its local route) or on local
+    tensors."""
+    from torch.distributed.tensor import DTensor
+
     from repro_torch.configs import get_model_config
+    from repro_torch.hw import h100_spec
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import mamba2 as M2
     from repro_torch.models.model import Model
     from repro_torch.serve import ServeEngine, ServePolicy
+    from repro_torch.serve.pages import init_paged_cache
+    from repro_torch.tree import tree_flatten_with_paths
 
+    calls = {}
+
+    def counted(name, fn):
+        def wrapped(*args, **kw):
+            kind = "dtensor" if any(isinstance(a, DTensor)
+                                    for a in args) else "local"
+            calls[f"{name}/{kind}"] = calls.get(f"{name}/{kind}", 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    M2.ssd_chunked = counted("scan", M2.ssd_chunked)
+    M2.ssd_step = counted("step", M2.ssd_step)
     mesh = make_host_mesh(model_axis=2, device="cpu")
     out = []
-    for arch, batching in cases:
+    for case in cases:
+        arch, batching = case[:2]
+        opts = case[2] if len(case) > 2 else {}
         cfg = get_model_config(arch).reduced()
-        eng = ServeEngine(cfg, ServePolicy(max_new_tokens=4, max_len=64,
-                                           max_slots=4, batching=batching),
-                          params=Model(cfg).init(0, "cpu", torch.float32),
-                          device="cpu", mesh=mesh)
-        out.append(eng.generate(prompts[arch]))
+        calls.clear()
+        eng = ServeEngine(
+            cfg, ServePolicy(max_new_tokens=4,
+                             max_len=opts.get("max_len", 64),
+                             max_slots=opts.get("max_slots", 4),
+                             batching=batching,
+                             kv_budget_bytes=opts.get("kv_budget_bytes")),
+            params=Model(cfg).init(0, "cpu", torch.float32), device="cpu",
+            mesh=mesh, spec=h100_spec(smem_bytes=opts["smem"])
+            if "smem" in opts else None)
+        toks = eng.generate(prompts[opts.get("key", arch)],
+                            max_new_tokens=opts.get("news"))
+        state = {}
+        if batching == "paged":
+            cache = eng._paged_steps(eng.policy.max_slots).place_cache(
+                init_paged_cache(cfg, eng.policy.max_slots, 2,
+                                 eng.page.page_tokens, 1, eng.dtype, "cpu",
+                                 enc_len=4))
+            state = {k: [list(v.shape), list(v.to_local().shape)]
+                     for k, v in tree_flatten_with_paths(
+                         cache["state"]).items()}
+        out.append({"tokens": toks, "stalls": eng.metrics["stalls"],
+                    "state": state, "calls": dict(calls)})
     return out
 
 
@@ -455,3 +500,127 @@ def forward_world(rank: int, arch: str, tokens: np.ndarray) -> np.ndarray:
         logits, _ = model.forward(params, {"tokens": tok, "labels": tok},
                                   torch.float32)
     return _np(logits)
+
+
+# ---------------------------------------------------------------------------
+# The row-parallel product, the vocab-parallel loss, meshed steps
+# ---------------------------------------------------------------------------
+
+
+def row_parallel_world(rank: int, inputs: str) -> dict:
+    """``layers.tp_matmul(x, w, "row")`` under gspmd rules on a (2, 2)
+    mesh, ``x``'s contraction dim and ``w``'s rows sharded over "model",
+    with the batch sharded over "data" and replicated over it: the output
+    and the gradients of ``<y, seed>`` (gathered), the placements of ``y``,
+    and the ``mm`` FLOPs this rank's backward traces
+    (``roofline.ops.analyze_ops``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.dist.sharding import ShardingRules, use_mesh_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import tp_matmul
+    from repro_torch.roofline.ops import analyze_ops
+
+    torch.set_num_threads(1)
+    d = _load(inputs)
+    mesh = make_host_mesh(model_axis=2, device="cpu")
+    rules = ShardingRules({}, {})
+    out = {}
+    for name, batch in (("sharded", Shard(0)), ("replicated", Replicate())):
+        x = torch.from_numpy(d["x"]).requires_grad_(True)
+        w = torch.from_numpy(d["w"]).requires_grad_(True)
+        xd = DTensor.from_local(x, mesh, [Replicate(), Replicate()],
+                                run_check=False).redistribute(
+            mesh, [batch, Shard(2)])
+        wd = DTensor.from_local(w, mesh, [Replicate(), Replicate()],
+                                run_check=False).redistribute(
+            mesh, [Replicate(), Shard(0)])
+        with use_mesh_rules(mesh, rules):
+            y = tp_matmul(xd, wd, "row")
+        out[f"{name}/placements"] = np.array([str(p) for p in y.placements])
+        total = (y.full_tensor() * torch.from_numpy(d["seed"])).sum()
+        ops = analyze_ops(total.backward)
+        out[f"{name}/y"] = _np(y)
+        out[f"{name}/dx"] = _np(x.grad)
+        out[f"{name}/dw"] = _np(w.grad)
+        out[f"{name}/mm_flops"] = np.array(
+            sum(v for k, v in ops.flops_by_op.items()
+                if k in ("mm", "bmm", "addmm")))
+    return out
+
+
+def loss_world(rank: int, inputs: str) -> dict:
+    """``layers.cross_entropy_loss`` on (2, 2): float32 logits ``(B, S,
+    V)`` with the batch over "data" and the vocab over "model", with and
+    without z-loss: the loss, the logits' gradient (gathered), and the
+    shapes of every all-gather the backward and forward ask for."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    from repro_torch.dist.sharding import ShardingRules, use_mesh_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import cross_entropy_loss
+    from repro_torch.roofline.ops import analyze_ops
+
+    torch.set_num_threads(1)
+    d = _load(inputs)
+    mesh = make_host_mesh(model_axis=2, device="cpu")
+    rules = ShardingRules({}, {"batch": "data", "vocab": "model"})
+    out = {}
+    for z in (0.0, 1e-4):
+        ld = distribute_tensor(torch.from_numpy(d["logits"]), mesh,
+                               [Shard(0), Shard(2)]).requires_grad_(True)
+        lb = DTensor.from_local(torch.from_numpy(d["labels"]), mesh,
+                                [Replicate(), Replicate()],
+                                run_check=False).redistribute(
+            mesh, [Shard(0), Replicate()])
+        box = {}
+
+        def run():
+            with use_mesh_rules(mesh, rules):
+                box["loss"] = cross_entropy_loss(ld, lb, z_loss=z)
+            box["loss"].full_tensor().backward()
+
+        ops = analyze_ops(run)
+        out[f"{z}/loss"] = _np(box["loss"])
+        out[f"{z}/grad"] = _np(ld.grad)
+        out[f"{z}/gathers"] = np.array(
+            [list(s[0]) for k, s in ops.collectives if k == "all-gather"]
+            or np.zeros((0, 3), dtype=np.int64))
+    return out
+
+
+def step_world(rank: int, inputs: str, archs: list, seq_len: int,
+               batch: int) -> dict:
+    """One float32 training step (remat none, gspmd rules) of each reduced
+    arch of ``archs`` on a (2, 2) mesh, from its parameters and batch in
+    ``inputs``: the new state and metrics, gathered (``_step``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch.trainer import make_train_step
+
+    torch.set_num_threads(1)
+    d = _load(inputs)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    shape = ShapeConfig("tiny", seq_len=seq_len, global_batch=batch,
+                        kind="train")
+    train = TrainConfig(dtype="float32", remat="none", warmup_steps=2,
+                        total_steps=10)
+    out = {}
+    for arch in archs:
+        cfg = _cfg(arch)
+        ts = make_train_step(cfg, shape, mesh, train)
+        for k, v in _step(d, arch, ts, cfg).items():
+            out[f"{arch}/step/{k}"] = v
+    return out
+
+
+def repairs_world(rank: int, inputs: str, steps: str, archs: list,
+                  seq_len: int, batch: int) -> dict:
+    """``row_parallel_world``, ``loss_world`` and ``step_world`` in one
+    world."""
+    out = row_parallel_world(rank, inputs)
+    out.update(loss_world(rank, inputs))
+    out.update(step_world(rank, steps, archs, seq_len, batch))
+    return out
