@@ -357,6 +357,9 @@ LONG_MAX_LEN = 8192
 #: pool: one layer's float32 draw (1.9 GB for the experts' ``wi``),
 #: activations, workspaces and the allocator's slack.
 MIXTRAL_HEADROOM = 6e9
+#: Phase 12's deepest cut: 12 of mixtral-8x7b's 32 layers (25 fit the
+#: card), which keeps the script inside its time limit.
+MIXTRAL_LAYERS = 12
 PROFILE = "--profile" in sys.argv[1:]
 #: Phase 5/6 shapes: llama3.2-1b's MLP up-projection and attention over a
 #: 4096-token prefill, zamba2-1.2b's SSD mixer (d_inner 2 x 2048 = 64 heads
@@ -1530,14 +1533,20 @@ def phase_zamba_slice(t: int) -> None:
     assert tok_g == tok_c, "greedy tokens differ between cuda and cpu"
 
 
+#: Phase 9's zamba2 depth: 19 of its 38 mixers, which keeps the script
+#: inside its time limit.
+SERVE_ZAMBA_LAYERS = 19
+
+
 def phase_zamba_serve(pa_mod, ssd_mod) -> dict:
-    """Full-width zamba2-1.2b (38 Mamba2 layers, the shared block 7 times)
-    serving phase 4's trace: every paged launch on the split body, every
-    SSD launch on tc, one per mixer and prefill chunk of more than one
-    token (a one-token chunk takes ``ssd_step``)."""
+    """Full-width zamba2-1.2b cut to ``SERVE_ZAMBA_LAYERS`` Mamba2 layers
+    (and the shared block's applications among them) serving phase 4's
+    trace: every paged launch on the split body, every SSD launch on tc,
+    one per mixer and prefill chunk of more than one token (a one-token
+    chunk takes ``ssd_step``)."""
     from repro_torch.serve.kvcache import attn_apps
 
-    cfg = zamba_cfg()
+    cfg = parity_cfg(ZAMBA, SERVE_ZAMBA_LAYERS)
     row, _, engine, prompts = serve_trace(
         cfg, {"paged": pa_mod, "ssd": ssd_mod}, (0,))
     apps = attn_apps(cfg)
@@ -1736,15 +1745,15 @@ def phase_mixtral_slice(t: int) -> dict:
 
 
 def mixtral_depth(free_bytes: int):
-    """The deepest cut of full-width mixtral-8x7b whose bf16 weights and
-    phase 4's page pool (8 slots of 4096 tokens at the planned page) leave
-    ``MIXTRAL_HEADROOM`` of ``free_bytes``: ``(cfg, weight bytes, pool
-    bytes)``."""
+    """The deepest cut of full-width mixtral-8x7b, at most
+    ``MIXTRAL_LAYERS``, whose bf16 weights and phase 4's page pool (8
+    slots of 4096 tokens at the planned page) leave ``MIXTRAL_HEADROOM``
+    of ``free_bytes``: ``(cfg, weight bytes, pool bytes)``."""
     from repro_torch.serve.engine import plan_decode
     from repro_torch.serve.kvcache import kv_token_bytes
 
     full = mixtral_cfg()
-    for n in range(full.n_layers, 0, -1):
+    for n in range(min(full.n_layers, MIXTRAL_LAYERS), 0, -1):
         cfg = dataclasses.replace(full, n_layers=n)
         plan = plan_decode(cfg, max_len=MAX_LEN, batch=MAX_SLOTS,
                            dtype_bytes=2)
@@ -2055,21 +2064,30 @@ def deepseek_depth(free_bytes: int):
     ``DEEPSEEK_HEADROOM`` of ``free_bytes``: ``(cfg, weight bytes, pool
     bytes)``."""
     from repro_torch.models.model import Model
-    from repro_torch.serve.engine import plan_decode
-    from repro_torch.serve.kvcache import kv_token_bytes
 
     full = deepseek_cfg()
     for n in range(full.n_layers, full.moe.first_k_dense, -1):
         cfg = dataclasses.replace(full, n_layers=n)
-        plan = plan_decode(cfg, max_len=MAX_LEN, batch=MAX_SLOTS,
-                           dtype_bytes=2)
-        pages = MAX_SLOTS * plan.page_table()["pages_per_slot"]
-        pool = kv_token_bytes(cfg, 2)[0] * plan.page_plan()["page_tokens"] \
-            * pages
+        pool = deepseek_pool_bytes(cfg, 2)
         weights = tree_bytes(Model(cfg).param_specs(), 2)
         if weights + pool + DEEPSEEK_HEADROOM <= free_bytes:
             return cfg, weights, pool
     raise RuntimeError(f"no depth of {full.arch} fits {free_bytes} B")
+
+
+def deepseek_pool_bytes(cfg, el: int) -> int:
+    """Bytes of phase 4's page pool for a deepseek-v2-236b cut (``MAX_SLOTS``
+    slots of ``MAX_LEN`` tokens at the planned page), at ``el`` bytes an
+    element: given to its engines as ``kv_budget_bytes``, since their own
+    budget subtracts ``cfg.param_count()``, which overcounts the cut."""
+    from repro_torch.serve.engine import plan_decode
+    from repro_torch.serve.kvcache import kv_token_bytes
+
+    plan = plan_decode(cfg, max_len=MAX_LEN, batch=MAX_SLOTS,
+                       dtype_bytes=el)
+    pages = MAX_SLOTS * plan.page_table()["pages_per_slot"]
+    return kv_token_bytes(cfg, el)[0] * plan.page_plan()["page_tokens"] \
+        * pages
 
 
 def phase_deepseek_serve(pa_mod) -> dict:
@@ -2587,7 +2605,8 @@ def phase_cohort_serve(pa_mod, ssd_mod, zserve) -> dict:
     assert zamba["launches"]["paged"]["LAUNCHES"] == 0
     if zserve is not None:
         log("  zamba2 cohort beside phase 9's paged run: " + json.dumps({
-            k: {"cohort": zamba.get(k), "paged (its own trace)":
+            k: {"cohort": zamba.get(k),
+                f"paged (its own trace, {SERVE_ZAMBA_LAYERS} mixers)":
                 zserve.get(k)}
             for k in ("wall_s", "decode_tok_s", "ttft_p50_s", "ttft_max_s",
                       "peak_mem_gb", "decode_steps", "tokens")}))
@@ -2613,9 +2632,10 @@ PARITY_NEW = 8
 SYSTEM_PROMPT = 1000
 SYSTEM_TAILS = (24, 56, 88, 120, 152, 184, 216, 248)
 PREFIX_NEW = 32
-#: Phase 27's zamba2 depth: half its 38 mixers, which keeps the script
-#: inside its time limit since phase 35 serves zamba2 on a mesh too.
-PREFIX_ZAMBA_LAYERS = 19
+#: Phase 27's zamba2 depth: 10 of its 38 mixers, which keeps the script
+#: inside its time limit since phase 35 serves zamba2 and deepseek-v2 on
+#: a mesh too.
+PREFIX_ZAMBA_LAYERS = 10
 #: Engine counters read as deltas over one call.
 CALL_KEYS = ("prefix_hits", "prefix_misses", "prefix_hit_tokens",
              "pages_saved", "cow_copies", "prefill_tokens",
@@ -3028,38 +3048,48 @@ def phase_clis() -> dict:
     """Phase 29: ``python -m repro_torch.obs.cli report`` on the card exits
     0 with its ``pool_pages`` row inside the band, and ``python -m
     repro_torch.launch.serve --arch llama3.2-1b --prefix radix --tokens
-    8`` exits 0 (each a process of its own; the kernels are already
-    built)."""
+    8`` exits 0 (each a process of its own, both started together; the
+    kernels are already built)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     row = {}
-    for name, args in (
-            ("report", ["repro_torch.obs.cli", "report"]),
-            ("serve", ["repro_torch.launch.serve", "--arch", ARCH,
-                       "--prefix", "radix", "--tokens", "8"])):
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
-                             env=env, capture_output=True, text=True,
-                             timeout=300)
-        row[name] = {"rc": out.returncode,
-                     "s": time.perf_counter() - t0}
-        log(f"  python -m {' '.join(args)}: rc {out.returncode}, "
-            f"{row[name]['s']:.1f} s")
-        for line in out.stdout.splitlines():
-            log(f"    {line}")
-        assert out.returncode == 0, out.stderr[-2000:]
-        if name == "report":
-            pool = [ln for ln in out.stdout.splitlines()
-                    if " pool_pages " in ln]
-            assert len(pool) == 1 and "outside band" not in pool[0], pool
-            assert "on cuda" in out.stdout
-            # The shared prefix spans a page: the HBM prefix row observes
-            # the tree's bytes.
-            held = [ln for ln in out.stdout.splitlines()
-                    if " hbm_prefix_leftover " in ln]
-            assert len(held) == 1 and int(held[0].split()[4]) > 0, held
-            row[name]["prefix_observed_bytes"] = int(held[0].split()[4])
-        else:
-            assert "[serve] prefix: hits=" in out.stdout
+    cmds = {"report": ["repro_torch.obs.cli", "report"],
+            "serve": ["repro_torch.launch.serve", "--arch", ARCH, "--prefix",
+                      "radix", "--tokens", "8"]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in cmds.items()}           # both at once
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            row[name] = {"rc": proc.returncode,
+                         "s": time.perf_counter() - t0}
+            log(f"  python -m {' '.join(cmds[name])}: rc {proc.returncode}"
+                f", {row[name]['s']:.1f} s")
+            for line in stdout.splitlines():
+                log(f"    {line}")
+            assert proc.returncode == 0, stderr[-2000:]
+            if name == "report":
+                pool = [ln for ln in stdout.splitlines()
+                        if " pool_pages " in ln]
+                assert len(pool) == 1 and "outside band" not in pool[0], \
+                    pool
+                assert "on cuda" in stdout
+                # The shared prefix spans a page: the HBM prefix row
+                # observes the tree's bytes.
+                held = [ln for ln in stdout.splitlines()
+                        if " hbm_prefix_leftover " in ln]
+                assert len(held) == 1 and int(held[0].split()[4]) > 0, held
+                row[name]["prefix_observed_bytes"] = int(
+                    held[0].split()[4])
+            else:
+                assert "[serve] prefix: hits=" in stdout
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return row
 
 
@@ -3276,11 +3306,12 @@ CLUSTER_MAX_LEN = 1024
 CLUSTER_LENS = (300, 700, 420, 555, 333, 640)
 CLUSTER_NEW = 16
 DISAGG_PROMPT = 1
-#: (c): bf16, 16 requests of 512 prompt tokens and 64 new ones each, all
-#: submitted at once; ``MAX_SLOTS`` slots per engine; two windows of
+#: (c): bf16, 8 requests of 512 prompt tokens and 64 new ones each, all
+#: submitted at once (8, not 16, for the script's time); ``MAX_SLOTS``
+#: slots per engine; two windows of
 #: ``CLUSTER_PROFILED`` more requests of 16 new tokens, one timed and one
 #: profiled.
-CLUSTER_REQS = 16
+CLUSTER_REQS = 8
 CLUSTER_PROMPT = 512
 CLUSTER_SERVE_NEW = 64
 CLUSTER_PROFILED = 4
@@ -4636,11 +4667,287 @@ def phase_serve_mesh_zamba(pa_mod, ssd_mod) -> dict:
     return out
 
 
+#: deepseek-v2-236b on the one-rank mesh, at full width: float32 at 2
+#: layers (the dense one and one MoE layer, ~21 GB of weights) for the
+#: tokens, bf16 at 4 (1 dense + 3 MoE, ~27 GB) on phase 17's trace for the
+#: launches and walls.
+MESH_DEEPSEEK_LAYERS = {torch.float32: 2, torch.bfloat16: 4}
+#: The mla body's local query heads on the production meshes: 128 heads
+#: over 8 and over 16 "model" ranks (a one-rank mesh never shows them).
+MLA_LOCAL_HEADS = (16, 8)
+
+
+def phase_serve_mesh_deepseek(pa_mod, t: int) -> dict:
+    """(a) deepseek-v2-236b at full width on ``make_host_mesh()``, paged
+    (the latent pool on each rank, the mla body on local query rows and
+    heads): in float32 at 2 layers on the first ``MESH_PARITY_PROMPTS``
+    prompts of phase 4's trace the mesh engine's greedy tokens equal the
+    meshless engine's; in bf16 at 4 layers on the whole trace every paged
+    launch of the mesh engine is ``mla`` and there are as many as the
+    meshless engine's, walls and tok/s side by side.  Each engine's
+    weights are freed before the next pair is built.  Then the mla body
+    through the mesh route (``mesh_mla_route``) and alone at the
+    production meshes' local head counts (``mla_local_heads``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    rng = np.random.default_rng(0)
+    full = deepseek_cfg()
+    prompts = [rng.integers(0, full.vocab_size, n, dtype=np.int32)
+               for n in PROMPT_LENS]
+    mods = {"paged": pa_mod}
+    out = {}
+    mesh = make_host_mesh()
+    try:
+        for dtype, layers in MESH_DEEPSEEK_LAYERS.items():
+            free_card()
+            name = str(dtype)[6:]
+            f32 = dtype == torch.float32
+            new, trace = ((MESH_PARITY_NEW, prompts[:MESH_PARITY_PROMPTS])
+                          if f32 else (MAX_NEW, prompts))
+            cfg = dataclasses.replace(full, n_layers=layers)
+            pol = ServePolicy(
+                batching="paged", max_slots=MAX_SLOTS, max_len=MAX_LEN,
+                max_new_tokens=new,
+                kv_budget_bytes=deepseek_pool_bytes(cfg, 4 if f32 else 2))
+            plain = ServeEngine(cfg, pol, dtype=dtype, seed=0, device=DEVICE)
+            meshed = ServeEngine(cfg, pol, dtype=dtype, params=plain.params,
+                                 mesh=mesh)
+            if not f32:                       # warm both (first-call costs)
+                for eng in (plain, meshed):
+                    eng.generate(prompts[:2], max_new_tokens=2)
+            a = mesh_engine_run(plain, trace, new, mods)
+            b = mesh_engine_run(meshed, trace, new, mods)
+            row = {"layers": layers, "kv_shard": meshed.plan.kv_shard(),
+                   "tokens_equal": a["outs"] == b["outs"],
+                   "meshless": {k: a[k] for k in ("wall_s", "tok_s",
+                                                  "tokens", "launches")},
+                   "mesh": {k: b[k] for k in ("wall_s", "tok_s", "tokens",
+                                              "launches")}}
+            log(f"  (a) deepseek-v2 {layers} layers {name}: "
+                + json.dumps(row))
+            pa = b["launches"]["paged"]
+            assert pa["LAUNCHES"] > 0, pa
+            assert pa["LAUNCHES"] == a["launches"]["paged"]["LAUNCHES"], row
+            if f32:
+                assert row["tokens_equal"], "deepseek: mesh tokens differ"
+            else:
+                assert pa["LAUNCHES"] == pa["LAUNCHES_MLA"], pa
+            out[name] = row
+            del plain, meshed, a, b
+        free_card()
+        out["route"] = mesh_mla_route(pa_mod, t, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["heads"] = mla_local_heads(pa_mod, t)
+    return out
+
+
+def mesh_mla_route(pa_mod, t: int, mesh) -> dict:
+    """The mla body through the mesh route (``models.layers.
+    pool_write_attend`` on DTensors over ``mesh``: the latent rows written
+    into each rank's pool, the kernel on this rank's query rows and heads
+    as local tensors) at deepseek-v2's decode shape -- 8 rows at
+    ``DECODE_LENS``, 128 heads over the one 576-wide latent, K = V, bf16
+    -- held to the plain version on the same inputs, timed (device ms),
+    its bound, and the body it ran.  The rows written are the pool's own,
+    so every timed call sees the same pool."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.ref import paged_attention_ref
+    from repro_torch.models.layers import pool_slots, pool_write_attend
+
+    cfg = deepseek_cfg()
+    case = make_case(torch.bfloat16, DECODE_LENS, t, False, copies=1,
+                     cfg=cfg)
+    q, pool = case["q"], case["k"]
+    table, lengths = case["table"], case["lengths"]
+    page_ids, off = pool_slots(table, (lengths.long() - 1).clamp(min=0), t)
+    rows = pool[0][page_ids, off]                        # (R, 1, D)
+    rep = [Replicate()] * mesh.ndim
+    heads = [Shard(1) if n == "model" else Replicate()
+             for n in mesh.mesh_dim_names]
+    dq = DTensor.from_local(q, mesh, heads, run_check=False)
+    drows = DTensor.from_local(rows, mesh, rep, run_check=False)
+    dpool = DTensor.from_local(pool, mesh, rep, run_check=False)
+
+    def run(i):
+        return pool_write_attend(dq, drows, None, dpool, dpool, 0, page_ids,
+                                 off, table, lengths, 0, t)
+
+    before = counters(pa_mod, PAGED_BODIES)
+    y = run(0)
+    torch.cuda.synchronize()
+    ran = body(pa_mod, before, "mla on the mesh route")
+    assert isinstance(y, DTensor)
+    ref = paged_attention_ref(q, pool[0], pool[0], table, lengths)
+    live = lengths > 0
+    err = held_to(y.to_local()[live], ref[live], TOL[torch.bfloat16],
+                  "mesh-route mla")
+    nbytes, ops = live_work(case, 0)
+    bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
+    row = {"ms": cuda_ms(run), "path": ran, "max_abs_err": err,
+           "plain_ms": cuda_ms(lambda i: paged_attention_ref(
+               q, pool[0], pool[0], table, lengths), reps=10),
+           "library_ms": cuda_ms(lambda i: library_attention(
+               q, pool[0], pool[0], table, lengths, 0, fold_group=True),
+               reps=10),
+           "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+           "ops": ops}
+    log(f"  (a) mesh-route mla decode ({ran}): kernel_ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} library_ms="
+        f"{row['library_ms']:.4f} bound_ms={bound:.5f} ({bound_by}) "
+        f"max_abs_err={err:.3g}")
+    return row
+
+
+def mla_local_heads(pa_mod, t: int) -> dict:
+    """The mla body at each of ``MLA_LOCAL_HEADS`` query heads over the
+    one latent (a partial m16 tile at 8), decode and a prefill chunk as
+    phase 15 shapes them: held to its plain version (bf16 on ``mla``,
+    float32 on ``simt``, two runs bit-identical) and the bf16 decode
+    timed beside its bound."""
+    out = {}
+    pos0 = (1024 // t) * t
+    shapes = {"decode": (DECODE_LENS, False),
+              "prefill": (tuple(range(pos0 + 1, pos0 + t + 1)), True)}
+    for h in MLA_LOCAL_HEADS:
+        cfg = dataclasses.replace(deepseek_cfg(), n_heads=h)
+        log(f"  (a) the mla body at {h} local heads over the latent")
+        worst, bodies = paged_checks(pa_mod, shapes, t, cfg, (0,),
+                                     bf16_body="mla")
+        row = paged_timing(pa_mod, "decode", DECODE_LENS, False, t, cfg)
+        out[h] = {"errors": {f"{a}/{b}": e for (a, b), e in worst.items()},
+                  "max_abs_err": worst[("bfloat16", "decode")],
+                  **{k: row[k] for k in ("ms", "ms_simt", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by", "path", "splits",
+                                         "split_pages")}}
+    return out
+
+
+def phase_serve_mesh_prefix(pa_mod) -> dict:
+    """(a) llama3.2-1b at full width on ``make_host_mesh()`` with the radix
+    cache, bf16, on the system-prompt trace: a warm mesh engine serves
+    call A and then call B, a cold mesh engine call B alone (walls side by
+    side), and a meshless warm engine both calls; the mesh engine's
+    tokens equal the meshless warm engine's, with as many hits, hit
+    tokens, pages saved and CoW copies, and every paged launch ``split``.
+    Then one export from the mesh engine (call B's first prompt's pages)
+    installed into a fresh meshless engine serves that prompt with one
+    hit and the mesh engine's tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    free_card()
+    cfg = get_cfg()
+    mods = {"paged": pa_mod}
+    keys = ("prefix_hits", "prefix_hit_tokens", "pages_saved", "cow_copies")
+    pol = dict(batching="paged", max_slots=MAX_SLOTS, max_len=MAX_LEN,
+               max_new_tokens=PREFIX_NEW)
+    warm = ServePolicy(prefix_cache="radix", **pol)
+    plain = ServeEngine(cfg, warm, dtype=torch.bfloat16, seed=0,
+                        device=DEVICE)
+    a, bs = system_trace(cfg)
+    rows = {}
+    mesh = make_host_mesh()
+    try:
+        meshed = ServeEngine(cfg, warm, dtype=torch.bfloat16,
+                             params=plain.params, mesh=mesh)
+        cold = ServeEngine(cfg, ServePolicy(**pol), dtype=torch.bfloat16,
+                           params=plain.params, mesh=mesh)
+        cold.generate(bs[:1], max_new_tokens=2)       # first-call costs
+        for name, eng in (("meshless", plain), ("mesh", meshed)):
+            measured_call(eng, [a], 1, mods)
+            rows[name] = measured_call(eng, bs, PREFIX_NEW, mods)
+        rows["mesh_cold"] = measured_call(cold, bs, PREFIX_NEW, mods)
+        payload = meshed.export_pages(bs[0])
+        again = meshed.generate(bs[:1])
+    finally:
+        dist.destroy_process_group()
+    dst = ServeEngine(cfg, warm, dtype=torch.bfloat16, params=plain.params,
+                      device=DEVICE)
+    dst.import_pages(payload["tokens"], payload["pages"], payload["snaps"])
+    imported = dst.generate(bs[:1])
+    out = {name: {k: row[k] for k in keys + (
+        "wall_s", "ttft_p50_s", "decode_tok_s", "prefill_tokens",
+        "launches")} for name, (row, _) in rows.items()}
+    out.update(tokens_equal=rows["mesh"][1] == rows["meshless"][1],
+               exported_pages=len(payload["pages"]),
+               imported_hits=int(dst.metrics["prefix_hits"]),
+               imported_equal=imported == again)
+    log("  (a) llama3.2-1b radix cache on the mesh, call B: "
+        + json.dumps(out))
+    assert out["tokens_equal"], "mesh warm tokens differ from meshless"
+    for k in keys:
+        assert out["mesh"][k] == out["meshless"][k] > 0, (k, out)
+    pa = out["mesh"]["launches"]["paged"]
+    assert 0 < pa["LAUNCHES"] == pa["LAUNCHES_SPLIT"], pa
+    assert out["imported_hits"] == 1 and out["imported_equal"], out
+    return out
+
+
 #: The four reduced cases the 4-rank world gains: per-slot state rows on
 #: local shards (paged xlstm and whisper) and zamba2's scan (cohort and
 #: paged).
 MESH_B_STATE = (("xlstm-1.3b", "paged"), (WHISPER, "paged"),
-                (ZAMBA, "cohort"), (ZAMBA, "paged"))
+                (ZAMBA, "cohort"), (ZAMBA, "paged"), (DEEPSEEK, "paged"))
+#: (b)'s radix cache case: the reduced llama and zamba2 with two
+#: 2-slot calls of prompts sharing 2.5 pages of a 16 KiB leaf's plan, the
+#: second hitting the first's pages, then an export of the first prompt's
+#: pages installed into a fresh mesh engine.
+MESH_B_PREFIX = {ARCH: 32, ZAMBA: 16}
+MESH_B_LEAF = 16 << 10
+
+
+def mesh_b_prefix_prompts(arch: str) -> list:
+    """Two prompts sharing 2.5 of ``arch``'s pages, their tails differing
+    at the first token."""
+    from repro_torch.configs import get_model_config
+
+    cfg = get_model_config(arch).reduced()
+    t = MESH_B_PREFIX[arch]
+    rng = np.random.default_rng(0xA11CE)
+    shared = rng.integers(0, cfg.vocab_size, 2 * t + t // 2, dtype=np.int32)
+    tails = [rng.integers(0, cfg.vocab_size, t // 2 + 2, dtype=np.int32)
+             for _ in range(2)]
+    tails[1][0] = (tails[0][0] + 1) % cfg.vocab_size
+    return [np.concatenate([shared, tail]) for tail in tails]
+
+
+def mesh_b_prefix(arch: str, mesh=None) -> dict:
+    """The radix cache case of (b) on ``mesh`` (None: meshless): the
+    tokens of one call a prompt, the hits and CoW copies, and the tokens
+    a fresh engine that imported the first prompt's exported pages gives
+    the second prompt."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.hw import h100_spec
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    cfg = get_model_config(arch).reduced()
+
+    def engine():
+        return ServeEngine(cfg, ServePolicy(
+            max_new_tokens=4, max_len=256, max_slots=2, batching="paged",
+            prefix_cache="radix"), params=Model(cfg).init(
+                0, "cpu", torch.float32), spec=h100_spec(
+                    smem_bytes=MESH_B_LEAF), device="cpu", mesh=mesh)
+
+    ps = mesh_b_prefix_prompts(arch)
+    eng = engine()
+    outs = [eng.generate([p])[0] for p in ps]
+    payload = eng.export_pages(ps[0])
+    imp = engine()
+    imp.import_pages(payload["tokens"], payload["pages"], payload["snaps"])
+    return {"outs": outs, "hits": int(eng.metrics["prefix_hits"]),
+            "cow": int(eng.metrics["cow_copies"]),
+            "page": eng.page.page_tokens,
+            "imported": imp.generate(ps[-1:])}
 
 
 def mesh_b_prompts(arch: str) -> list:
@@ -4662,7 +4969,9 @@ def mesh_b_prompts(arch: str) -> list:
 def world_35b(rank: int, inputs: str) -> list:
     """(b) On every rank of a 4-rank gloo world on the card's host: the
     reduced llama3.2-1b on a (2, 2) CPU mesh, paged and cohort, under a
-    shrunk HBM (kv_shard 2) and the default spec (kv_shard 1), float32."""
+    shrunk HBM (kv_shard 2) and the default spec (kv_shard 1), float32;
+    the ``MESH_B_STATE`` cases; and the radix cache cases
+    (``mesh_b_prefix``)."""
     from repro_torch.configs import get_model_config
     from repro_torch.hw import h100_spec
     from repro_torch.launch.mesh import make_host_mesh
@@ -4705,6 +5014,8 @@ def world_35b(rank: int, inputs: str) -> list:
             mesh=mesh)
         rows.append({"arch": arch, "batching": batching,
                      "outs": eng.generate(mesh_b_prompts(arch))})
+    for arch in MESH_B_PREFIX:
+        rows.append({"arch": arch, "prefix": mesh_b_prefix(arch, mesh)})
     return rows
 
 
@@ -4753,29 +5064,35 @@ def phase_serve_mesh_cpu() -> dict:
                               batching=batching),
             params=Model(scfg).init(0, "cpu", torch.float32),
             device="cpu").generate(mesh_b_prompts(arch))
-    log(f"  (b) state-row and scan cases, tokens equal the meshless "
-        f"engine's: {list(state)}")
+    prefix = {arch: mesh_b_prefix(arch) for arch in MESH_B_PREFIX}
+    log(f"  (b) state-row, scan and mla cases, tokens equal the meshless "
+        f"engine's: {list(state)}; radix cache: " + json.dumps(prefix))
+    for arch, row in prefix.items():
+        assert row["page"] == MESH_B_PREFIX[arch], row
+        assert row["hits"] == 1 and row["imported"] == row["outs"][-1:], row
     for rank in ranks:
         for r in rank:
             if "hbm" in r:
                 assert r["outs"] == want, (r["batching"], r["hbm"])
                 assert r["kv_shard"] == (2 if r["hbm"] else 1), r
+            elif "prefix" in r:
+                assert r["prefix"] == prefix[r["arch"]], r
             else:
                 assert r["outs"] == state[f"{r['arch']}/{r['batching']}"], \
                     (r["arch"], r["batching"])
-    return {"cases": shards + list(state), "tokens": want}
+    return {"cases": shards + list(state) + list(prefix), "tokens": want}
 
 
-def phase_dryrun() -> dict:
-    """(c) The dry run on the card's host, in subprocesses started
-    together (host-CPU times, not the card's): ``--plan-tree`` for every
-    arch on both production meshes, and ``--calibrate`` of llama3.2-1b x
-    train_4k and x decode_32k on 16 x 16 into a temporary artifact, each
-    cell's roofline row printed; the artifact is read back."""
+def start_dryrun() -> dict:
+    """Start (c)'s dry run on the card's host, in subprocesses started
+    together, their output to files: ``--plan-tree`` for every arch on
+    both production meshes, and ``--calibrate`` of llama3.2-1b x train_4k
+    and x decode_32k on 16 x 16 into a temporary artifact.  They run on
+    the host's CPUs (no card) while (a) and (b) run; ``phase_dryrun``
+    collects them."""
     import tempfile
 
-    from repro_torch.configs.base import CALIBRATION_ENV, \
-        calibration_overhead
+    from repro_torch.configs.base import CALIBRATION_ENV
 
     root = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     cal = os.path.join(root, "calibration_torch.json")
@@ -4783,29 +5100,41 @@ def phase_dryrun() -> dict:
            "CUDA_VISIBLE_DEVICES": "",
            CALIBRATION_ENV: os.path.join(root, "none.json")}
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
-    t0 = time.perf_counter()
-    procs = {
-        "plan_tree": subprocess.Popen(
-            cmd + ["--plan-tree", "--arch", "all", "--mesh", "both"],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env),
-        "calibrate": subprocess.Popen(
-            cmd + ["--calibrate", "--arch", ARCH, "--shape",
-                   "train_4k,decode_32k", "--mesh", "single",
-                   "--calibration-out", cal, "--out", root],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env)}
+    args = {"plan_tree": ["--plan-tree", "--arch", "all", "--mesh", "both"],
+            "calibrate": ["--calibrate", "--arch", ARCH, "--shape",
+                          "train_4k,decode_32k", "--mesh", "single",
+                          "--calibration-out", cal, "--out", root]}
+    procs = {}
+    for name, extra in args.items():
+        with open(os.path.join(root, f"{name}.log"), "w") as out:
+            procs[name] = subprocess.Popen(cmd + extra, stdout=out,
+                                           stderr=subprocess.STDOUT,
+                                           env=env)
+    return {"root": root, "cal": cal, "procs": procs,
+            "t0": time.perf_counter()}
+
+
+def phase_dryrun(started: dict) -> dict:
+    """(c) The dry run ``start_dryrun`` started (host-CPU times, not the
+    card's): every plan tree printed, each calibrated cell's roofline row
+    printed, and the artifact read back."""
+    from repro_torch.configs.base import CALIBRATION_ENV, \
+        calibration_overhead
+
+    root, cal, procs = started["root"], started["cal"], started["procs"]
     outs = {}
     try:
         for name, proc in procs.items():
-            outs[name] = proc.communicate(timeout=140)[0]
+            proc.wait(timeout=140)
+            with open(os.path.join(root, f"{name}.log")) as f:
+                outs[name] = f.read()
             assert proc.returncode == 0, outs[name][-3000:]
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    secs = time.perf_counter() - t0
+    secs = time.perf_counter() - started["t0"]
     trees = [ln for ln in outs["plan_tree"].splitlines()
              if ln.startswith("[plan]")]
     cal_lines = [ln for ln in outs["calibrate"].splitlines()
@@ -4990,7 +5319,8 @@ def main() -> int:
         log("[8] zamba2-1.2b at full width cut to 2 mixers and 1 shared "
             "block, cuda against cpu, float32")
         phase("phase 8 zamba2 slice", phase_zamba_slice, zt)
-        log("[9] serving full-width zamba2-1.2b, bf16")
+        log(f"[9] serving full-width zamba2-1.2b cut to "
+            f"{SERVE_ZAMBA_LAYERS} of 38 mixers, bf16")
         zserve = phase("phase 9 zamba2 serve", phase_zamba_serve, pa_mod,
                        ssd_mod)
         mplan = plan_decode(mixtral_cfg(), max_len=MAX_LEN, batch=MAX_SLOTS,
@@ -5115,23 +5445,29 @@ def main() -> int:
         tcpu = phase("phase 34d 4 gloo ranks", phase_train_mesh_cpu)
         log(f"  phase 34: {time.perf_counter() - t34:.1f} s")
         free_card()
-        log("[35] serving over a device mesh: (a) full-width llama3.2-1b "
-            "and zamba2-1.2b on make_host_mesh(), (b) 4 gloo ranks at "
-            "(2, 2) on the host, (c) the dry run on the host")
+        log("[35] serving over a device mesh: (a) full-width llama3.2-1b, "
+            "zamba2-1.2b and deepseek-v2-236b on make_host_mesh(), and "
+            "llama3.2-1b with the radix cache, (b) 4 gloo ranks at (2, 2) "
+            "on the host, (c) the dry run on the host")
         t35 = time.perf_counter()
+        dry = start_dryrun()
         smesh = phase("phase 35a serve on the mesh", phase_serve_mesh,
                       pa_mod)
         zmesh = phase("phase 35a zamba2 on the mesh",
                       phase_serve_mesh_zamba, pa_mod, ssd_mod)
+        dmesh = phase("phase 35a deepseek-v2 on the mesh",
+                      phase_serve_mesh_deepseek, pa_mod, dt)
+        pmesh = phase("phase 35a radix cache on the mesh",
+                      phase_serve_mesh_prefix, pa_mod)
         scpu = phase("phase 35b 4 gloo ranks serve", phase_serve_mesh_cpu)
-        sdry = phase("phase 35c dry run", phase_dryrun)
+        sdry = phase("phase 35c dry run", phase_dryrun, dry)
         log(f"  phase 35: {time.perf_counter() - t35:.1f} s")
     if failed or None in (kern, serve, tk, tune, zk, zserve, mk, mserve,
                           xserve, dk, dserve, wk, wserve, qslice, ab, cssd,
                           cserve, pparity, pllama, pzamba, pexport, pcli,
                           pcap, ppaper, pcluster, tguard, tparity, tfull,
                           tloop, rblocks, rone, tmesh, tcpu, smesh, zmesh,
-                          scpu, sdry):
+                          dmesh, pmesh, scpu, sdry):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -5273,6 +5609,24 @@ def main() -> int:
                                    "max_abs_err")}}
     kernels[0]["mesh"]["zamba2_launches"] = zmesh["bfloat16"]["paged"][
         "mesh"]["launches"]["paged"]
+    kernels[0]["mesh"]["prefix_launches"] = pmesh["mesh"]["launches"][
+        "paged"]
+    # deepseek-v2 on the one-rank mesh (phase 35 (a)): the mla body's
+    # launches in the bf16 mesh run, its time and bound through the mesh
+    # route at the decode shape, and alone at the production meshes'
+    # local head counts.
+    dr = dmesh["route"]
+    kernels[0]["mla"] = {"mesh": {
+        "layers": dmesh["bfloat16"]["layers"],
+        "launches": dmesh["bfloat16"]["mesh"]["launches"]["paged"][
+            "LAUNCHES_MLA"],
+        "launches_meshless": dmesh["bfloat16"]["meshless"]["launches"][
+            "paged"]["LAUNCHES"],
+        **{k: dr[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "path", "max_abs_err")},
+        "local_heads": {str(h): {k: row[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "path",
+            "max_abs_err")} for h, row in dmesh["heads"].items()}}}
     # Phases 26-27's warm and cold figures, then phase 24's, at the end of
     # the output, where the profiler tables above do not push them out.
     log("prefix serving: " + json.dumps({
@@ -5322,6 +5676,15 @@ def main() -> int:
         name: {k: row[k] for k in ("kv_shard", "tokens_equal", "meshless",
                                    "mesh")}
         for name, row in smesh.items()}))
+    log("deepseek-v2 on a mesh: " + json.dumps({
+        name: {"layers": dmesh[name]["layers"],
+               "tokens_equal": dmesh[name]["tokens_equal"],
+               "wall_s": [dmesh[name]["meshless"]["wall_s"],
+                          dmesh[name]["mesh"]["wall_s"]],
+               "tok_s": [dmesh[name]["meshless"]["tok_s"],
+                         dmesh[name]["mesh"]["tok_s"]]}
+        for name in ("float32", "bfloat16")}))
+    log("radix cache on a mesh: " + json.dumps(pmesh))
     log("zamba2 on a mesh: " + json.dumps({
         name: {b: {"tokens_equal": r["tokens_equal"],
                    "wall_s": [r["meshless"]["wall_s"], r["mesh"]["wall_s"]],

@@ -638,35 +638,6 @@ def split_heads(x: torch.Tensor, heads: int, head_dim: int,
     return constrain(x.reshape(b, s, heads, head_dim), axes)
 
 
-def replicated_region(fn, *args):
-    """``fn(*args)`` with every DTensor argument gathered whole (each rank
-    computes the region on the full values, as plain tensors) and every
-    tensor it returns wrapped back as a replicated DTensor: a region
-    DTensor has no sharding rule for, exact and differentiable.  Off a
-    mesh, or on plain tensors, it is ``fn(*args)``."""
-    from repro_torch.tree import tree_leaves, tree_map
-
-    mesh = next((a.device_mesh for a in tree_leaves(list(args))
-                 if isinstance(a, DTensor)), None)
-    if mesh is None:
-        return fn(*args)
-    rep = [Replicate()] * mesh.ndim
-
-    def local(a):
-        if not isinstance(a, DTensor):
-            return a
-        if tuple(a.placements) != tuple(rep):
-            a = a.redistribute(mesh, rep)
-        return a.to_local()
-
-    def wrap(t):
-        if not isinstance(t, torch.Tensor):
-            return t
-        return DTensor.from_local(t, mesh, rep, run_check=False)
-
-    return tree_map(wrap, fn(*tree_map(local, list(args))))
-
-
 class _ContiguousGrad(torch.autograd.Function):
     """The identity, whose backward makes the gradient contiguous: the
     gradient ``to_local`` hands back becomes a DTensor with the forward's
@@ -809,21 +780,12 @@ def write_rows(buf: DTensor, dim: int, rows, value) -> None:
     shard of ``dim`` holds -- no sharded ``index_put`` and no slice
     assignment on a DTensor."""
     idx = _row_list(rows)
-    mesh = buf.device_mesh
     local = buf.to_local()
     lo, size = local_extent(buf, dim)
     if isinstance(value, torch.Tensor):
         if not isinstance(rows, (list, tuple, torch.Tensor)):
             value = value.unsqueeze(dim)
-        want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
-                     else p for p in buf.placements)
-        if not isinstance(value, DTensor):
-            value = DTensor.from_local(value, mesh,
-                                       [Replicate()] * mesh.ndim,
-                                       run_check=False)
-        if tuple(value.placements) != want:
-            value = value.redistribute(mesh, want)
-        value = value.to_local()
+        value = rows_like(buf, dim, value).to_local()
     for j, r in enumerate(idx):
         if lo <= r < lo + size:
             dst = local.select(dim, r - lo)
@@ -831,6 +793,22 @@ def write_rows(buf: DTensor, dim: int, rows, value) -> None:
                 dst.copy_(value.select(dim, j))
             else:
                 dst.fill_(value)
+
+
+def rows_like(buf: DTensor, dim: int, value: torch.Tensor) -> DTensor:
+    """``value`` (rows of ``buf`` along ``dim``, a plain tensor the same on
+    every rank or a DTensor) placed as ``read_rows`` returns rows:
+    ``buf``'s placements with ``dim`` replicated.  A plain value is split
+    where ``buf`` shards its other dims, locally, with no collective."""
+    mesh = buf.device_mesh
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+                 else p for p in buf.placements)
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    if tuple(value.placements) != want:
+        value = value.redistribute(mesh, want)
+    return value
 
 
 def rows_heads_roles(t: DTensor, row: Optional[int],

@@ -150,12 +150,46 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for a row-parallel weight (its rows shard over "model"):
     on a mesh through ``_RowParallelMatmul`` on local shards where it
     applies, a plain product otherwise.  The Mamba2 mixer's output
-    projection takes it directly (it has no ring route)."""
+    projection and the xLSTM blocks' down-projections take it directly
+    (they have no ring route)."""
     if isinstance(x, DTensor) and isinstance(w, DTensor):
         y = _row_parallel(x, w)
         if y is not None:
             return y
     return x @ w
+
+
+def column_parallel(fn, x: torch.Tensor, ws, shared=()) -> torch.Tensor:
+    """``fn(x, *ws, *shared)`` where each of ``ws`` is a column-parallel
+    weight (its last dim shards over "model") and ``fn`` maps ``x``
+    ``(B, ..., k)`` to ``(B, ..., n)`` through them, column by column (the
+    products and what is elementwise after them; ``shared`` are
+    replicated operands such as a norm's scale).  On a mesh it runs on
+    local shards (``dist.sharding.local_rows_heads``): ``x`` keeps its
+    batch rows' shards and replicates over "model", the result shards its
+    last dim over "model" as the weights do.  The products' backward then
+    takes ``dY`` in that placement and reduces ``dX`` once over "model":
+    DTensor's own propagation of the weight gradient's product refuses the
+    strided token shards a pipelined backward hands it.  Off a mesh, or
+    where "model" does not divide the columns, ``fn`` on the tensors as
+    they are."""
+    if not isinstance(x, DTensor):
+        return fn(x, *ws, *shared)
+    mesh = x.device_mesh
+    n = ws[0].shape[-1]
+    roles = []
+    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, x.placements)):
+        if name == "model" and mesh.size(i) > 1:
+            if n % mesh.size(i):
+                return fn(x, *ws, *shared)
+            roles.append("head")
+        else:
+            roles.append("row" if isinstance(p, Shard) and p.dim == 0
+                         else None)
+    last = x.dim() - 1
+    return local_rows_heads(
+        fn, [(x, 0, None)] + [(w, None, w.dim() - 1) for w in ws]
+        + [(s, None, None) for s in shared], [(0, last)], tuple(roles))
 
 
 def fused_column_matmul(x: torch.Tensor, ws) -> list:
@@ -629,18 +663,11 @@ def paged_attention_block(
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
 
     t = k_pool.shape[2]
-    pos = pos.long()
-    page_slot = pos // t
-    n_logical = table.shape[1]
-    page_ids = table.long().gather(
-        1, page_slot.clamp(max=n_logical - 1)[:, None])[:, 0]
-    # A position past the table (a stalled slot riding through the batch)
-    # must land on the null page, not clamp onto the slot's last live page.
-    page_ids = torch.where(page_slot < n_logical, page_ids, 0)
-    out = _pool_write_attend(q[:, 0], k[:, 0], v[:, 0], k_pool, v_pool,
-                             layer, page_ids, pos % t, table,
-                             (pos + 1).to(torch.int32),
-                             cfg.sliding_window or 0, t)
+    page_ids, off = pool_slots(table, pos, t)
+    out = pool_write_attend(q[:, 0], k[:, 0], v[:, 0], k_pool, v_pool, layer,
+                            page_ids, off, table,
+                            (pos.long() + 1).to(torch.int32),
+                            cfg.sliding_window or 0, t)
     return tp_matmul(out.reshape(b, s, -1), params["wo"].to(x.dtype), "row")
 
 
@@ -668,29 +695,41 @@ def paged_prefill_block(
     k = apply_rope(k, positions[None, :], cfg.rope_theta)
 
     t = k_pool.shape[2]
-    positions = positions.long()
-    page_slot = positions // t
-    n_logical = table_row.shape[0]
-    page_ids = table_row.long()[page_slot.clamp(max=n_logical - 1)]
-    page_ids = torch.where(page_slot < n_logical, page_ids, 0)
     # Each chunk token is a decode row over the same table with its own
     # causal length: the kernel's per-row length mask does the intra-chunk
     # causal masking.
-    table = table_row[None, :].expand(c, n_logical).contiguous()
-    out = _pool_write_attend(q[0], k[0], v[0], k_pool, v_pool, layer,
-                             page_ids, positions % t, table,
-                             (positions + 1).to(torch.int32),
-                             cfg.sliding_window or 0, t)
+    table = table_row[None, :].expand(c, table_row.shape[0]).contiguous()
+    page_ids, off = pool_slots(table, positions, t)
+    out = pool_write_attend(q[0], k[0], v[0], k_pool, v_pool, layer,
+                            page_ids, off, table,
+                            (positions.long() + 1).to(torch.int32),
+                            cfg.sliding_window or 0, t)
     return tp_matmul(out.reshape(b, c, -1), params["wo"].to(x.dtype), "row")
 
 
-def _pool_write_attend(q, k, v, k_pool, v_pool, layer: int,
-                       page_ids: torch.Tensor, off: torch.Tensor,
-                       table: torch.Tensor, lengths: torch.Tensor,
-                       window: int, t: int) -> torch.Tensor:
+def pool_slots(table: torch.Tensor, positions: torch.Tensor, t: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(page_ids, offsets)`` where each row's new K/V lands: page
+    ``table[r, positions[r] // t]`` at offset ``positions[r] % t``.  A
+    position past the table (a stalled slot riding through the batch)
+    lands on the null page 0, not clamped onto the slot's last live
+    page."""
+    positions = positions.long()
+    page_slot = positions // t
+    n_logical = table.shape[1]
+    page_ids = table.long().gather(
+        1, page_slot.clamp(max=n_logical - 1)[:, None])[:, 0]
+    return torch.where(page_slot < n_logical, page_ids, 0), positions % t
+
+
+def pool_write_attend(q, k, v, k_pool, v_pool, layer: int,
+                      page_ids: torch.Tensor, off: torch.Tensor,
+                      table: torch.Tensor, lengths: torch.Tensor,
+                      window: int, t: int) -> torch.Tensor:
     """Write the rows' new K/V ``(R, KV, D)`` into the pool at ``(page_ids,
     off)`` IN PLACE, then run the paged-attention kernel for the queries
-    ``(R, H, D)``; returns ``(R, H, D)``.
+    ``(R, H, D)``; returns ``(R, H, D)``.  ``v`` None: one pool is both K
+    and V (MLA's latent; ``v_pool`` is ``k_pool``), written once.
 
     On a mesh the pool is a DTensor whose KV heads shard over "model"
     when the plan's ``kv_shard > 1`` (replicated over the data axes), and
@@ -698,25 +737,31 @@ def _pool_write_attend(q, k, v, k_pool, v_pool, layer: int,
     (every data rank's pool holds every slot's rows) and sharded over
     heads as the pool is, are written into the local pool; the queries
     take the pool's head sharding (contiguous head blocks, so GQA's groups
-    stay whole) and keep their rows' data sharding, and the kernel runs on
-    this rank's rows and heads with the table rows and lengths those rows
-    own.  The kernel wrapper sees plain tensors only."""
+    stay whole) -- over one KV head, which every query head reads, they
+    keep their own -- and their rows' data sharding, and the kernel runs
+    on this rank's rows and heads with the table rows and lengths those
+    rows own.  The kernel wrapper sees plain tensors only."""
+    writes = ((k_pool, k),) if v is None else ((k_pool, k), (v_pool, v))
     if not isinstance(k_pool, DTensor):
-        k_pool[layer].index_put_((page_ids, off), k.to(k_pool.dtype))
-        v_pool[layer].index_put_((page_ids, off), v.to(v_pool.dtype))
+        for pool, new in writes:
+            pool[layer].index_put_((page_ids, off), new.to(pool.dtype))
         return paged_attention(q.contiguous(), k_pool[layer], v_pool[layer],
                                table, lengths, window=window, page_tokens=t)
     mesh = k_pool.device_mesh
     kv_place = like_heads_of(k, k_pool, 1, 3, row_dim=None)
-    kp, vp = k_pool.to_local(), v_pool.to_local()
-    for buf, new in ((kp, k), (vp, v)):
+    for pool, new in writes:
         if tuple(new.placements) != kv_place:
             new = new.redistribute(mesh, kv_place)
-        buf[layer].index_put_((page_ids, off), new.to_local().to(buf.dtype))
+        pool.to_local()[layer].index_put_(
+            (page_ids, off), new.to_local().to(pool.dtype))
     q_place = like_heads_of(q, k_pool, 1, 3, row_dim=0)
+    if k_pool.shape[3] == 1:
+        q_place = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 1
+                        else w for p, w in zip(q.placements, q_place))
     if tuple(q.placements) != q_place:
         q = q.redistribute(mesh, q_place)
     lo, n = local_extent(q, 0)
+    kp, vp = k_pool.to_local(), v_pool.to_local()
     out = paged_attention(q.to_local().contiguous(), kp[layer], vp[layer],
                           table[lo:lo + n].contiguous(), lengths[lo:lo + n],
                           window=window, page_tokens=t)

@@ -45,7 +45,7 @@ from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.dist.sharding import (active_rule, constrain,
                                        local_rows_heads, rows_heads_roles)
-from repro_torch.models.layers import rms_norm, row_parallel
+from repro_torch.models.layers import column_parallel, rms_norm, row_parallel
 from repro_torch.models.params import ParamSpec
 
 #: Chunks the tc body's planner chooses among.
@@ -354,7 +354,7 @@ def _chunked_scan(x, dt, A, Bm, Cm, chunk: int,
     differentiable training forward).
 
     On a mesh (DTensor arguments) the scan runs on local shards, as
-    ``models.layers._pool_write_attend`` runs the paged kernel: the batch
+    ``models.layers.pool_write_attend`` runs the paged kernel: the batch
     rows shard as the state's (the cache's slots) do and the heads as the
     state's heads do, B and C (no head dim) replicate over the head axes,
     and the kernel -- or ``ssd_chunked`` on the CPU -- gets this rank's
@@ -412,8 +412,12 @@ def mamba2_block(
     n = s_cfg.state_dim
     dtype = hidden.dtype
 
-    z = hidden @ params["wz"].to(dtype)
-    xin = hidden @ params["wx"].to(dtype)
+    # The two d_inner-wide projections run on local shards on a mesh
+    # (``layers.column_parallel``): DTensor refuses their weight
+    # gradients' products over the strided token shards a pipelined
+    # backward brings.
+    z = column_parallel(torch.matmul, hidden, (params["wz"].to(dtype),))
+    xin = column_parallel(torch.matmul, hidden, (params["wx"].to(dtype),))
     Bm = hidden @ params["wB"].to(dtype)
     Cm = hidden @ params["wC"].to(dtype)
     dt_raw = hidden @ params["wdt"].to(dtype)

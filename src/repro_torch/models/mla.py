@@ -39,8 +39,8 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.dist.sharding import local_rows_heads, rows_heads_roles
-from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.models.layers import (NEG_INF, apply_rope, rms_norm,
+from repro_torch.models.layers import (NEG_INF, apply_rope, pool_slots,
+                                       pool_write_attend, rms_norm,
                                        tp_matmul)
 from repro_torch.models.params import ParamSpec
 
@@ -223,22 +223,6 @@ def _mla_out(params: dict, o_lat: torch.Tensor, x_dtype) -> torch.Tensor:
     return _out_proj(out, params["wo"].to(x_dtype))
 
 
-def _write_rows(lat_pool: torch.Tensor, layer: int, table_rows: torch.Tensor,
-                positions: torch.Tensor, rows: torch.Tensor) -> None:
-    """Latent ``rows`` (N, R+dr) into layer ``layer`` of the pool at
-    ``positions`` (N,) through ``table_rows`` (N, NP), in place.  A
-    position past the table lands on the null page 0."""
-    t = lat_pool.shape[2]
-    positions = positions.long()
-    page_slot = positions // t
-    n_logical = table_rows.shape[1]
-    page_ids = table_rows.long().gather(
-        1, page_slot.clamp(max=n_logical - 1)[:, None])[:, 0]
-    page_ids = torch.where(page_slot < n_logical, page_ids, 0)
-    lat_pool[layer].index_put_((page_ids, positions % t),
-                               rows[:, None, :].to(lat_pool.dtype))
-
-
 def paged_mla_attention_block(
     params: dict,
     x: torch.Tensor,               # (S, 1, d) -- one decode token per slot
@@ -252,15 +236,10 @@ def paged_mla_attention_block(
     new token's latent row is written IN PLACE at ``table[s, pos // T]``,
     offset ``pos % T`` (empty slots: the null page), then every row
     attends over its pages with length ``pos + 1``.  Returns (S, 1, d)."""
-    m = cfg.mla
     q_cat, lat = _mla_latent_row(params, x, pos[:, None], cfg)
-    _write_rows(lat_pool, layer, table, pos, lat[:, 0])
-    pool = lat_pool[layer]
-    o_lat = paged_attention(q_cat[:, 0].contiguous(), pool, pool, table,
-                            (pos.long() + 1).to(torch.int32),
-                            window=cfg.sliding_window or 0,
-                            page_tokens=lat_pool.shape[2])
-    return _mla_out(params, o_lat[:, None, :, :m.kv_lora_rank], x.dtype)
+    o_lat = _latent_write_attend(q_cat[:, 0], lat[:, 0], cfg, lat_pool,
+                                 layer, table, pos)
+    return _mla_out(params, o_lat[:, None], x.dtype)
 
 
 def paged_mla_prefill_block(
@@ -276,14 +255,28 @@ def paged_mla_prefill_block(
     into the slot's pages, then each chunk token attends as a decode row
     of length ``position + 1`` over the same table (the kernel's per-row
     length mask is the causal mask).  Returns (1, C, d)."""
-    m = cfg.mla
     c = x.shape[1]
     q_cat, lat = _mla_latent_row(params, x, positions[None, :], cfg)
     table = table_row[None, :].expand(c, table_row.shape[0]).contiguous()
-    _write_rows(lat_pool, layer, table, positions, lat[0])
-    pool = lat_pool[layer]
-    o_lat = paged_attention(q_cat[0].contiguous(), pool, pool, table,
-                            (positions.long() + 1).to(torch.int32),
-                            window=cfg.sliding_window or 0,
-                            page_tokens=lat_pool.shape[2])
-    return _mla_out(params, o_lat[None, :, :, :m.kv_lora_rank], x.dtype)
+    o_lat = _latent_write_attend(q_cat[0], lat[0], cfg, lat_pool, layer,
+                                 table, positions)
+    return _mla_out(params, o_lat[None], x.dtype)
+
+
+def _latent_write_attend(q_cat: torch.Tensor, lat: torch.Tensor, cfg,
+                         lat_pool: torch.Tensor, layer: int,
+                         table: torch.Tensor, positions: torch.Tensor
+                         ) -> torch.Tensor:
+    """The rows' latent ``lat`` (N, R+dr) written into the pool at
+    ``positions`` through ``table`` (N, NP), then the absorbed queries
+    ``q_cat`` (N, H, R+dr) against it: the paged kernel over one KV head
+    whose pool is both K and V (``layers.pool_write_attend``: on a mesh on
+    local shards, the queries' rows over the data axes and their heads as
+    ``_project_q`` shards them).  Returns the latent output (N, H, R)."""
+    t = lat_pool.shape[2]
+    page_ids, off = pool_slots(table, positions, t)
+    o_lat = pool_write_attend(q_cat, lat[:, None], None, lat_pool, lat_pool,
+                              layer, page_ids, off, table,
+                              (positions.long() + 1).to(torch.int32),
+                              cfg.sliding_window or 0, t)
+    return o_lat[..., :cfg.mla.kv_lora_rank]

@@ -20,10 +20,12 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.dist.sharding import constrain, replicated_region, \
-    split_heads
-from repro_torch.models.layers import rms_norm
+from repro_torch.dist.sharding import (constrain, local_rows_heads,
+                                       rows_heads_roles, split_heads)
+from repro_torch.models.layers import column_parallel, rms_norm, \
+    row_parallel
 from repro_torch.models.mamba2 import causal_conv1d
 from repro_torch.models.params import ParamSpec
 from repro_torch.roofline.ops import loop
@@ -184,6 +186,26 @@ def slstm_scan(
     return torch.stack(hs, 1), (c, n, hprev, m)
 
 
+def on_rows(fn, *args, n_out: int, shared=()):
+    """``fn(*args)`` for a recurrent cell whose work is independent along
+    the batch rows (dim 0 of every argument but those ``shared`` names by
+    position, such as the sLSTM's recurrent weights; an argument may be
+    None), returning ``n_out`` tensors with their rows on dim 0.  On a
+    mesh each rank runs the cell on its own rows, as the first argument's
+    rows shard over the data axes, with every other dim gathered whole
+    (``dist.sharding.local_rows_heads``): DTensor has no rule for the
+    cells' ``logsigmoid``, and a model axis wider than the heads cannot
+    split them.  Off a mesh, ``fn(*args)``."""
+    lead = args[0]
+    if not isinstance(lead, DTensor):
+        return fn(*args)
+    return local_rows_heads(
+        fn, [(a, None if i in shared else 0, None)
+             for i, a in enumerate(args)], [(0, None)] * n_out,
+        tuple("row" if r == "row" else None
+              for r in rows_heads_roles(lead, 0, None)))
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -239,27 +261,35 @@ def mlstm_block(
     v = split_heads(xm @ params["wv"].to(xm.dtype), h, dh, "state_heads")
     i_pre, f_pre = (xm @ params["wif"].to(xm.dtype)).chunk(2, dim=-1)
 
-    new_cache = None
-    if cache is not None and s == 1:
-        # DTensor has no rule for logsigmoid: on a mesh the step runs
-        # replicated, as the chunkwise cell does.
-        hout, (C, n, m) = replicated_region(
-            mlstm_step, q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0],
-            (cache["C"], cache["n"], cache["m"]))
-        hout = hout[:, None]
-        new_cache = {"conv": new_conv, "C": C, "n": n, "m": m}
-    else:
-        state = None if cache is None else (cache["C"], cache["n"],
-                                            cache["m"])
-        # DTensor has no rule for logsigmoid's backward: on a mesh the
-        # cell runs replicated.
-        hout, (C, n, m) = replicated_region(mlstm_chunkwise, q, k, v, i_pre,
-                                            f_pre, chunk, state)
-        if cache is not None:
-            new_cache = {"conv": new_conv, "C": C, "n": n, "m": m}
+    step = cache is not None and s == 1
 
-    hout = rms_norm(hout.reshape(b, s, di), params["out_norm"], cfg.norm_eps)
-    out = (hout * F.silu(z)) @ params["w_down"].to(hout.dtype)
+    def cell(q, k, v, i_pre, f_pre, C, n, m):
+        # The heads come back flattened (B, S, di): on a mesh the view runs
+        # on the local shards, whose output takes its gradient whole over
+        # "model" -- a gradient sharded there finer than the heads cannot
+        # be viewed back into them.
+        state = None if C is None else (C, n, m)
+        if step:
+            h_out, state = mlstm_step(q, k, v, i_pre, f_pre, state)
+        else:
+            h_out, state = mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk,
+                                           state)
+        return (h_out.reshape(h_out.shape[0], s, di),) + state
+
+    gates = (q, k, v, i_pre, f_pre)
+    if step:
+        gates = tuple(a[:, 0] for a in gates)
+    state = (None,) * 3 if cache is None else (cache["C"], cache["n"],
+                                               cache["m"])
+    hout, C, n, m = on_rows(cell, *gates, *state, n_out=4)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"conv": new_conv, "C": C, "n": n, "m": m}
+
+    hout = rms_norm(hout, params["out_norm"], cfg.norm_eps)
+    # Row-parallel on local shards (``layers.row_parallel``), as the
+    # sLSTM block's down-projection below.
+    out = row_parallel(hout * F.silu(z), params["w_down"].to(hout.dtype))
     return out, new_cache
 
 
@@ -295,9 +325,9 @@ def slstm_block(
     b, s, d = hidden.shape
     h = cfg.n_heads
     dh = d // h
-    # The recurrence runs replicated on a mesh (below), so the gate
-    # pre-activations are gathered whole before the gate split: a model
-    # axis wider than the 4 gates cannot split them while sharded.
+    # The recurrence takes its heads whole on a mesh (below), so the gate
+    # pre-activations are gathered over "model" before the gate split: a
+    # model axis wider than the 4 gates cannot split them while sharded.
     gx = constrain(hidden @ params["w_gates"].to(hidden.dtype),
                    ("batch", None, None))
     gx = gx.reshape(b, s, 4, h, dh).movedim(2, 3)       # (B, S, H, 4, dh)
@@ -306,15 +336,27 @@ def slstm_block(
     else:
         zero = hidden.new_zeros((b, h, dh), dtype=torch.float32)
         state = (zero, zero, zero, torch.full_like(zero, NEG))
-    # DTensor cannot unbind the gate dim it shards: on a mesh the
-    # recurrence runs replicated.
-    hs, (c, n, hstate, m) = replicated_region(slstm_scan, gx,
-                                              params["r_gates"], state)
+    def cell(gx, r, *state):
+        hs, state = slstm_scan(gx, r, state)
+        return (hs,) + state
+
+    hs, c, n, hstate, m = on_rows(cell, gx, params["r_gates"], *state,
+                                  n_out=5, shared=(1,))
     new_cache = None
     if cache is not None:
         new_cache = {"c": c, "n": n, "h": hstate, "m": m}
-    hs = rms_norm(hs.to(hidden.dtype).reshape(b, s, d), params["out_norm"],
-                  cfg.norm_eps)
-    up = F.gelu(hs @ params["w_up_g"].to(hs.dtype), approximate="tanh") * (
-        hs @ params["w_up_v"].to(hs.dtype))
-    return up @ params["w_down"].to(up.dtype), new_cache
+    hs = hs.to(hidden.dtype).reshape(b, s, d)
+
+    def up_proj(hs, wg, wv, norm):
+        hs = rms_norm(hs, norm, cfg.norm_eps)
+        return F.gelu(hs @ wg, approximate="tanh") * (hs @ wv)
+
+    # On a mesh the norm, the gated up-projection and the down-projection
+    # run on local shards (``layers.column_parallel``, ``row_parallel``):
+    # DTensor propagates neither the weight gradients' products over the
+    # strided token shards a pipelined backward brings nor a norm's
+    # gradient sharded finer than the heads the recurrence splits.
+    up = column_parallel(up_proj, hs, (params["w_up_g"].to(hs.dtype),
+                                       params["w_up_v"].to(hs.dtype)),
+                         (params["out_norm"],))
+    return row_parallel(up, params["w_down"].to(up.dtype)), new_cache

@@ -62,7 +62,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.plan import HierarchicalPlan, PlanError, PlanPolicy, \
     Workload, plan_run
-from repro_torch.models.model import Model
+from repro_torch.models.model import FAMILIES, Model
 from repro_torch.obs import MetricsView, Registry, RingLog, Tracer
 from repro_torch.serve.kvcache import (
     PageSpec,
@@ -79,10 +79,12 @@ from repro_torch.serve.pages import (
     STATE_GROUPS,
     PagePool,
     PagedScheduler,
+    copy_page,
     export_pool_pages,
     host_array,
     init_paged_cache,
     install_pool_pages,
+    place_slot_rows,
     reset_slot,
     set_slot_rows,
     slot_rows,
@@ -316,23 +318,26 @@ class ServeEngine:
     table, sampling -- is the same on every rank, which samples the same
     tokens from the logits gathered whole.  ``mesh=None`` is the meshless
     engine, the reference's one-device host mesh.  On a mesh the engine
-    serves the families ``MESH_FAMILIES`` names for its batching -- every
-    family cohort, every family but mla_moe paged -- without the radix
-    prefix cache.  The per-slot state rows of the paged engine (slots
-    over the data axes, heads over "model") are reset, saved and restored
-    through each rank's own shard.
+    serves what it serves without one (``MESH_FAMILIES``: every family
+    cohort and every paged family paged, with the radix prefix cache and
+    ``export_pages``/``import_pages``).  The per-slot state rows of the
+    paged engine (slots over the data axes, heads over "model") are
+    reset, saved, snapshotted and restored through each rank's own
+    shard; mla_moe's latent pool (one KV head of ``R + dr``) replicates
+    over "model" and its paged blocks run the kernel on each rank's
+    query rows and heads; the persistent radix session keeps its cache
+    placed, a CoW copy copies each rank's shard of the page, and exported
+    pages are gathered whole (the meshless payload), installed pages
+    split to each rank's shard.
     """
 
-    #: Families each batching serves on a mesh.  The per-slot state rows
-    #: (xLSTM and Mamba2 state, enc_dec's cross K/V) are read and written
-    #: through each rank's local shard (``serve.pages.slot_rows``), and
-    #: hybrid_ssm's scan and step run on local shards (``models.mamba2``:
-    #: the ``ssd_scan`` kernel on the card).  Off the list: the paged path
-    #: of mla_moe, whose latent pool has no local-shard route yet.
-    MESH_FAMILIES = {"paged": ("dense", "moe", "xlstm", "enc_dec",
-                               "hybrid_ssm"),
-                     "cohort": ("dense", "moe", "vlm", "mla_moe", "xlstm",
-                                "enc_dec", "hybrid_ssm")}
+    #: Families each batching serves on a mesh: all of them.  The per-slot
+    #: state rows (xLSTM and Mamba2 state, enc_dec's cross K/V) are read
+    #: and written through each rank's local shard
+    #: (``serve.pages.slot_rows``); hybrid_ssm's scan and step and the
+    #: paged attention blocks (the K/V pools and MLA's latent pool) run on
+    #: local shards.
+    MESH_FAMILIES = {"paged": PAGED_FAMILIES, "cohort": FAMILIES}
 
     #: Ring-buffer bounds: the tracer's event ring, the interleave log and
     #: each request's token-time log cap here (overflow drops the oldest).
@@ -355,9 +360,6 @@ class ServeEngine:
         hierarchy=None,
     ):
         if mesh is not None:
-            if policy.prefix_cache != "off":
-                raise NotImplementedError(
-                    "the radix prefix cache is not implemented on a mesh")
             device = device if device is not None else mesh.device_type
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -378,11 +380,6 @@ class ServeEngine:
                              and cfg.family in PAGED_FAMILIES else "cohort")
         elif self.batching == "paged" and cfg.family not in PAGED_FAMILIES:
             self.batching = "cohort"        # no paged decode path
-        if mesh is not None and \
-                cfg.family not in self.MESH_FAMILIES[self.batching]:
-            raise NotImplementedError(
-                f"{self.batching} serving of family {cfg.family!r} on a "
-                f"mesh is not implemented; on a mesh: {self.MESH_FAMILIES}")
         self.model = Model(cfg)
         self.budget_bytes = (int(policy.kv_budget_bytes)
                              if policy.kv_budget_bytes is not None
@@ -913,16 +910,18 @@ class ServeEngine:
                               pages_total: int) -> _PagedSession:
         """The persistent radix session (pool + pooled cache + tree) for
         this geometry, created or rebuilt on a geometry change (the import
-        path materializes it before any generate call)."""
+        path materializes it before any generate call).  On a mesh its
+        cache is placed here, once, by the steps of ``n_slots``: every
+        later call, import and export sees the placed buffers."""
         key = (n_slots, pages_per_slot, pages_total)
         sess = self._paged_session
         if sess is not None and sess.key == key:
             return sess
         self._paged_session = None      # let the old buffers go first
         pool = PagePool(pages_total, obs=self.obs, tracer=self.tracer)
-        cache = init_paged_cache(self.cfg, n_slots, pages_total,
-                                 self.page.page_tokens, pages_per_slot,
-                                 self.dtype, self.device)
+        cache = self._session_steps(n_slots).place_cache(init_paged_cache(
+            self.cfg, n_slots, pages_total, self.page.page_tokens,
+            pages_per_slot, self.dtype, self.device))
         budget = self.plan.prefix_budget()
         if not budget:                    # no page level (xLSTM)
             budget = self.budget_bytes
@@ -942,6 +941,11 @@ class ServeEngine:
         self._paged_session = _PagedSession(key, pool, cache, prefix)
         return self._paged_session
 
+    def _session_steps(self, n_slots: int):
+        """The paged steps for ``n_slots``: off a mesh one set serves every
+        slot count; on a mesh the slots' data sharding depends on it."""
+        return self.steps if self.mesh is None else self._paged_steps(n_slots)
+
     def _snapshot(self, cache: PyTree, slot: int, clone: bool = True
                   ) -> Dict[str, Any]:
         """One slot's recurrent state (the family's ``STATE_GROUPS``) as
@@ -960,11 +964,12 @@ class ServeEngine:
         source page into the slot's private copy (every pool buffer, the
         only page-sized copy of the hit path) and restore the state
         snapshot into the slot's state rows.  Shared full pages need no
-        device work: the slot's page table already points at them."""
+        device work: the slot's page table already points at them.  On a
+        mesh both happen on each rank's own shard."""
         if hit.cow is not None:
             src, dst = hit.cow
             for buf in cache["pool"].values():
-                buf[:, dst].copy_(buf[:, src])
+                copy_page(buf, src, dst)
         for g, rows in (hit.state or {}).items():
             for k, value in rows.items():
                 set_slot_rows(cache["state"][g][k], slot, value)
@@ -1031,8 +1036,9 @@ class ServeEngine:
                 f"{n}-page import; raise kv_budget_bytes")
         install_pool_pages(sess.cache, pids, payloads)
         state = sess.cache["state"]
-        on_card = {int(n_tok): {g: {k: torch.as_tensor(np.asarray(v)).to(
-            state[g][k].device, state[g][k].dtype)
+        on_card = {int(n_tok): {g: {k: place_slot_rows(
+            state[g][k], torch.as_tensor(np.asarray(v)).to(
+                state[g][k].device, state[g][k].dtype))
             for k, v in rows.items()} for g, rows in snap.items()}
             for n_tok, snap in (snaps or {}).items()}
         prefix.insert(toks, list(pids), snaps=on_card)
@@ -1066,24 +1072,21 @@ class ServeEngine:
         window = self.cfg.sliding_window
         pages_per_slot, pages_total = self._paged_geometry(reqs, n_slots)
         enc_max = max(r.group[1] for r in reqs)   # longest encoder (enc_dec)
+        steps = self._session_steps(n_slots)
         if self._prefix_on():
             # Cross-call persistence: the pool's refcounts, the cached
             # prefixes' pages and the radix tree survive between generate
-            # calls as long as the geometry matches.
+            # calls as long as the geometry matches (the cache placed once,
+            # when the session was made).
             sess = self._ensure_paged_session(n_slots, pages_per_slot,
                                               pages_total)
             pool, cache, prefix = sess.pool, sess.cache, sess.prefix
         else:
             pool = PagePool(pages_total, obs=self.obs, tracer=self.tracer)
-            cache = init_paged_cache(self.cfg, n_slots, pages_total,
-                                     page.page_tokens, pages_per_slot,
-                                     self.dtype, dev, enc_len=enc_max)
+            cache = steps.place_cache(init_paged_cache(
+                self.cfg, n_slots, pages_total, page.page_tokens,
+                pages_per_slot, self.dtype, dev, enc_len=enc_max))
             prefix = None
-        # Off a mesh one set of steps serves every slot count; on a mesh
-        # the slots' data sharding depends on it.
-        steps = self.steps if self.mesh is None \
-            else self._paged_steps(n_slots)
-        cache = steps.place_cache(cache)
         params = self._params_for(steps)
         sched = PagedScheduler(pool, page, n_slots, pages_per_slot,
                                window=window, prefix=prefix)

@@ -28,7 +28,12 @@ mla_moe, hybrid_ssm, xlstm and enc_dec families).
     installs an enc-dec request's cross K/V.
   * ``export_pool_pages`` / ``install_pool_pages`` -- physical pages as
     host numpy payloads, one ``(L, page_tokens, KV, D)`` array per pool
-    buffer, and back into another pool in place.
+    buffer, and back into another pool in place; ``copy_page`` -- the
+    prefix cache's copy-on-write of one page.
+
+On a mesh the pool and the state buffers are DTensors (the page dim never
+shards), and every read and write here goes through each rank's own
+shard: a payload is whole either way.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import read_rows, write_rows
+from repro_torch.dist.sharding import (from_local_like, read_rows, rows_like,
+                                       write_rows)
 from repro_torch.serve.kvcache import PageSpec, attn_apps
 from repro_torch.serve.scheduler import Request
 
@@ -511,6 +517,17 @@ def slot_rows(buf: torch.Tensor, slots) -> torch.Tensor:
     return buf[:, slots] if dim else buf[slots]
 
 
+def place_slot_rows(buf: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """One slot's rows (shaped as ``slot_rows(buf, slot)`` returns them)
+    placed as ``slot_rows`` places them: on a mesh a DTensor replicated
+    over the slot axis and split as ``buf`` splits its other dims (each
+    rank keeps its own heads' rows); the identity off one."""
+    if not isinstance(buf, DTensor):
+        return value
+    dim = 1 if buf.dim() >= 2 else 0
+    return rows_like(buf, dim, value.unsqueeze(dim)).select(dim, 0)
+
+
 def set_slot_rows(buf: torch.Tensor, slots, value) -> None:
     """Write ``value`` (a tensor or a scalar) into the rows of ``slots`` of
     a per-slot state buffer (the axis as in ``slot_rows``), in place, cast
@@ -569,12 +586,24 @@ def paged_cache_logical_axes(cfg: ModelConfig, cache: PyTree) -> PyTree:
 
 
 def host_array(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a host numpy array; bf16, which numpy lacks, travels as
-    float32 (exact) and is cast back on install."""
+    """A tensor as a host numpy array (a DTensor gathered whole); bf16,
+    which numpy lacks, travels as float32 (exact) and is cast back on
+    install."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu")
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def copy_page(buf: torch.Tensor, src: int, dst: int) -> None:
+    """Copy physical page ``src`` of a pool buffer ``(L, P, ...)`` onto page
+    ``dst``, in place (the prefix cache's copy-on-write).  On a mesh each
+    rank copies its own shard of the page: the page dim never shards."""
+    if isinstance(buf, DTensor):
+        buf = buf.to_local()
+    buf[:, dst].copy_(buf[:, src])
 
 
 def export_pool_pages(cache: PyTree, page_ids: Sequence[int]
@@ -584,11 +613,23 @@ def export_pool_pages(cache: PyTree, page_ids: Sequence[int]
     ``(L, page_tokens, KV, D)`` array, the cross-layer slice of ONE
     physical page.  Payloads are keyed by position in the logical page
     chain, never by physical id: physical numbering is private to each
-    pool.  One gather and one copy to the host per buffer."""
+    pool.  One gather and one copy to the host per buffer; on a mesh the
+    pages are taken from each rank's shard and gathered whole, so the
+    payloads are the meshless engine's."""
     if not page_ids:
         return []
     idx = torch.tensor([int(p) for p in page_ids], dtype=torch.long)
-    host = {name: host_array(buf[:, idx.to(buf.device)])
+
+    def pages(buf):
+        if not isinstance(buf, DTensor):
+            return buf[:, idx.to(buf.device)]
+        local = buf.to_local()
+        return from_local_like(
+            local[:, idx.to(local.device)], buf.device_mesh,
+            tuple(buf.placements),
+            (buf.shape[0], len(page_ids)) + tuple(buf.shape[2:]))
+
+    host = {name: host_array(pages(buf))
             for name, buf in cache["pool"].items()}
     return [{name: arr[:, i] for name, arr in host.items()}
             for i in range(len(page_ids))]
@@ -600,7 +641,9 @@ def install_pool_pages(cache: PyTree, page_ids: Sequence[int],
     in place: the i-th payload lands on ``page_ids[i]`` (freshly allocated
     pages of the receiving pool).  Buffer names and per-page shapes must
     match the receiving pool's layout -- both sides plan the same
-    geometry, so a mismatch is an error, not a fallback.  Returns the
+    geometry, so a mismatch is an error, not a fallback.  On a mesh each
+    rank writes its own shard of every page (``dist.sharding.write_rows``):
+    a payload is whole, as the meshless engine exports it.  Returns the
     cache."""
     if len(page_ids) != len(payloads):
         raise ValueError(f"{len(page_ids)} pages for {len(payloads)} payloads")
@@ -614,5 +657,9 @@ def install_pool_pages(cache: PyTree, page_ids: Sequence[int],
                 raise ValueError(
                     f"page payload {name!r} shape {tuple(data.shape)} != "
                     f"pool page shape {tuple(page_shape)}")
-            buf[:, int(pid)].copy_(data.to(buf.device, buf.dtype))
+            data = data.to(buf.device, buf.dtype)
+            if isinstance(buf, DTensor):
+                write_rows(buf, 1, int(pid), data)
+            else:
+                buf[:, int(pid)].copy_(data)
     return cache

@@ -330,7 +330,10 @@ def make_paged_steps(
     from repro_torch.serve.pages import paged_cache_logical_axes
 
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
-    heads_divide = cfg.n_kv_heads % sizes.get("model", 1) == 0
+    # The pool's KV heads: mla_moe's latent pool holds one (its R + dr
+    # row), whatever ``n_kv_heads`` says, and a dim of one never shards.
+    pool_kv = 1 if cfg.family == "mla_moe" else cfg.n_kv_heads
+    heads_divide = pool_kv % sizes.get("model", 1) == 0
     kv_shard = decode_plan.kv_shard() if decode_plan is not None else 1
     shape = ShapeConfig("paged", 1, n_slots, "decode")
     rules = arch_rules(

@@ -15,9 +15,11 @@ dry run's sampled loops, the cells DTensor could not propagate, and the
         "model" gives the meshless loss and logits' gradient at 1e-5
         relative, with and without z-loss, and asks for no all-gather;
       - one training step of reduced deepseek-v2 (MLA on local shards,
-        expert parallelism), zamba2 (the SSD scan on local shards) and
-        mixtral (the router on local shards) equals the meshless step:
-        loss, gradient norm and both moments at 1e-4 relative.
+        expert parallelism), zamba2 (the SSD scan on local shards),
+        mixtral (the router on local shards) and xlstm at a global batch
+        of 2, one row a data rank (its projections on local shards)
+        equals the meshless step: loss, gradient norm and both moments at
+        1e-4 relative.
   * In a subprocess over a 4-rank fake world (``FakeTensorMode``), the
     dry run's ``lower_cell``:
       - on reduced llama3.2-1b x train_4k at (2, 2): no all-gather with
@@ -35,7 +37,13 @@ dry run's sampled loops, the cells DTensor could not propagate, and the
       - lowers a reduced cell of each cell DTensor refused on the
         production meshes: deepseek-v2 x train_4k and x decode_32k,
         zamba2 x train_4k and mixtral x train_4k, on (2, 2) and, for the
-        first three, on a (2, 1, 2) pod mesh.
+        first three, on a (2, 1, 2) pod mesh;
+      - lowers reduced xlstm-1.3b x train at (2, 2) with a global batch
+        of 2, one row a data rank;
+      - over a 512-rank fake world, lowers the two multi-pod cells DTensor
+        refused, xlstm-1.3b and zamba2-1.2b x train_4k on 2x16x16, at full
+        width with the depth cut to one period of the products that
+        failed (``MULTI_POD_DEPTHS``).
   * ``kernels.ssd_scan.ssd_scan`` raises ``TypeError`` on a DTensor.
 """
 
@@ -52,7 +60,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 import torch_dist_workers as W
 import torch_mesh_parity as M
-from repro_torch.configs import TrainConfig, get_model_config
+from repro_torch.configs import ShapeConfig, TrainConfig, get_model_config
 from repro_torch.launch.mesh import spawn_world
 from repro_torch.launch.trainer import make_train_step
 from repro_torch.models.layers import blockwise_attention, cross_entropy_loss
@@ -65,6 +73,14 @@ from repro_torch.tree import tree_flatten_with_paths
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_ARCHS = ["deepseek-v2-236b", "zamba2-1.2b", "mixtral-8x7b"]
+#: xLSTM's step at a global batch of 2: one row a data rank.
+ROW_A_RANK = ShapeConfig("tiny", seq_len=16, global_batch=2, kind="train")
+STEP_SHAPES = {"xlstm-1.3b": ROW_A_RANK}
+#: The two cells that failed on the multi-pod mesh, at full width and
+#: train_4k, cut to one period of layers that holds every product that
+#: failed: xLSTM's 8 (seven mLSTM blocks and the sLSTM block) and two of
+#: zamba2's Mamba2 mixers.
+MULTI_POD_DEPTHS = {"xlstm-1.3b": 8, "zamba2-1.2b": 2}
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 _FAKE = textwrap.dedent("""
@@ -82,6 +98,22 @@ _FAKE = textwrap.dedent("""
     from repro_torch.launch.dryrun import lower_cell
     from repro_torch.models import layers as L
 
+    if sys.argv[1] == "multi":
+        # The production multi-pod mesh, full width, its loops sampled.
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=512)
+        mesh = init_device_mesh("cpu", (2, 16, 16),
+                                mesh_dim_names=("pod", "data", "model"))
+        D.MAX_BLOCK_TRIPS = 0
+        out = {}
+        for arch, depth in json.loads(sys.argv[2]).items():
+            r = lower_cell(arch, "train_4k", True, mesh=mesh,
+                           cfg=dataclasses.replace(get_model_config(arch),
+                                                   n_layers=depth))
+            out[f"cells/{arch}/train_4k/2x16x16"] = {
+                k: r[k] for k in ("status", "flops", "memory")}
+        print(json.dumps(out))
+        sys.exit(0)
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
     pods = sys.argv[1] == "pods"
     # A pod axis pipelines the step (the slowest lowerings): the multi-pod
@@ -146,6 +178,11 @@ _FAKE = textwrap.dedent("""
         if pods and arch == "mixtral-8x7b":
             continue          # refused on the single-pod mesh only
         out[f"cells/{arch}/{shape.name}/{mesh_name}"] = cell(arch, shape)
+    if not pods:
+        # One row a data rank: DTensor refused the strided token shards
+        # of xLSTM's weight-gradient products at this batch.
+        out["cells/xlstm-1.3b/train_4k_batch2/2x2"] = cell(
+            "xlstm-1.3b", dataclasses.replace(train, global_batch=2))
     print(json.dumps(out))
 """)
 
@@ -169,25 +206,31 @@ def results(tmp_path_factory):
          "labels": rng.integers(0, 32, (4, 6)).astype(np.int64)}
     inputs = str(tmp / "inputs.npz")
     np.savez(inputs, **d)
-    steps = str(tmp / "steps.npz")
-    M._inputs(STEP_ARCHS, steps)
-    procs = [subprocess.Popen([sys.executable, "-c", _FAKE, which],
+    groups = []
+    for shape in (M.SHAPE, ROW_A_RANK):
+        archs = [a for a in STEP_ARCHS + list(STEP_SHAPES)
+                 if STEP_SHAPES.get(a, M.SHAPE) == shape]
+        path = str(tmp / f"steps_{shape.global_batch}.npz")
+        M._inputs(archs, path, shape)
+        groups.append((path, archs, shape.seq_len, shape.global_batch))
+    procs = [subprocess.Popen([sys.executable, "-c", _FAKE, which,
+                               json.dumps(MULTI_POD_DEPTHS)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, env=_env())
-             for which in ("main", "pods")]
+             for which in ("main", "pods", "multi")]
     try:
-        ranks = spawn_world(
-            W.repairs_world, 4, str(tmp / "store"),
-            args=(inputs, steps, STEP_ARCHS, M.SHAPE.seq_len,
-                  M.SHAPE.global_batch), timeout_s=400)
+        ranks = spawn_world(W.repairs_world, 4, str(tmp / "store"),
+                            args=(inputs, groups), timeout_s=400)
     finally:
         outs = [p.communicate(timeout=600) for p in procs]
     fake = {}
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, out[-2000:] + err[-4000:]
         fake.update(json.loads(out.strip().splitlines()[-1]))
-    with np.load(steps) as z:
-        step_inputs = {k: z[k] for k in z.files}
+    step_inputs = {}
+    for path, *_ in groups:
+        with np.load(path) as z:
+            step_inputs.update({k: z[k] for k in z.files})
     return d, ranks, fake, step_inputs
 
 
@@ -311,22 +354,27 @@ def test_sampled_loops_count_forward_and_backward(name):
     "deepseek-v2-236b/train_4k/2x2", "deepseek-v2-236b/train_4k/2x1x2",
     "deepseek-v2-236b/decode_32k/2x2", "deepseek-v2-236b/decode_32k/2x1x2",
     "zamba2-1.2b/train_4k/2x2", "zamba2-1.2b/train_4k/2x1x2",
-    "mixtral-8x7b/train_4k/2x2"])
+    "mixtral-8x7b/train_4k/2x2", "xlstm-1.3b/train_4k_batch2/2x2",
+    "xlstm-1.3b/train_4k/2x16x16", "zamba2-1.2b/train_4k/2x16x16"])
 def test_cells_dtensor_refused_now_lower(results, cell):
     rep = results[2][f"cells/{cell}"]
     assert rep["status"] == "ok" and rep["flops"] > 0
     assert rep["memory"]["peak_bytes"] > 0
 
 
-@pytest.mark.parametrize("arch", STEP_ARCHS)
+@pytest.mark.parametrize("arch", STEP_ARCHS + list(STEP_SHAPES))
 def test_meshed_step_equals_meshless(results, arch):
     """The products moved onto local shards give the meshless step: the
-    metrics and both AdamW moments (the gradients) at 1e-4 relative."""
+    metrics and both AdamW moments (the gradients) at 1e-4 relative.
+    xLSTM's step takes a global batch of 2, one row a data rank (DTensor
+    refused its strided token shards before its projections ran on local
+    shards)."""
     _, ranks, _, d = results
     cfg = get_model_config(arch).reduced()
     train = TrainConfig(dtype="float32", remat="none", warmup_steps=2,
                         total_steps=10)
-    ts = make_train_step(cfg, M.SHAPE, None, train, device="cpu")
+    ts = make_train_step(cfg, STEP_SHAPES.get(arch, M.SHAPE), None, train,
+                         device="cpu")
     params = params_from_numpy(W._sub(d, f"{arch}/p/"), cfg, "cpu")
     batch = {k: torch.from_numpy(v) for k, v in
              W._sub(d, f"{arch}/bt/").items()}

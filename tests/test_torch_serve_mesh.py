@@ -2,12 +2,13 @@
 ``kv_budget(mesh=)``, ``make_serve_steps``' cache sharding and
 ``ServeEngine(mesh=)`` against the JAX package's.
 
-  * The decode plan on meshes (1, 1), (2, 2), (2, 4) and (16, 16), at a
-    16 GiB and a 220 kB HBM, with the same leaf, equals the reference's:
-    ``kv_shard``, the mesh level's ``np_raw``, ``page_tokens`` and the
-    pool's pages; the KV budget equals the reference's ``_kv_budget``
-    arithmetic.  (Both configs as registered: the TPU calibration
-    artifact of the JAX package is pointed away.)
+  * The decode plan of llama and deepseek-v2 on meshes (1, 1), (2, 2),
+    (2, 4) and (16, 16), at a 16 GiB and a 220 kB HBM, with the same leaf,
+    equals the reference's: ``kv_shard``, the mesh level's ``np_raw``,
+    ``page_tokens``, the pool's pages and ``prefix_budget()``; the KV
+    budget equals the reference's ``_kv_budget`` arithmetic.  (Both
+    configs as registered: the TPU calibration artifact of the JAX
+    package is pointed away.)
   * ``make_serve_steps``' ``cache_sharding`` equals the reference's
     PartitionSpecs on a (2, 2) mesh in every branch of its decision
     (``cache_policy`` auto, baseline and plan; heads that divide the model
@@ -24,18 +25,26 @@
     ``kv_shard`` is 2.  The sequence-sharded cohort steps
     (``cache_seq_sharded=True``) give the reference's logits at 1e-5
     (float32), prefill and three decode steps.
-  * The other families the mesh engine admits (mixtral paged and cohort;
-    the cohort engine of qwen2-vl, whisper, deepseek-v2 and xlstm; the
-    paged engine of xlstm and whisper; zamba2 paged and cohort) give the
-    greedy tokens of the meshless engine and of the reference's engine on
-    a (2, 2) host mesh, on the same 4-rank world shape and the same
-    weights and prompts.  The paged engine's per-slot state buffers shard
-    on each rank (their rows reached through local shards), zamba2's scan
-    runs on local tensors, and a zamba2 slot that stalls under a
-    three-page pool resumes on its saved state with the tokens of both
-    engines.  Paged mla_moe and the prefix cache are refused with
-    ``NotImplementedError``.
-    zamba2's training forward on (2, 2) equals the reference's forward on
+  * The other families (mixtral paged and cohort; the cohort engine of
+    qwen2-vl, whisper, deepseek-v2 and xlstm; the paged engine of xlstm,
+    whisper and deepseek-v2; zamba2 paged and cohort) give the greedy
+    tokens of the meshless engine and of the reference's engine on a
+    (2, 2) host mesh, on the same 4-rank world shape and the same weights
+    and prompts, at the reference's ``kv_shard``.  The paged engine's
+    per-slot state buffers shard on each rank (their rows reached through
+    local shards), zamba2's scan runs on local tensors, deepseek-v2's
+    paged attention runs on each rank's query heads over the replicated
+    latent pool, and a zamba2 slot that stalls under a three-page pool
+    resumes on its saved state with the tokens of both engines.
+  * The radix prefix cache on (2, 2), llama (a mid-page hit: CoW) and
+    zamba2 (a snapshot restore): warm tokens equal cold, the meshless
+    warm engine's and the reference's warm engine's, with the
+    reference's prefix metrics and bytes; the mesh engine's exported
+    pages are the meshless engine's, and pages cross both ways between a
+    mesh and a meshless engine with the cold tokens after them.
+  * ``ServeEngine(mesh=)`` refuses nothing: paged mla_moe and the prefix
+    cache construct and serve on a one-rank (1, 1) mesh.
+  * zamba2's training forward on (2, 2) equals the reference's forward on
     a (2, 2) ``jax.sharding.Mesh`` and the meshless one at 2e-4.
 """
 
@@ -62,11 +71,13 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.dist.sharding import AbstractMesh
 from repro_torch.hw import h100_spec
 from repro_torch.launch.mesh import spawn_world
-from repro_torch.models.model import Model
+from repro_torch.models.model import FAMILIES, Model
 from repro_torch.serve import ServeEngine, ServePolicy
 from repro_torch.serve.engine import kv_budget, plan_decode
 from repro_torch.serve.steps import make_serve_steps
+from repro_torch.serve.pages import PAGED_FAMILIES
 from repro_torch.tree import tree_flatten_with_paths
+from test_torch_serve_prefix import PREFIX_KEYS, _shared_prefix_prompts
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LEAF = 16 << 10
@@ -235,12 +246,13 @@ def _ref_mesh(d: int, m: int):
     return types.SimpleNamespace(shape={"data": d, "model": m})
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v2-236b"])
 @pytest.mark.parametrize("hbm", [BIG, SMALL])
 @pytest.mark.parametrize("mesh", MESHES)
-def test_plan_decode_on_mesh_matches_reference(mesh, hbm):
+def test_plan_decode_on_mesh_matches_reference(mesh, hbm, arch):
     d, m = mesh
-    cfg = get_model_config("llama3.2-1b").reduced()
-    rcfg = ref_config("llama3.2-1b").reduced()
+    cfg = get_model_config(arch).reduced()
+    rcfg = ref_config(arch).reduced()
     mine = plan_decode(cfg, AbstractMesh(mesh, ("data", "model")),
                        max_len=64, batch=4, dtype_bytes=4,
                        spec=h100_spec(smem_bytes=LEAF, hbm_bytes=hbm))
@@ -255,6 +267,7 @@ def test_plan_decode_on_mesh_matches_reference(mesh, hbm):
     assert mine.page_plan()["page_tokens"] == ref.page_plan()["page_tokens"]
     assert mine.page_table()["pages_total"] == \
         ref.page_table()["pages_total"]
+    assert mine.prefix_budget() == ref.prefix_budget()
     # The reference engine's _kv_budget arithmetic on its own plan.
     n_dev, data_n = d * m, d
     hbm_total = rp.budget_bytes * n_dev
@@ -331,10 +344,12 @@ FAMILY_CASES = [("mixtral-8x7b", "paged"), ("mixtral-8x7b", "cohort"),
                 ("qwen2-vl-7b", "cohort"), ("whisper-large-v3", "cohort"),
                 ("deepseek-v2-236b", "cohort"), ("xlstm-1.3b", "cohort"),
                 ("xlstm-1.3b", "paged"), ("whisper-large-v3", "paged"),
-                ("zamba2-1.2b", "cohort"), ("zamba2-1.2b", "paged")]
+                ("zamba2-1.2b", "cohort"), ("zamba2-1.2b", "paged"),
+                ("deepseek-v2-236b", "paged")]
 #: The cases whose per-slot state rows (or whose Mamba2 scan) a mesh
 #: reaches through local shards.
-STATE_CASES = FAMILY_CASES[-4:]
+STATE_CASES = FAMILY_CASES[6:10]
+MLA_CASE = ("deepseek-v2-236b", "paged")
 HYBRID = "zamba2-1.2b"
 HYBRID_BATCHES = (1, 2)
 #: zamba2 paged under a pool of three 16-token pages (16 KiB of shared
@@ -345,6 +360,19 @@ HYBRID_BATCHES = (1, 2)
 STALL = {"key": "stall", "max_len": 64, "max_slots": 2,
          "kv_budget_bytes": 3 * 16 * 1024, "smem": LEAF, "news": [12, 24]}
 STALL_CASE = (HYBRID, "paged", STALL)
+#: The radix prefix cache on the mesh (``tests/test_torch_serve_prefix.py``'s
+#: case): two prompts share 2.5 pages (of a 16 KiB leaf's plan), so the
+#: hit ends mid-page -- a CoW copy on llama; zamba2 rounds down to the
+#: page boundary and restores its state snapshot there -- and two slots
+#: (over "data") serve them one ``generate`` call each, the second
+#: hitting the first's published pages.
+PREFIX_ARCHS = ("llama3.2-1b", "zamba2-1.2b")
+#: Their pages at that leaf and ``max_len`` 256, on (2, 2) as off a mesh.
+PREFIX_PAGES = {"llama3.2-1b": 32, "zamba2-1.2b": 16}
+PREFIX_OPTS = {"prefix": list(PREFIX_KEYS), "smem": LEAF, "max_len": 256,
+               "max_slots": 2}
+PREFIX_CASES = [(arch, "paged", dict(PREFIX_OPTS, key=f"prefix_{arch}"))
+                for arch in PREFIX_ARCHS]
 
 _REF_FAMILIES = textwrap.dedent("""
     import os, sys, json, dataclasses
@@ -405,7 +433,9 @@ _REF_FAMILIES = textwrap.dedent("""
         eng._paged_steps = steps
         return eng
 
-    out = {"tokens": [], "stalls": []}
+    from repro.serve.prefix import _state_nbytes
+
+    out = {"tokens": [], "stalls": [], "kv_shard": [], "prefix": []}
     for case in cases:
         arch, batching = case[:2]
         opts = case[2] if len(case) > 2 else {}
@@ -420,16 +450,32 @@ _REF_FAMILIES = textwrap.dedent("""
                    for p in prompts]
         spec = (chip_spec(vmem_bytes=opts["smem"], vmem_reserved_bytes=0)
                 if "smem" in opts else None)
+        prefix = opts.get("prefix")
         eng = ServeEngine(cfg, mesh, policy=ServePolicy(
             max_new_tokens=4, max_len=opts.get("max_len", 64),
             max_slots=opts.get("max_slots", 4), batching=batching,
-            kv_budget_bytes=opts.get("kv_budget_bytes")),
+            kv_budget_bytes=opts.get("kv_budget_bytes"),
+            prefix_cache="radix" if prefix else "off"),
             params=nested(arch + "/p/"), spec=spec)
         eng = _synchronous(placed_cache(eng)) if batching == "paged" \
             else host_decode_batch(eng)
-        out["tokens"].append(eng.generate(prompts,
-                                          max_new_tokens=opts.get("news")))
+        if prefix:
+            # One call a prompt: the later ones hit the earlier ones'
+            # pages (the session is kept: every call has one request).
+            out["tokens"].append([eng.generate([p])[0] for p in prompts])
+            got = {k: eng.metrics[k] for k in prefix}
+            got["prefix_resident_bytes"] = eng.stats()[
+                "prefix_resident_bytes"]
+            got["prefix_state_bytes"] = sum(
+                _state_nbytes(n.state)
+                for n in eng._paged_session.prefix._nodes)
+            out["prefix"].append(got)
+        else:
+            out["tokens"].append(eng.generate(
+                prompts, max_new_tokens=opts.get("news")))
+            out["prefix"].append(None)
         out["stalls"].append(eng.metrics["stalls"])
+        out["kv_shard"].append(eng.plan.kv_shard())
 
     arch = sys.argv[3]
     cfg = get_model_config(arch).reduced()
@@ -481,27 +527,66 @@ def _hybrid_tokens(batch: int) -> np.ndarray:
     return np.random.default_rng(2).integers(0, cfg.vocab_size, (batch, 12))
 
 
+def _prefix_prompts(arch: str) -> list:
+    cfg = get_model_config(arch).reduced()
+    return _shared_prefix_prompts(cfg, PREFIX_PAGES[arch], "mid_page",
+                                  np.random.default_rng(0xA11CE))[1]
+
+
+def _prefix_engine(arch: str, prefix: str) -> ServeEngine:
+    """The meshless engine of a prefix case, on the world's weights."""
+    cfg = get_model_config(arch).reduced()
+    return ServeEngine(cfg, ServePolicy(
+        max_new_tokens=4, max_len=PREFIX_OPTS["max_len"],
+        max_slots=PREFIX_OPTS["max_slots"], batching="paged",
+        prefix_cache=prefix), params=Model(cfg).init(0, "cpu", torch.float32),
+        spec=h100_spec(smem_bytes=LEAF), device="cpu")
+
+
+def _meshless_prefix(arch: str) -> dict:
+    """A prefix case off the mesh: the cold tokens, and the warm engine's
+    tokens (one call a prompt), metrics, bytes and export of the first
+    prompt."""
+    ps = _prefix_prompts(arch)
+    warm = _prefix_engine(arch, "radix")
+    toks = [warm.generate([p])[0] for p in ps]
+    st = warm.stats()
+    return {"cold": _prefix_engine(arch, "off").generate(ps),
+            "warm": toks, "page_tokens": warm.page.page_tokens,
+            "budget": warm.budget_bytes,
+            "metrics": {k: warm.metrics[k] for k in PREFIX_KEYS},
+            "stats": {k: st[k] for k in ("prefix_state_bytes",
+                                         "prefix_resident_bytes",
+                                         "prefix_state_budget_bytes")},
+            "export": warm.export_pages(ps[0])}
+
+
 @pytest.fixture(scope="module")
 def families(tmp_path_factory):
     """The other families served on the 4-rank world and by the
     reference's engine on a (2, 2) host mesh, at the same time, on the
-    same seeded weights (``Model.init(0)``) and prompts; and the
-    reference's zamba2 forward on that mesh."""
+    same seeded weights (``Model.init(0)``) and prompts; the reference's
+    zamba2 forward on that mesh; and the prefix cases off the mesh (whose
+    exports the world's engines import)."""
     tmp = tmp_path_factory.mktemp("serve_mesh_families")
     prompts = {arch: _family_prompts(arch) for arch, _ in FAMILY_CASES}
     prompts["stall"] = _stall_prompts()
-    cases = FAMILY_CASES + [STALL_CASE]
+    meshless = {}
+    for arch, _, opts in PREFIX_CASES:
+        prompts[opts["key"]] = _prefix_prompts(arch)
+        meshless[arch] = _meshless_prefix(arch)
+    cases = FAMILY_CASES + [STALL_CASE] + PREFIX_CASES
     flat = {}
-    for arch in dict.fromkeys(arch for arch, _ in FAMILY_CASES):
+    for arch in dict.fromkeys(case[0] for case in cases):
         cfg = get_model_config(arch).reduced()
         for k, v in tree_flatten_with_paths(
                 Model(cfg).init(0, "cpu", torch.float32)).items():
             flat[f"{arch}/p/" + k.replace(".", "/")] = v.numpy()
-    for arch, ps in prompts.items():
+    for key, ps in prompts.items():
         for i, p in enumerate(ps):
             for k, v in (p.items() if isinstance(p, dict)
                          else [("tokens", p)]):
-                flat[f"{arch}/prompt/{i}/{k}"] = v
+                flat[f"{key}/prompt/{i}/{k}"] = v
     for b in HYBRID_BATCHES:
         flat[f"{HYBRID}/forward/{b}"] = _hybrid_tokens(b).astype(np.int32)
     inputs = str(tmp / "inputs.npz")
@@ -513,24 +598,28 @@ def families(tmp_path_factory):
          json.dumps(cases), HYBRID, os.path.join(REPO, "tests"),
          json.dumps(HYBRID_BATCHES)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    # The world's prefix engines also import the meshless export.
+    world_cases = [case[:2] + (dict(case[2], **{"import": meshless[case[0]][
+        "export"]}),) if case in PREFIX_CASES else case for case in cases]
     try:
         ranks = spawn_world(W.serve_families_world, 4,
-                            str(tmp / "store"), args=(cases, prompts),
+                            str(tmp / "store"), args=(world_cases, prompts),
                             timeout_s=400)
     finally:
         out, err = proc.communicate(timeout=600)
     assert proc.returncode == 0, out[-2000:] + err[-4000:]
-    return prompts, ranks, json.loads(out.strip().splitlines()[-1])
+    return prompts, ranks, json.loads(out.strip().splitlines()[-1]), \
+        meshless
 
 
 def test_other_families_on_mesh_match_meshless(families):
     """moe (mixtral: its window and expert dispatch), paged and cohort, the
     cohort engine of vlm, enc_dec, mla_moe and xlstm, the paged engine of
-    xlstm and enc_dec, and hybrid_ssm paged and cohort on 4 gloo ranks at
-    (2, 2): the greedy tokens of the meshless engine and of the
-    reference's engine on a (2, 2) host mesh, on the same seeded
-    weights."""
-    prompts, ranks, ref = families
+    xlstm, enc_dec and mla_moe, and hybrid_ssm paged and cohort on 4 gloo
+    ranks at (2, 2): the greedy tokens of the meshless engine and of the
+    reference's engine on a (2, 2) host mesh, on the same seeded weights,
+    and the reference's ``kv_shard``."""
+    prompts, ranks, ref, _ = families
     for i, (arch, batching) in enumerate(FAMILY_CASES):
         cfg = get_model_config(arch).reduced()
         want = ServeEngine(cfg, ServePolicy(max_new_tokens=4, max_len=64,
@@ -540,6 +629,28 @@ def test_other_families_on_mesh_match_meshless(families):
         assert want == ref["tokens"][i], (arch, batching)
         for rank in ranks:
             assert rank[i]["tokens"] == want, (arch, batching)
+            assert rank[i]["kv_shard"] == ref["kv_shard"][i], (arch,
+                                                                batching)
+
+
+def test_paged_mla_on_mesh_runs_on_local_rows_and_heads(families):
+    """Paged deepseek-v2 on (2, 2): the plan's ``kv_shard`` is the
+    reference's, 1, so the latent pool -- one KV head of ``R + dr`` --
+    replicates over "model"; every paged-attention launch (decode and the
+    prefill chunks) took plain tensors of this rank's query heads, half of
+    them, over the one latent head."""
+    _, ranks, ref, _ = families
+    i = FAMILY_CASES.index(MLA_CASE)
+    cfg = get_model_config(MLA_CASE[0]).reduced()
+    assert ref["kv_shard"][i] == 1
+    for rank in ranks:
+        got = rank[i]
+        assert got["kv_shard"] == 1
+        launches = {k: n for k, n in got["calls"].items()
+                    if k.startswith("paged/")}
+        assert launches == {f"paged/{cfg.n_heads // 2}/1":
+                            sum(launches.values())}
+        assert sum(launches.values()) >= cfg.n_layers
 
 
 @pytest.mark.parametrize("case", STATE_CASES,
@@ -552,7 +663,7 @@ def test_state_rows_and_scan_on_local_shards(families, case):
     frozen slots' save and restore wrote each rank's own shard; zamba2's
     scan ran on local tensors only, and its one-token step was handed on
     from DTensors to local ones."""
-    _, ranks, _ = families
+    _, ranks, _, _ = families
     i = FAMILY_CASES.index(case)
     arch, batching = case
     for rank in ranks:
@@ -578,11 +689,12 @@ def test_stalled_hybrid_slot_on_mesh(families):
     shards around each tick it rides through, and the greedy tokens equal
     the meshless engine's under the same pool, the unconstrained
     engine's, and the reference's engine on a (2, 2) host mesh."""
-    prompts, ranks, ref = families
+    prompts, ranks, ref, _ = families
     cfg = get_model_config(HYBRID).reduced()
     params = Model(cfg).init(0, "cpu", torch.float32)
     spec = h100_spec(smem_bytes=LEAF)
     news = STALL["news"]
+    i = len(FAMILY_CASES)
 
     def engine(budget):
         return ServeEngine(cfg, ServePolicy(
@@ -596,10 +708,10 @@ def test_stalled_hybrid_slot_on_mesh(families):
     assert tight.metrics["stalls"] >= 1
     assert engine(None).generate(prompts["stall"],
                                  max_new_tokens=news) == want
-    assert ref["tokens"][-1] == want and ref["stalls"][-1] >= 1
+    assert ref["tokens"][i] == want and ref["stalls"][i] >= 1
     for rank in ranks:
-        assert rank[-1]["tokens"] == want
-        assert rank[-1]["stalls"] >= 1
+        assert rank[i]["tokens"] == want
+        assert rank[i]["stalls"] >= 1
 
 
 @pytest.mark.parametrize("batch", HYBRID_BATCHES)
@@ -627,14 +739,113 @@ def test_hybrid_forward_with_replicated_batch(families, tmp_path, batch):
                                    atol=2e-4)
 
 
-def test_mesh_engine_refuses_what_it_does_not_serve():
-    """Still refused on a mesh: paged mla_moe (its latent pool) and the
-    radix prefix cache."""
-    mesh = AbstractMesh((1, 1), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="mla_moe"):
-        ServeEngine(get_model_config("deepseek-v2-236b").reduced(),
-                    ServePolicy(batching="paged"), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="prefix"):
-        ServeEngine(get_model_config("llama3.2-1b").reduced(),
-                    ServePolicy(prefix_cache="radix"), device="cpu",
-                    mesh=mesh)
+def _prefix_index(arch: str) -> int:
+    return len(FAMILY_CASES) + 1 + PREFIX_ARCHS.index(arch)
+
+
+@pytest.mark.parametrize("arch", PREFIX_ARCHS)
+def test_prefix_cache_on_mesh_matches_meshless_and_reference(families,
+                                                             arch):
+    """The radix prefix cache on (2, 2): the second prompt hits the
+    first's pages -- on llama mid-page, so the hit copies the divergent
+    page (each rank its own shard of it); on zamba2 at the page boundary,
+    restoring the state snapshot through the local shards -- and the warm
+    tokens equal the cold ones, the meshless warm engine's and the
+    reference's warm engine's on a (2, 2) host mesh.  The prefix metrics,
+    ``prefix_resident_bytes`` and the snapshots' bytes (global, as the
+    reference counts them) equal the reference's and the meshless
+    engine's.  The snapshot cap, which the reference has not, is the
+    engine's KV budget (on the mesh the fleet's, the reference's) less the
+    pool's and state rows' bytes, as off the mesh.  Each rank's snapshots
+    hold only its own heads' rows."""
+    _, ranks, ref, meshless = families
+    i = _prefix_index(arch)
+    m = meshless[arch]
+    assert m["page_tokens"] == PREFIX_PAGES[arch]
+    assert m["warm"] == m["cold"] == ref["tokens"][i]
+    assert m["metrics"]["prefix_hits"] == 1
+    assert m["metrics"]["cow_copies"] == (0 if arch == HYBRID else 1)
+    for k, v in ref["prefix"][i].items():
+        want = m["metrics"][k] if k in PREFIX_KEYS else m["stats"][k]
+        assert v == want, k
+    assert (m["stats"]["prefix_state_bytes"] > 0) == (arch == HYBRID)
+    cap = "prefix_state_budget_bytes"
+    for rank in ranks:
+        got = rank[i]
+        assert got["tokens"] == m["cold"]
+        assert got["page_tokens"] == m["page_tokens"]
+        mine = dict(got["prefix"])
+        assert mine.pop(cap) == (None if m["stats"][cap] is None else
+                                 m["stats"][cap] + got["budget"]
+                                 - m["budget"])
+        assert mine == {k: v for k, v in {**m["metrics"],
+                                          **m["stats"]}.items()
+                        if k != cap}
+        if arch == HYBRID:
+            assert got["snaps"]
+            assert all(local <= whole for whole, local in got["snaps"])
+            assert sum(local for _, local in got["snaps"]) < \
+                sum(whole for whole, _ in got["snaps"])
+
+
+def _same_payload(a: dict, b: dict, **tol) -> None:
+    assert a["tokens"] == b["tokens"] and a["page_tokens"] == \
+        b["page_tokens"]
+    assert len(a["pages"]) == len(b["pages"]) > 0
+    for pa, pb in zip(a["pages"], b["pages"]):
+        assert pa.keys() == pb.keys()
+        for k in pa:
+            np.testing.assert_allclose(pa[k], pb[k], **tol)
+    assert a["snaps"].keys() == b["snaps"].keys()
+    for n, snap in a["snaps"].items():
+        for g, rows in snap.items():
+            for k, v in rows.items():
+                np.testing.assert_allclose(v, b["snaps"][n][g][k], **tol)
+
+
+@pytest.mark.parametrize("arch", PREFIX_ARCHS)
+def test_page_export_and_import_across_the_mesh(families, arch):
+    """``export_pages`` on (2, 2) returns the meshless engine's payloads:
+    whole ``(L, T, KV, D)`` pages (and zamba2's snapshots) gathered from
+    the shards -- equal at float32's summation-order noise to the pages
+    the meshless engine computed, and bit for bit where the mesh engine
+    exports what it imported.  A meshless export installed into a mesh
+    engine, and the mesh export installed into a meshless engine, each
+    give the cold tokens of the prompt that shares their prefix, through
+    one hit."""
+    prompts, ranks, _, meshless = families
+    i = _prefix_index(arch)
+    m = meshless[arch]
+    for rank in ranks:
+        got = rank[i]
+        _same_payload(got["export"], m["export"], rtol=1e-5, atol=1e-5)
+        _same_payload(got["imported"]["export"], m["export"], rtol=0,
+                      atol=0)
+        assert got["imported"]["tokens"] == [m["cold"][-1]]
+        assert got["imported"]["hits"] == 1
+    ex = ranks[0][i]["export"]
+    eng = _prefix_engine(arch, "radix")
+    eng.import_pages(ex["tokens"], ex["pages"], ex["snaps"])
+    assert eng.generate([prompts[f"prefix_{arch}"][-1]]) == [m["cold"][-1]]
+    assert eng.metrics["prefix_hits"] == 1
+
+
+def test_mesh_engine_serves_what_the_meshless_engine_serves(tmp_path):
+    """``ServeEngine(mesh=)`` refuses nothing: every paged family paged,
+    every family cohort, and the radix prefix cache.  The two cases it
+    refused before -- paged mla_moe and the prefix cache -- construct on a
+    one-rank (1, 1) mesh and serve the meshless engine's tokens."""
+    assert set(ServeEngine.MESH_FAMILIES["paged"]) == set(PAGED_FAMILIES)
+    assert set(ServeEngine.MESH_FAMILIES["cohort"]) == set(FAMILIES)
+    cases = [("deepseek-v2-236b", "paged", "off"),
+             ("llama3.2-1b", "paged", "radix")]
+    got = spawn_world(W.serve_one_rank_world, 1, str(tmp_path / "store"),
+                      args=(cases,), timeout_s=300)[0]
+    for (arch, batching, prefix), toks in zip(cases, got):
+        cfg = get_model_config(arch).reduced()
+        want = ServeEngine(cfg, ServePolicy(
+            max_new_tokens=3, max_len=64, max_slots=2, batching=batching,
+            prefix_cache=prefix), params=Model(cfg).init(
+                0, "cpu", torch.float32), device="cpu").generate(
+                    [np.arange(5, dtype=np.int32)])
+        assert toks == want, arch

@@ -2,11 +2,11 @@
 families against the JAX package's, on 4 ranks in float32 (the runs and
 the tolerance rule are in ``tests/torch_mesh_parity.py``).
 
-For reduced xlstm-1.3b (the cells in a replicated region) and zamba2-1.2b
-(Mamba2 blocks and the shared attention): the training forward under
-gspmd, ring and serpentine rules on a (1, 4) mesh at 2e-4, and one
-``make_train_step`` step on (2, 2) against the reference's step on a
-(2, 2) host mesh.
+For reduced xlstm-1.3b (the cells on each data rank's batch rows) and
+zamba2-1.2b (Mamba2 blocks and the shared attention): the training
+forward under gspmd, ring and serpentine rules on a (1, 4) mesh at 2e-4,
+and one ``make_train_step`` step on (2, 2) against the reference's step
+on a (2, 2) host mesh.
 """
 
 import pytest

@@ -408,16 +408,27 @@ def serve_families_world(rank: int, cases: list, prompts: dict) -> list:
     request (``opts["news"]`` where given), float32, the prompts of
     ``prompts[opts.get("key", arch)]``; ``opts`` may also set ``max_len``,
     ``max_slots``, ``kv_budget_bytes`` and ``smem`` (the planner's shared
-    memory).  Returns for each case its greedy tokens, the engine's stall
-    count, each per-slot state buffer's global and local shapes (paged
-    engines), and how the Mamba2 scans and steps were called: on
-    DTensors (which the mixer hands to its local route) or on local
-    tensors."""
+    memory).  Returns for each case its greedy tokens, the plan's
+    ``kv_shard``, the KV budget, the page, the engine's stall count, each
+    per-slot state buffer's global and local shapes (paged engines), how
+    the Mamba2 scans and steps were called -- on DTensors (which the mixer
+    hands to its local route) or on local tensors -- and the local query
+    and KV heads of every paged-attention call.
+
+    With ``opts["prefix"]`` the engine takes the radix prefix cache and
+    serves the prompts one ``generate`` call each (the later ones hit the
+    earlier ones' pages), and the case also returns the prefix metrics,
+    the prefix bytes of ``stats()``, ``export_pages`` of the first prompt,
+    each snapshot leaf's global and local element counts, and, of a fresh
+    mesh engine that imported ``opts["import"]`` (an export from another
+    engine), its own export of those pages and its tokens and hits
+    serving the last prompt."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get_model_config
     from repro_torch.hw import h100_spec
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
     from repro_torch.models import mamba2 as M2
     from repro_torch.models.model import Model
     from repro_torch.serve import ServeEngine, ServePolicy
@@ -434,8 +445,16 @@ def serve_families_world(rank: int, cases: list, prompts: dict) -> list:
             return fn(*args, **kw)
         return wrapped
 
+    def paged(fn):
+        def wrapped(q, k_pages, *args, **kw):
+            key = f"paged/{q.shape[1]}/{k_pages.shape[-2]}"
+            calls[key] = calls.get(key, 0) + 1
+            return fn(q, k_pages, *args, **kw)
+        return wrapped
+
     M2.ssd_chunked = counted("scan", M2.ssd_chunked)
     M2.ssd_step = counted("step", M2.ssd_step)
+    L.paged_attention = paged(L.paged_attention)
     mesh = make_host_mesh(model_axis=2, device="cpu")
     out = []
     for case in cases:
@@ -443,17 +462,48 @@ def serve_families_world(rank: int, cases: list, prompts: dict) -> list:
         opts = case[2] if len(case) > 2 else {}
         cfg = get_model_config(arch).reduced()
         calls.clear()
-        eng = ServeEngine(
-            cfg, ServePolicy(max_new_tokens=4,
-                             max_len=opts.get("max_len", 64),
-                             max_slots=opts.get("max_slots", 4),
-                             batching=batching,
-                             kv_budget_bytes=opts.get("kv_budget_bytes")),
-            params=Model(cfg).init(0, "cpu", torch.float32), device="cpu",
-            mesh=mesh, spec=h100_spec(smem_bytes=opts["smem"])
-            if "smem" in opts else None)
-        toks = eng.generate(prompts[opts.get("key", arch)],
-                            max_new_tokens=opts.get("news"))
+
+        def engine(prefix="off"):
+            return ServeEngine(
+                cfg, ServePolicy(max_new_tokens=4,
+                                 max_len=opts.get("max_len", 64),
+                                 max_slots=opts.get("max_slots", 4),
+                                 batching=batching, prefix_cache=prefix,
+                                 kv_budget_bytes=opts.get(
+                                     "kv_budget_bytes")),
+                params=Model(cfg).init(0, "cpu", torch.float32),
+                device="cpu", mesh=mesh,
+                spec=h100_spec(smem_bytes=opts["smem"])
+                if "smem" in opts else None)
+
+        ps = prompts[opts.get("key", arch)]
+        got = {}
+        if opts.get("prefix"):
+            eng = engine("radix")
+            toks = [eng.generate([p])[0] for p in ps]
+            st = eng.stats()
+            got["prefix"] = {k: eng.metrics[k] for k in opts["prefix"]}
+            got["prefix"].update({k: st[k] for k in (
+                "prefix_state_bytes", "prefix_resident_bytes",
+                "prefix_state_budget_bytes")})
+            got["export"] = eng.export_pages(ps[0])
+            # Each rank's snapshots hold the rows of its own heads only.
+            snaps = [leaf for node in eng._paged_session.prefix._nodes
+                     if node.state for leaf in tree_flatten_with_paths(
+                         node.state).values()]
+            got["snaps"] = [(leaf.numel(), leaf.to_local().numel())
+                            for leaf in snaps]
+            imp = engine("radix")
+            payload = opts["import"]
+            imp.import_pages(payload["tokens"], payload["pages"],
+                             payload["snaps"])
+            got["imported"] = {"export": imp.export_pages(
+                payload["tokens"])}
+            got["imported"].update(tokens=imp.generate([ps[-1]]),
+                                   hits=imp.metrics["prefix_hits"])
+        else:
+            eng = engine()
+            toks = eng.generate(ps, max_new_tokens=opts.get("news"))
         state = {}
         if batching == "paged":
             cache = eng._paged_steps(eng.policy.max_slots).place_cache(
@@ -463,8 +513,34 @@ def serve_families_world(rank: int, cases: list, prompts: dict) -> list:
             state = {k: [list(v.shape), list(v.to_local().shape)]
                      for k, v in tree_flatten_with_paths(
                          cache["state"]).items()}
-        out.append({"tokens": toks, "stalls": eng.metrics["stalls"],
-                    "state": state, "calls": dict(calls)})
+        got.update({"tokens": toks, "kv_shard": eng.plan.kv_shard(),
+                    "budget": eng.budget_bytes,
+                    "page_tokens": eng.page.page_tokens,
+                    "stalls": eng.metrics["stalls"], "state": state,
+                    "calls": dict(calls)})
+        out.append(got)
+    return out
+
+
+def serve_one_rank_world(rank: int, cases: list) -> list:
+    """``ServeEngine(mesh=)`` on a one-rank (1, 1) CPU mesh for each
+    ``(arch, batching, prefix_cache)`` of ``cases``: the greedy tokens of
+    one short prompt (the reduced config's seeded weights, float32)."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine, ServePolicy
+
+    mesh = make_host_mesh(model_axis=1, device="cpu")
+    out = []
+    for arch, batching, prefix in cases:
+        cfg = get_model_config(arch).reduced()
+        eng = ServeEngine(cfg, ServePolicy(max_new_tokens=3, max_len=64,
+                                           max_slots=2, batching=batching,
+                                           prefix_cache=prefix),
+                          params=Model(cfg).init(0, "cpu", torch.float32),
+                          device="cpu", mesh=mesh)
+        out.append(eng.generate([np.arange(5, dtype=np.int32)]))
     return out
 
 
@@ -616,11 +692,12 @@ def step_world(rank: int, inputs: str, archs: list, seq_len: int,
     return out
 
 
-def repairs_world(rank: int, inputs: str, steps: str, archs: list,
-                  seq_len: int, batch: int) -> dict:
+def repairs_world(rank: int, inputs: str, steps: list) -> dict:
     """``row_parallel_world``, ``loss_world`` and ``step_world`` in one
-    world."""
+    world: ``steps`` holds ``(npz, archs, seq_len, batch)`` groups, a
+    ``step_world`` call each."""
     out = row_parallel_world(rank, inputs)
     out.update(loss_world(rank, inputs))
-    out.update(step_world(rank, steps, archs, seq_len, batch))
+    for group in steps:
+        out.update(step_world(rank, *group))
     return out

@@ -138,14 +138,15 @@ def fsdp_spec(arch: str) -> dict:
             "overhead": cfg.overhead}
 
 
-def _inputs(archs, path: str) -> None:
-    """Each arch's seeded parameters and batch, as the npz both sides read."""
+def _inputs(archs, path: str, shape: ShapeConfig = SHAPE) -> None:
+    """Each arch's seeded parameters and batch of ``shape``, as the npz
+    both sides read."""
     out = {}
     for i, arch in enumerate(archs):
         cfg = get_model_config(arch).reduced()
         for k, v in tree_flatten_with_paths(Model(cfg).init(i, device="cpu")).items():
             out[f"{arch}/p/{k}"] = v.numpy()
-        batch = make_batch(cfg, SHAPE, np.random.default_rng(i),
+        batch = make_batch(cfg, shape, np.random.default_rng(i),
                            dtype=torch.float32, device="cpu")
         for k, v in batch.items():
             out[f"{arch}/bt/{k}"] = v.numpy()
