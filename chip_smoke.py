@@ -107,7 +107,9 @@ Phases (each prints its results; the script exits non-zero if any fails):
      ~1,024 tokens over one table; bf16 (the mla body) and float32 (simt,
      16-head tiles) against the plain version, two bf16 runs
      bit-identical; then the times of mla, simt, plain and gather + SDPA
-     beside the bound, and the mla kernel's SASS counts from phase 1;
+     beside the bound, the device time of each kernel (one: no combine
+     kernel, no workspace), and the mla kernel's SASS counts from phase 1
+     (HGMMA and UTMALDG, no HMMA or LDGSTS);
  16. deepseek-v2-236b at full width cut to 2 layers (the dense one and
      one MoE layer of 160 experts), float32, ~21 GB of weights on each
      side (the host's free memory printed first): prefill in planned
@@ -357,9 +359,9 @@ LONG_MAX_LEN = 8192
 #: pool: one layer's float32 draw (1.9 GB for the experts' ``wi``),
 #: activations, workspaces and the allocator's slack.
 MIXTRAL_HEADROOM = 6e9
-#: Phase 12's deepest cut: 12 of mixtral-8x7b's 32 layers (25 fit the
+#: Phase 12's deepest cut: 6 of mixtral-8x7b's 32 layers (25 fit the
 #: card), which keeps the script inside its time limit.
-MIXTRAL_LAYERS = 12
+MIXTRAL_LAYERS = 6
 PROFILE = "--profile" in sys.argv[1:]
 #: Phase 5/6 shapes: llama3.2-1b's MLP up-projection and attention over a
 #: 4096-token prefill, zamba2-1.2b's SSD mixer (d_inner 2 x 2048 = 64 heads
@@ -630,7 +632,8 @@ def paged_timing(pa_mod, name, lens, shared, t, cfg, split_sizes=(),
     ``window`` as in ``make_case``."""
     from repro_torch.kernels.paged_attention import (mla_split_plan,
                                                      paged_attention,
-                                                     split_plan)
+                                                     split_plan,
+                                                     workspace_bytes)
     from repro_torch.kernels.ref import paged_attention_ref
 
     case = make_case(torch.bfloat16, lens, t, shared, LAYER_COPIES, cfg=cfg,
@@ -658,9 +661,14 @@ def paged_timing(pa_mod, name, lens, shared, t, cfg, split_sizes=(),
     nbytes, ops = live_work(case, window)
     bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
     n_kv = kp.shape[3]
+    group = q.shape[1] // n_kv
+    # The mla plan's second figure is its cluster's blocks (head tiles x
+    # splits), the split plan's the pages a split.
     splits, pages = (
-        mla_split_plan(len(lens), n_kv, q.shape[1] // n_kv, table.shape[1], t)
+        mla_split_plan(len(lens), n_kv, group, table.shape[1], t)
         if cfg.mla else split_plan(len(lens), n_kv, table.shape[1], t))
+    plan = (f"{splits} splits, clusters of {pages} blocks" if cfg.mla
+            else f"{splits} splits of {pages} pages")
     before = counters(pa_mod, PAGED_BODIES)
     ms = cuda_ms(run_kernel)
     row = {
@@ -671,18 +679,21 @@ def paged_timing(pa_mod, name, lens, shared, t, cfg, split_sizes=(),
         "library_ms": cuda_ms(run_lib, reps=10),
         "bound_ms": bound, "bound_by": bound_by,
         "bytes": nbytes, "ops": ops, "rows": len(lens),
-        "splits": splits, "split_pages": pages,
+        "splits": splits, ("cluster" if cfg.mla else "split_pages"): pages,
     }
+    row["workspace_bytes"] = workspace_bytes(row["path"], len(lens), n_kv,
+                                             splits, group, q.shape[2])
     row["kernels_us"] = kernel_us(lambda: run_kernel(0))
     log(f"    {name} kernels (torch.profiler, us per call): "
         + json.dumps(row["kernels_us"]))
     log(f"  time bf16 {name:7s} rows={len(lens)} ({row['path']}, "
-        f"{splits} splits of {pages} pages): kernel_ms={row['ms']:.4f} "
+        f"{plan}): kernel_ms={row['ms']:.4f} "
         f"(again {row['ms_again']:.4f}) ms_simt={row['ms_simt']:.4f} "
         f"ref_ms={row['plain_ms']:.4f} library_ms="
         f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
         f"({row['bound_by']}, {nbytes} B, {ops} flop) "
-        f"share_of_bound={row['bound_ms'] / row['ms']:.3f}")
+        f"share_of_bound={row['bound_ms'] / row['ms']:.3f} "
+        f"workspace={row['workspace_bytes']} B")
     if split_sizes:
         row["ms_by_split_pages"] = {
             sp: cuda_ms(lambda i, sp=sp: run_kernel(i, split_pages=sp))
@@ -1533,9 +1544,9 @@ def phase_zamba_slice(t: int) -> None:
     assert tok_g == tok_c, "greedy tokens differ between cuda and cpu"
 
 
-#: Phase 9's zamba2 depth: 19 of its 38 mixers, which keeps the script
+#: Phase 9's zamba2 depth: 8 of its 38 mixers, which keeps the script
 #: inside its time limit.
-SERVE_ZAMBA_LAYERS = 19
+SERVE_ZAMBA_LAYERS = 8
 
 
 def phase_zamba_serve(pa_mod, ssd_mod) -> dict:
@@ -1980,8 +1991,11 @@ def phase_deepseek_kernels(t: int, sass_by_fn: dict) -> dict:
     page of prefill rows at ~1,024 tokens over one table; bf16 on the mla
     body, float32 on simt, two bf16 runs bit-identical; then the times of
     mla, simt, plain and gather + SDPA beside the bound, and the device
-    time of each CUDA kernel; and the mla kernel's tensor-core and
-    async-copy instructions from phase 1's SASS scan."""
+    time of each CUDA kernel (one: the splits merge in their cluster, so
+    no combine kernel runs, and no workspace is written); and the mla
+    kernel's tensor-core and async-copy instructions from phase 1's SASS
+    scan, summed over its token-tile instances: HGMMA and UTMALDG, no HMMA
+    or LDGSTS."""
     from repro_torch.kernels import paged_attention as pa_mod
 
     cfg = deepseek_cfg()
@@ -1994,8 +2008,21 @@ def phase_deepseek_kernels(t: int, sass_by_fn: dict) -> dict:
                                  bf16_body="mla")
     paged = {name: paged_timing(pa_mod, name, lens, shared, t, cfg)
              for name, (lens, shared) in shapes.items()}
-    sass = {op: n for fn, c in sass_by_fn.items() if "paged_mla_kernel" in fn
-            for op, n in c.items()}
+    # The body is one kernel a call (its splits merge in their cluster: no
+    # combine kernel) that writes no float32 workspace.
+    for name, row in paged.items():
+        assert row["workspace_bytes"] == 0, (name, row["workspace_bytes"])
+        assert not any("combine" in k for k in row["kernels_us"]), \
+            (name, row["kernels_us"])
+    # Its SASS (every tile instance summed): wgmma and TMA, not mma.sync
+    # and cp.async.
+    sass = {}
+    for fn, c in sass_by_fn.items():
+        if "paged_mla_kernel" in fn:
+            for op, n in c.items():
+                sass[op] = sass.get(op, 0) + n
+    assert sass.get("HGMMA") and sass.get("UTMALDG"), sass
+    assert not sass.get("HMMA") and not sass.get("LDGSTS"), sass
     log("  phase 15 bodies: " + json.dumps(bodies))
     log("  phase 15 max_abs_err: " + json.dumps(
         {f"{a}/{b}": e for (a, b), e in worst.items()}))
@@ -2632,10 +2659,10 @@ PARITY_NEW = 8
 SYSTEM_PROMPT = 1000
 SYSTEM_TAILS = (24, 56, 88, 120, 152, 184, 216, 248)
 PREFIX_NEW = 32
-#: Phase 27's zamba2 depth: 10 of its 38 mixers, which keeps the script
+#: Phase 27's zamba2 depth: 6 of its 38 mixers, which keeps the script
 #: inside its time limit since phase 35 serves zamba2 and deepseek-v2 on
 #: a mesh too.
-PREFIX_ZAMBA_LAYERS = 10
+PREFIX_ZAMBA_LAYERS = 6
 #: Engine counters read as deltas over one call.
 CALL_KEYS = ("prefix_hits", "prefix_misses", "prefix_hit_tokens",
              "pages_saved", "cow_copies", "prefill_tokens",
@@ -4751,11 +4778,15 @@ def mesh_mla_route(pa_mod, t: int, mesh) -> dict:
     into each rank's pool, the kernel on this rank's query rows and heads
     as local tensors) at deepseek-v2's decode shape -- 8 rows at
     ``DECODE_LENS``, 128 heads over the one 576-wide latent, K = V, bf16
-    -- held to the plain version on the same inputs, timed (device ms),
-    its bound, and the body it ran.  The rows written are the pool's own,
-    so every timed call sees the same pool."""
+    -- held to the plain version on the same inputs, timed (device ms)
+    twice in turn with the direct call on the same inputs (the least of
+    each kept), the route's write of the rows into the pool alone, its
+    bound, the body it ran, and the device time of each kernel it launches.
+    The rows written are the pool's own, so every timed call sees the same
+    pool."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
+    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
     from repro_torch.models.layers import pool_slots, pool_write_attend
 
@@ -4788,7 +4819,23 @@ def mesh_mla_route(pa_mod, t: int, mesh) -> dict:
                   "mesh-route mla")
     nbytes, ops = live_work(case, 0)
     bound, bound_by = bound_ms(nbytes, ops, torch.bfloat16)
-    row = {"ms": cuda_ms(run), "path": ran, "max_abs_err": err,
+
+    def direct(i):
+        return paged_attention(q, pool[0], pool[0], table, lengths,
+                               page_tokens=t)
+
+    # The route against the direct call on the same inputs, in turns, and
+    # the kernels the route launches (the rows' write into the pool too).
+    route_ms, direct_ms = [], []
+    for _ in range(2):
+        route_ms.append(cuda_ms(run))
+        direct_ms.append(cuda_ms(direct))
+    row = {"ms": min(route_ms), "direct_ms": min(direct_ms),
+           # the route's write of the rows into the pool, alone
+           "write_ms": cuda_ms(lambda i: pool[0].index_put_((page_ids, off),
+                                                            rows)),
+           "kernels_us": kernel_us(lambda: run(0)),
+           "path": ran, "max_abs_err": err,
            "plain_ms": cuda_ms(lambda i: paged_attention_ref(
                q, pool[0], pool[0], table, lengths), reps=10),
            "library_ms": cuda_ms(lambda i: library_attention(
@@ -4797,6 +4844,9 @@ def mesh_mla_route(pa_mod, t: int, mesh) -> dict:
            "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
            "ops": ops}
     log(f"  (a) mesh-route mla decode ({ran}): kernel_ms={row['ms']:.4f} "
+        f"(direct call {row['direct_ms']:.4f}, the rows' write "
+        f"{row['write_ms']:.4f}; kernels, us: "
+        f"{json.dumps(row['kernels_us'])}) "
         f"plain_ms={row['plain_ms']:.4f} library_ms="
         f"{row['library_ms']:.4f} bound_ms={bound:.5f} ({bound_by}) "
         f"max_abs_err={err:.3g}")
@@ -4824,7 +4874,8 @@ def mla_local_heads(pa_mod, t: int) -> dict:
                   **{k: row[k] for k in ("ms", "ms_simt", "plain_ms",
                                          "library_ms", "bound_ms",
                                          "bound_by", "path", "splits",
-                                         "split_pages")}}
+                                         "cluster", "kernels_us",
+                                         "workspace_bytes")}}
     return out
 
 
@@ -5622,8 +5673,9 @@ def main() -> int:
             "LAUNCHES_MLA"],
         "launches_meshless": dmesh["bfloat16"]["meshless"]["launches"][
             "paged"]["LAUNCHES"],
-        **{k: dr[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "bound_by", "path", "max_abs_err")},
+        **{k: dr[k] for k in ("ms", "direct_ms", "write_ms", "plain_ms",
+                              "library_ms", "bound_ms", "bound_by", "path",
+                              "max_abs_err")},
         "local_heads": {str(h): {k: row[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "path",
             "max_abs_err")} for h, row in dmesh["heads"].items()}}}

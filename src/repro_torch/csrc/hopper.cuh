@@ -1,9 +1,10 @@
 // PTX wrappers for Hopper (sm_90a) shared by the port's tensor-core
-// kernels: mbarriers, TMA tensor loads, wgmma descriptors and instructions
-// and setmaxnreg (matmul_cc.cu, flash_attention.cu, and TMA in
-// paged_attention.cu); ldmatrix, mma.sync and cp.async for products too
-// small for wgmma (paged_attention.cu, ssd_scan.cu); plus, on the host,
-// the construction of a TMA descriptor (CUtensorMap).
+// kernels: mbarriers, TMA tensor loads (multicast too), wgmma descriptors
+// and instructions, setmaxnreg, named barriers and thread block clusters
+// (matmul_cc.cu, flash_attention.cu, paged_attention.cu); ldmatrix,
+// mma.sync and cp.async for products too small for wgmma
+// (paged_attention.cu, ssd_scan.cu); plus, on the host, the construction
+// of a TMA descriptor (CUtensorMap).
 //
 // Inline PTX rather than CuTe, so that a source builds in seconds.
 // Conventions the kernels rely on:
@@ -105,6 +106,94 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The same box written into every block of the cluster named in `mask`
+// (bit i: cluster rank i), at dst's offset in each, completing the
+// barrier at bar's offset in each.
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, int c2, int c3,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "h"(mask)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (TMA, wgmma operands), and the reverse.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters: the cluster-wide barrier and distributed shared
+// memory (another block's shared memory, by its rank in the cluster: x
+// fastest, as a block's (x, y) in the cluster's dims).
+// ---------------------------------------------------------------------------
+
+// Every thread of every block of the cluster arrives, then waits; writes
+// before it (shared memory of any block) are visible after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of `p` (this block's shared memory) in block `rank`.
+__device__ __forceinline__ uint32_t dsmem_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float dsmem_ld(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 dsmem_ld4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Arrive on the mbarrier at bar's offset in block `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+               :: "r"(dsmem_addr(bar, rank)) : "memory");
+}
+
+// Named barriers (ids 1..15; 0 is __syncthreads) over `count` threads:
+// bar_sync waits for them, bar_arrive counts without waiting.  Not the
+// .aligned forms: a warp may reach them diverged.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("barrier.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("barrier.arrive %0, %1;\n" :: "r"(id), "r"(count)
+               : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Registers: the producer warpgroup gives registers up, consumers take
 // them.  Every thread of the warpgroup executes these together.
@@ -164,6 +253,49 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // thread), B by descriptor.  TransB = 1 reads B as MN-major.  scale_d = 0
 // overwrites D instead of adding to it.  The bodies below list every
 // accumulator register, as the instruction requires.
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, %27;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+}
 
 template <int TransB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
@@ -327,11 +459,58 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(scale_d), "n"(TransB));
 }
 
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(TransB));
+}
+
 // D (64 x N) += A (64 x 16) * B (16 x N), A from shared memory.
 template <int N, int TransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "wgmma N");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 128 ||
+                    N == 192 || N == 256,
+                "wgmma N");
+  if constexpr (N == 16) wgmma_ss_n16<TransB>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32<TransB>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 48) wgmma_ss_n48<TransB>(d, desc_a, desc_b, scale_d);
   if constexpr (N == 64) wgmma_ss_n64<TransB>(d, desc_a, desc_b, scale_d);
   if constexpr (N == 128) wgmma_ss_n128<TransB>(d, desc_a, desc_b, scale_d);
   if constexpr (N == 192) wgmma_ss_n192<TransB>(d, desc_a, desc_b, scale_d);
@@ -343,9 +522,10 @@ template <int N, int TransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma N (register A)");
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma N (register A)");
   if constexpr (N == 64) wgmma_rs_n64<TransB>(d, a, desc_b, scale_d);
   if constexpr (N == 128) wgmma_rs_n128<TransB>(d, a, desc_b, scale_d);
+  if constexpr (N == 256) wgmma_rs_n256<TransB>(d, a, desc_b, scale_d);
 }
 
 // Two floats as one bf16x2 register, lo in the low half.
@@ -457,16 +637,17 @@ inline EncodeTiledFn encode_tiled() {
 constexpr int kNoEncoder = 9000;
 constexpr int kEncodeFailed = 9100;
 
-// A bf16 tensor of `rank` dims (innermost first; `strides` in bytes for
-// dims 1..rank-1), read in boxes of `box` elements with 128-byte swizzle;
+// A bf16 tensor of `rank` (1..5) dims (innermost first; `strides` in bytes
+// for dims 1..rank-1), read in boxes of `box` elements with 128-byte swizzle;
 // out-of-bounds elements read as zero.  Returns 0 or an error above.
 inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
                          const uint64_t* dims, const uint64_t* strides,
                          const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kNoEncoder;
-  cuuint64_t gdim[3], gstride[2];
-  cuuint32_t bdim[3], estride[3];
+  if (rank < 1 || rank > 5) return kEncodeFailed;
+  cuuint64_t gdim[5], gstride[4];
+  cuuint32_t bdim[5], estride[5];
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     bdim[i] = box[i];

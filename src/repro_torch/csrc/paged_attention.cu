@@ -63,15 +63,17 @@
 // (kv_lora 512 + rope 64) and K = V = the latent pool.  Decode (8 rows,
 // ~3,200 live tokens: 3.7 MB and 0.94 GFLOP) is bytes-bound by a hair;
 // a 96-row prefill chunk over ~1,000 keys (29 GFLOP) is bound by the
-// tensor cores.  A G = 128 group is eight m16 tiles, so 16-head tiles go
-// in the grid; a warp cannot own 576 float32 output columns of 16 heads
-// (288 accumulators a thread), so the columns are split over the 4 warps
-// and the tile's probabilities meet in shared memory; a 96-token page of
-// the latent is 110.6 KB, so 32-token tiles are staged (cp.async, a
-// two-stage ring of padded rows, once when K and V are one tensor) rather
-// than whole pages.  The stream is split only where the (row, head tile)
-// blocks do not fill the card (decode); a prefill chunk's 768 blocks
-// write their rows directly, with no workspace.  See the kernel below.
+// tensor cores.  So the body is built for wgmma: a block is one 64-head
+// tile (G <= 64 padded to it), a producer warpgroup streams the latent by
+// TMA into a ring of token tiles (48 tokens at 96-token pages), one
+// consumer warpgroup computes the tile's scores (m64 x tile x 576) and
+// softmax once, and the two consumers split the 576 output columns (a
+// 64 x 576 float32 accumulator is 288 registers a thread: too many for
+// one).  At G = 128 the two head tiles of a (row, split) are a cluster
+// that TMA multicast feeds, so each latent tile leaves L2 once per
+// (row, split); at decode the splits of a row are one cluster too, and
+// merge through distributed shared memory, with no workspace and no second
+// launch.  See the kernel below.
 //
 // `simt` (float32, and shapes the other bodies do not take): one thread
 // block per (row, KV head, run of query heads) that walks its live pages
@@ -612,8 +614,7 @@ paged_split_kernel(const __grid_constant__ CUtensorMap tm_k,  // (D, KV, P*T)
   }
 }
 
-// Merges the splits' partials of one (row, KV head), in split order (a
-// block merges the part of its G x D outputs that blockIdx.z names).  The
+// Merges the splits' partials of one (row, KV head), in split order.  The
 // live splits are the run (lo / T) / split_pages .. (hi / T) / split_pages,
 // found from lengths[row] exactly as the split kernel finds them, so only
 // their partials are read; the loads of several splits are in flight at
@@ -636,12 +637,7 @@ paged_combine_kernel(const float* __restrict__ ws_acc,
   const bool any = len > 0 && hi >= lo;
   const int s_lo = any ? (lo / T) / split_pages : 0;
   const int s_hi = any ? (hi / T) / split_pages : -1;
-  // Block z of gridDim.z merges elements [z * chunk, (z + 1) * chunk) of
-  // the G x D output (one z: all of it, as the split body launches it).
-  const int chunk = (G * D + gridDim.z - 1) / gridDim.z;
-  const int end = min(G * D, ((int)blockIdx.z + 1) * chunk);
-  for (int idx = blockIdx.z * chunk + threadIdx.x; idx < end;
-       idx += kCombineThreads) {
+  for (int idx = threadIdx.x; idx < G * D; idx += kCombineThreads) {
     const int gr = idx / D;
     const int d = idx - gr * D;
     float mx = -INFINITY, lsum = 0.f, a = 0.f;
@@ -689,7 +685,7 @@ int launch_split_d(const CUtensorMap& tk, const CUtensorMap& tv,
       scale * 1.4426950408889634f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_combine_kernel<<<dim3(KV, S, 1), kCombineThreads, 0, stream>>>(
+  paged_combine_kernel<<<dim3(KV, S), kCombineThreads, 0, stream>>>(
       ws_acc, ws_ml, static_cast<const int*>(lengths),
       static_cast<__nv_bfloat16*>(out), H, KV, D, T, NP, splits, split_pages,
       window);
@@ -725,290 +721,629 @@ int launch_split(const void* q, const void* k_pages, const void* v_pages,
 
 namespace mla {
 
-constexpr int kD = 576;              // the latent row: kv_lora 512 + rope 64
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kHeads = 16;           // query heads of a block: one m16 tile
-constexpr int kTile = 32;            // tokens staged at a time: 8 a warp
-constexpr int kStages = 2;
-constexpr int kRow = kD + 8;         // staged row, padded to 1,168 B so the
-                                     // 8 rows one ldmatrix reads hit 8 banks
-constexpr int kChunks = kD / 8;      // 16-byte chunks of a row
-constexpr int kCols = kD / kWarps;   // output columns a warp owns: 144
-constexpr int kColTiles = kCols / 8;  // its n8 accumulator tiles: 18
-constexpr int kScoreLd = kTile + 8;  // floats of a staged score row
+constexpr int kD = 576;            // the latent row: kv_lora 512 + rope 64
+constexpr int kAtoms = kD / 64;    // 128-byte swizzle atoms of a row: 9
+constexpr int kHeads = 64;         // query heads of a block: one wgmma m64 tile
+constexpr int kThreads = 384;      // a producer and two consumer warpgroups
+constexpr int kLoAtoms = 4;        // output atoms of consumer 0 (columns
+                                   // 0..255); consumer 1 has 256..575
+constexpr int kQBytes = kHeads * kD * 2;   // 73,728
+constexpr int kPBytes = kHeads * 128;      // P: 64 rows x 64 tokens, bf16
+constexpr int kTailBytes = 1024;   // mbarriers, corrections, (m, l) rows
+constexpr int kFixedBytes = 1024 + kQBytes + kPBytes + kTailBytes;
+constexpr int kMaxStages = 8;
+constexpr int kMergeLd = kD + 8;   // floats of a row of the merge buffer
+constexpr int kOutLd = kD + 8;     // bf16 of a row of the staged output
+// (both padded so that the 8 rows of a fragment store hit distinct banks)
+constexpr int kMaxCluster = 16;    // blocks of a cluster (8 is portable)
+constexpr int kMaxSmem = 232448;   // shared memory a block may use
 
-// Shared memory of one block: the q tile, the ring of token tiles (one
-// ring when K and V are one tensor, as the MLA latent pool is; two
-// otherwise) and the tile's scores.
-__host__ __device__ inline size_t smem_bytes(bool shared_kv) {
-  return (size_t)kHeads * kRow * 2
-         + (shared_kv ? 1 : 2) * (size_t)kStages * kTile * kRow * 2
-         + (size_t)kHeads * kScoreLd * 4;
+// The token tile for pages of T tokens: of 64, 48, 32 and 16 (32 and 16
+// when K and V are two tensors: two rings of larger tiles do not fit), the
+// one that pads a page least, the larger on a tie.  A tile never crosses a
+// page: a page is walked in tiles, the last one cut at the page's end
+// (96-token pages: two tiles of 48).
+__host__ __device__ inline int tile_tokens(int T, bool shared_kv) {
+  int best = 16, best_pad = 1 << 30;
+  for (int bt = shared_kv ? 64 : 32; bt >= 16; bt -= 16) {
+    const int pad = (T + bt - 1) / bt * bt;
+    if (pad < best_pad) {
+      best = bt;
+      best_pad = pad;
+    }
+  }
+  return best;
 }
 
-// One block per (KV head x 16-head tile of its group, row, split).  The
-// block walks the split's live tokens in 32-token tiles, copied with
-// cp.async into a two-stage ring of padded rows (each token's address
-// from the row's table: a tile may cross pages).  Per tile: q.K^T on the
-// tensor cores, each warp 8 tokens against all 16 heads over the 576-wide
-// depth; the masked scores meet in shared memory; every warp runs the
-// same online softmax over the tile (so all hold the same max, sum and
-// correction) and keeps P as its A fragment; P.V on the tensor cores, each
-// warp 144 of the 576 output columns.  With one split the block writes its
-// normalised rows; with more, its float32 partial (m, l, unnormalised acc)
-// in the split body's workspace layout, merged by paged_combine_kernel.
-__global__ void __launch_bounds__(kThreads)
-paged_mla_kernel(const __nv_bfloat16* __restrict__ q,        // (S, H, D)
-                 const __nv_bfloat16* __restrict__ k_pages,  // (P, T, KV, D)
-                 const __nv_bfloat16* __restrict__ v_pages,  // (P, T, KV, D)
-                 const int* __restrict__ table,              // (S, NP)
-                 const int* __restrict__ lengths,            // (S,)
-                 __nv_bfloat16* __restrict__ out,            // (S, H, D)
-                 float* __restrict__ ws_acc,  // (S, KV, splits, G, D)
-                 float* __restrict__ ws_ml,   // (S, KV, splits, G, 2)
-                 int H, int KV, int T, int NP, int split_pages, int window,
-                 float scale_log2) {
+// Bytes of one ring stage: a tile's 9 atoms of K, then of V when V is a
+// tensor of its own.
+__host__ __device__ inline int stage_bytes(int bt, bool shared_kv) {
+  return kAtoms * bt * 128 * (shared_kv ? 1 : 2);
+}
+
+// As many stages as fit beside Q, P and the tail, at most kMaxStages: 2 at
+// 64 and 48 tokens, 4 at 32, 8 at 16 (K != V: 2 at 32, 4 at 16).  Q and the
+// ring together always hold the float32 merge buffer (64 x kMergeLd).
+__host__ __device__ inline int num_stages(int bt, bool shared_kv) {
+  const int n = (kMaxSmem - kFixedBytes) / stage_bytes(bt, shared_kv);
+  return n < kMaxStages ? n : kMaxStages;
+}
+
+__host__ __device__ inline size_t smem_bytes(int T, bool shared_kv) {
+  const int bt = tile_tokens(T, shared_kv);
+  return (size_t)kFixedBytes +
+         (size_t)num_stages(bt, shared_kv) * stage_bytes(bt, shared_kv);
+}
+
+// Output rows r0 and r0 + 8 of an m64nN accumulator slice at columns
+// cb..cb+N-1, into shared memory over Q and the ring: normalised bf16 rows
+// (one split; copied out whole afterwards), or the block's unnormalised
+// float32 partial (several).  Register i of a thread holds row
+// r0 + 8 * ((i >> 1) & 1), column cb + 8 * (i >> 2) + cg + (i & 1).
+template <int N>
+__device__ __forceinline__ void finish(const float (&d)[N / 2], int cb,
+                                       int r0, int cg, bool merge,
+                                       const float* s_l, float* s_merge,
+                                       __nv_bfloat16* s_out) {
+  if (merge) {
+#pragma unroll
+    for (int g = 0; g < N / 8; ++g)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(
+            &s_merge[(r0 + 8 * h) * kMergeLd + cb + 8 * g + cg]) =
+            make_float2(d[4 * g + 2 * h], d[4 * g + 2 * h + 1]);
+    return;
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = 1.f / fmaxf(s_l[r0 + 8 * h], 1e-30f);
+#pragma unroll
+  for (int g = 0; g < N / 8; ++g)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(
+          &s_out[(r0 + 8 * h) * kOutLd + cb + 8 * g + cg]) =
+          hopper::pack_bf16(d[4 * g + 2 * h] * inv[h],
+                            d[4 * g + 2 * h + 1] * inv[h]);
+}
+
+// One block per (KV head x 64-head tile of its group, split, row); the
+// cluster is the row's (head tiles x splits).  Warpgroup 0 is the
+// producer (one warp of it works; it gives registers up so that the
+// consumers get 232 a thread): one thread loads the Q tile by TMA before
+// the cluster barrier, then streams the split's latent tiles (box (64, 1,
+// BT, 1) of the pool viewed as (D, KV, T, P), 128-byte swizzle) into a
+// ring of `stages` stages, the page of each tile read from the table by
+// the producer warp 32 tiles at a time.  With two
+// head tiles each block loads half of every tile's atoms, multicast into
+// both, so a tile leaves L2 once per (row, split); a stage is refilled
+// only once the 8 consumer warps of both blocks have released it.
+// Consumer 0 (warpgroup 1): S = Q K^T by wgmma m64nBTk16 over the
+// 576-deep row (Q and K both K-major in shared memory), masked and scaled
+// into the log2 domain, the online softmax; P goes to shared memory (bf16,
+// 128-byte swizzled) with each row's correction, and to its own
+// O[:, 0:256] += P V by wgmma with P in registers.  Consumer 1 (warpgroup
+// 2) rescales its O[:, 256:576] by the corrections and adds P V with P
+// read from shared memory: the scores are computed once a tile.  With one
+// split the block stages its normalised bf16 rows in shared memory and
+// copies them out as one contiguous run; with several, each block leaves
+// its float32 partial in its own shared memory, and after a cluster
+// barrier block z of a head tile merges rows z, z + splits, ... of all the
+// splits' partials, read through distributed shared memory in split order:
+// no workspace, no second launch, no atomics.
+//
+// Measured on the card, neither of two other schedules was faster: the
+// two consumers taking the tiles' scores in turn, and consumer 0 issuing
+// the next tile's scores before this tile's P V (both slower: with two
+// stages a stage is refilled only once consumer 1's P V is done, and more
+// stages of smaller tiles cost more per token than they hide).
+template <int BT>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_mla_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, H, S)
+                 const __grid_constant__ CUtensorMap tm_k,  // (D, KV, T, P)
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const int* __restrict__ table,             // (S, NP)
+                 const int* __restrict__ lengths,           // (S,)
+                 __nv_bfloat16* __restrict__ out,           // (S, H, D)
+                 int H, int KV, int T, int NP, int window, float scale_log2,
+                 int shared_kv, int stages, int q_rows, int box_t) {
+  constexpr int kSteps = kD / 16;          // k16 steps of q.K^T: 36
+  constexpr int kPSteps = BT / 16;         // k16 steps of P.V
+  constexpr int kAtomBytes = BT * 128;     // one 64-column atom of a tile
   const int G = H / KV;
-  const int tiles = (G + kHeads - 1) / kHeads;
-  const int kvh = blockIdx.x / tiles;
-  const int h0 = (blockIdx.x - kvh * tiles) * kHeads;  // in the group
-  const int nh = min(kHeads, G - h0);                  // heads of the block
-  const int row = blockIdx.y;
-  const int split = blockIdx.z;
-  const int splits = gridDim.z;
+  const int mc = (G + kHeads - 1) / kHeads;  // head tiles: the cluster's x
+  const int kvh = blockIdx.x / mc;
+  const int ht = blockIdx.x - kvh * mc;
+  const int h0 = ht * kHeads;
+  const int nh = min(kHeads, G - h0);        // the block's live heads
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;              // the cluster's y
+  const int row = blockIdx.z;
   const int tid = threadIdx.x;
+  const int wg = tid >> 7;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const bool shared_kv = k_pages == v_pages;
-  const size_t base = ((size_t)row * KV + kvh) * splits + split;
-  const size_t head0 = (size_t)row * H + (size_t)kvh * G + h0;
+  const bool kv_one = shared_kv != 0;
+  const uint32_t rank0 = (uint32_t)(mc * split);  // this split's first rank
+
+  // The split's tiles.  The row's live keys [lo, hi] are walked page by
+  // page in tiles of BT tokens, tpp a page: tile j holds the tokens from
+  // (j / tpp) * T + (j % tpp) * BT to the tile's or the page's end.  Split
+  // z takes the z-th of `splits` equal runs of the row's live tiles (the
+  // last shorter): the runs come from lengths on the card, so the host
+  // never reads lengths, and every split of a long row has work.
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* s_q = hopper::align_1024(smem_raw);
+  unsigned char* ring = s_q + kQBytes;
+  const int sb = stage_bytes(BT, kv_one);
+  unsigned char* s_p = ring + stages * sb;
+  unsigned char* tail = s_p + kPBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(tail);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kMaxStages;
+  float* s_corr = reinterpret_cast<float*>(tail + 256);   // 64 rows
+  float* s_m = reinterpret_cast<float*>(tail + 512);      // 64 rows
+  float* s_l = reinterpret_cast<float*>(tail + 768);      // 64 rows
+  // After the last tile, over Q and the ring: the block's float32 partial
+  // (several splits) or its bf16 rows (one); over P, the merge's weights.
+  float* s_merge = reinterpret_cast<float*>(s_q);         // 64 x kMergeLd
+  __nv_bfloat16* s_out = reinterpret_cast<__nv_bfloat16*>(s_q);  // 64 x kOutLd
+  float* s_w = reinterpret_cast<float*>(s_p);             // 64 x kMaxCluster
+  float* s_inv = s_w + kHeads * kMaxCluster;              // 64 rows
+
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8 * mc);   // 8 consumer warps a block
+    }
+    hopper::fence_barrier_init();
+    // Q involves no other block: its load starts before the cluster
+    // barrier and the reads of lengths and the table.
+    hopper::mbar_arrive_expect_tx(q_full, (uint32_t)(kAtoms * q_rows * 128));
+    for (int a = 0; a < kAtoms; ++a)
+      hopper::tma_load_3d(s_q + a * kHeads * 128, &tm_q, q_full, a * 64,
+                          kvh * G + h0, row);
+  }
 
   const int len = lengths[row];
   const int qpos = len - 1;
   const int lo = window > 0 ? max(0, qpos - window + 1) : 0;
   const int hi = min(qpos, NP * T - 1);
-  const int span = split_pages * T;
-  const int k_first = max(lo, split * span);
-  const int k_last = min(hi, split * span + span - 1);
-  if (len <= 0 || k_first > k_last) {
-    if (splits > 1) {                  // an empty partial (never merged)
-      for (int i = tid; i < nh; i += kThreads) {
-        ws_ml[(base * G + h0 + i) * 2] = -INFINITY;
-        ws_ml[(base * G + h0 + i) * 2 + 1] = 0.f;
+  const int tpp = (T + BT - 1) / BT;
+  int j0 = 0, n_tiles = 0;
+  if (len > 0 && hi >= lo) {
+    const int jf = (lo / T) * tpp + (lo % T) / BT;
+    const int jl = (hi / T) * tpp + (hi % T) / BT;
+    const int per = (jl - jf + splits) / splits;
+    j0 = jf + split * per;
+    n_tiles = max(0, min(jl, j0 + per - 1) - j0 + 1);
+  }
+
+  const int* trow = table + (size_t)row * NP;
+  // The producer warp's first 32 tiles' pages, read before the barrier.
+  int page_l = 0;
+  if (tid < 32 && lane < n_tiles) page_l = trow[(j0 + lane) / tpp];
+
+  if (box_t < BT) {
+    // Pages shorter than the tile: the rows past the page are never
+    // written by TMA, and a masked key's V row still meets P = 0.
+    for (int i = tid; i < stages * sb / 16; i += kThreads)
+      reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
+    hopper::fence_proxy_async();
+  }
+  hopper::cluster_sync();     // barriers and zeros in place, cluster-wide
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<40>();
+    if (tid < 32 && n_tiles > 0) {
+      const uint16_t mask = (uint16_t)(((1u << mc) - 1u) << rank0);
+      const uint32_t tx =
+          (uint32_t)(kAtoms * box_t * 128 * (kv_one ? 1 : 2));
+      for (int i0 = 0; i0 < n_tiles; i0 += 32) {
+        const int mine = i0 + lane;
+        if (i0 > 0) page_l = mine < n_tiles ? trow[(j0 + mine) / tpp] : 0;
+        const int nb = min(32, n_tiles - i0);
+        for (int k = 0; k < nb; ++k) {
+          const int i = i0 + k;
+          const int page = __shfl_sync(0xffffffffu, page_l, k);
+          const int s = i % stages;
+          if (i >= stages)
+            hopper::mbar_wait(&empty[s], (uint32_t)(((i / stages) - 1) & 1));
+          if (lane == 0) {
+            unsigned char* kd = ring + s * sb;
+            unsigned char* vd = kd + kAtoms * kAtomBytes;
+            const int t0 = ((j0 + i) % tpp) * BT;
+            hopper::mbar_arrive_expect_tx(&full[s], tx);
+            for (int a = ht; a < kAtoms; a += mc) {
+              if (mc == 1) {
+                hopper::tma_load_4d(kd + a * kAtomBytes, &tm_k, &full[s],
+                                    a * 64, kvh, t0, page);
+                if (!kv_one)
+                  hopper::tma_load_4d(vd + a * kAtomBytes, &tm_v, &full[s],
+                                      a * 64, kvh, t0, page);
+              } else {
+                hopper::tma_load_4d_multicast(kd + a * kAtomBytes, &tm_k,
+                                              &full[s], a * 64, kvh, t0,
+                                              page, mask);
+                if (!kv_one)
+                  hopper::tma_load_4d_multicast(vd + a * kAtomBytes, &tm_v,
+                                                &full[s], a * 64, kvh, t0,
+                                                page, mask);
+              }
+            }
+          }
+          __syncwarp();
+        }
       }
-    } else {                           // a row without keys is zeros
-      for (int i = tid; i < nh * kD; i += kThreads)
-        out[head0 * kD + i] = __float2bfloat16(0.f);
     }
+    hopper::cluster_sync();   // the consumers' partials are in place
+    if (splits > 1) hopper::cluster_sync();   // ... and merged
     return;
   }
-  const int n_tiles = (k_last - k_first) / kTile + 1;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s_k = s_q + kHeads * kRow;
-  __nv_bfloat16* s_v = shared_kv ? s_k : s_k + kStages * kTile * kRow;
-  float* s_sc = reinterpret_cast<float*>(
-      s_k + (shared_kv ? 1 : 2) * kStages * kTile * kRow);
+  hopper::setmaxnreg_inc<232>();
+  const int r0 = 16 * ((tid >> 5) & 3) + (lane >> 2);  // rows r0, r0 + 8
+  const int cg = 2 * (lane & 3);           // columns cg, cg + 1 of each 8
+  const bool merge = splits > 1;
+  __nv_bfloat16* out_rows =
+      out + ((size_t)row * H + (size_t)kvh * G + h0) * kD;
 
-  // The q tile: the block's heads, zero rows past the group.
-  for (int i = tid; i < kHeads * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i - r * kChunks;
-    __nv_bfloat16* d = s_q + r * kRow + c * 8;
-    if (r < nh)
-      hopper::cp_async_16(d, q + (head0 + r) * kD + c * 8);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  if (wg == 1) {
+    float o[128];                           // O[:, 0:256]
+#pragma unroll
+    for (int e = 0; e < 128; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};               // this thread's share of l
+    hopper::mbar_wait(q_full, 0);          // (in flight even without tiles)
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % stages;
+      hopper::mbar_wait(&full[s], (uint32_t)((i / stages) & 1));
+      const unsigned char* kt = ring + s * sb;
+      const unsigned char* vt = kv_one ? kt : kt + kAtoms * kAtomBytes;
+
+      // S = Q K^T over the 576-deep row.
+      float sc[BT / 2];
+#pragma unroll
+      for (int e = 0; e < BT / 2; ++e) sc[e] = 0.f;
+      hopper::fence_regs(sc);
+      __syncwarp();                        // wgmma wants the warp converged
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        const int a = ks >> 2, kk = (ks & 3) * 32;
+        hopper::wgmma_ss<BT, 0>(
+            sc, hopper::desc_sw128(s_q + a * kHeads * 128 + kk, 16, 1024),
+            hopper::desc_sw128(kt + a * kAtomBytes + kk, 16, 1024), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+
+      // Mask to the row's live keys and the tile's page, scale into the
+      // log2 domain, and the online softmax (the row's 4 threads by
+      // shuffles).  Every tile holds a live key, so m is finite after it.
+      const int jt = j0 + i;
+      const int sub = jt % tpp;
+      const int kb = (jt / tpp) * T + sub * BT;  // logical key of token 0
+      const int n = min(BT, T - sub * BT);
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < BT / 2; ++e) {
+        const int col = 8 * (e >> 2) + cg + (e & 1);
+        const int kp = kb + col;
+        const float x = col < n && kp >= lo && kp <= hi ? sc[e] * scale_log2
+                                                        : -INFINITY;
+        sc[e] = x;
+        mt[(e >> 1) & 1] = fmaxf(mt[(e >> 1) & 1], x);
+      }
+      float corr[2], m_use[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+        mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+        const float m_new = fmaxf(m[h], mt[h]);
+        m_use[h] = m_new == -INFINITY ? 0.f : m_new;
+        corr[h] = exp2f(m[h] - m_use[h]);
+        m[h] = m_new;
+        l[h] *= corr[h];
+      }
+#pragma unroll
+      for (int e = 0; e < BT / 2; ++e) {
+        const int h = (e >> 1) & 1;
+        sc[e] = exp2f(sc[e] - m_use[h]);
+        l[h] += sc[e];
+      }
+      // P as bf16 A fragments: k step j takes score registers 8j .. 8j+7.
+      uint32_t pa[kPSteps][4];
+#pragma unroll
+      for (int j = 0; j < kPSteps; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[j][r] = hopper::pack_bf16(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
+
+      // P and the corrections to consumer 1, once it is done with the
+      // last tile's.  pa[j][r] is row r0 + 8 (r & 1), columns 16 j +
+      // 8 (r >> 1) + cg, +1; stored as TMA would store it (128-byte rows,
+      // 16-byte chunk c of row y at c ^ (y % 8)).
+      if (i > 0) hopper::bar_sync(2, 256);
+#pragma unroll
+      for (int j = 0; j < kPSteps; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int y = r0 + 8 * (r & 1);
+          const int c = 16 * j + 8 * (r >> 1) + cg;
+          *reinterpret_cast<uint32_t*>(
+              s_p + y * 128 + (((c >> 3) ^ (y & 7)) << 4) + ((c & 7) << 1)) =
+              pa[j][r];
+        }
+      if ((lane & 3) == 0) {
+        s_corr[r0] = corr[0];
+        s_corr[r0 + 8] = corr[1];
+      }
+      hopper::fence_proxy_async();
+      hopper::bar_arrive(1, 256);
+
+      // O[:, 0:256] = O * corr + P V, V read MN-major (transpose bit).
+#pragma unroll
+      for (int e = 0; e < 128; ++e) o[e] *= corr[(e >> 1) & 1];
+      hopper::fence_regs(o);
+      __syncwarp();
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kPSteps; ++j)
+        hopper::wgmma_rs<256, 1>(
+            o, pa[j], hopper::desc_sw128(vt + j * 2048, kAtomBytes, 1024), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      __syncwarp();
+      if (lane == 0)
+        for (int c = 0; c < mc; ++c)
+          hopper::mbar_arrive_cluster(&empty[s], rank0 + c);
+    }
+    if (n_tiles > 0) hopper::bar_sync(2, 256);   // consumer 1's last release
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+    if ((lane & 3) == 0) {
+      s_m[r0] = m[0];
+      s_m[r0 + 8] = m[1];
+      s_l[r0] = l[0];
+      s_l[r0 + 8] = l[1];
+    }
+    hopper::bar_sync(3, 256);    // (m, l) written; Q and the ring free
+    hopper::fence_proxy_async();
+    finish<256>(o, 0, r0, cg, merge, s_l, s_merge, s_out);
+  } else {
+    float oa[128];                          // O[:, 256:512]
+    float ob[32];                           // O[:, 512:576]
+#pragma unroll
+    for (int e = 0; e < 128; ++e) oa[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) ob[e] = 0.f;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % stages;
+      hopper::mbar_wait(&full[s], (uint32_t)((i / stages) & 1));
+      const unsigned char* vt =
+          ring + s * sb + (kv_one ? 0 : kAtoms * kAtomBytes);
+      hopper::bar_sync(1, 256);            // P and corrections of tile i
+      const float c0 = s_corr[r0], c1 = s_corr[r0 + 8];
+#pragma unroll
+      for (int e = 0; e < 128; ++e) oa[e] *= (e >> 1) & 1 ? c1 : c0;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) ob[e] *= (e >> 1) & 1 ? c1 : c0;
+      hopper::fence_regs(oa);
+      hopper::fence_regs(ob);
+      __syncwarp();
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kPSteps; ++j) {
+        const uint64_t dp = hopper::desc_sw128(s_p + j * 32, 16, 1024);
+        hopper::wgmma_ss<256, 1>(
+            oa, dp,
+            hopper::desc_sw128(vt + kLoAtoms * kAtomBytes + j * 2048,
+                               kAtomBytes, 1024),
+            1);
+        hopper::wgmma_ss<64, 1>(
+            ob, dp,
+            hopper::desc_sw128(vt + (kAtoms - 1) * kAtomBytes + j * 2048,
+                               kAtomBytes, 1024),
+            1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oa);
+      hopper::fence_regs(ob);
+      hopper::bar_arrive(2, 256);          // P is free
+      __syncwarp();
+      if (lane == 0)
+        for (int c = 0; c < mc; ++c)
+          hopper::mbar_arrive_cluster(&empty[s], rank0 + c);
+    }
+    hopper::bar_sync(3, 256);
+    hopper::fence_proxy_async();
+    finish<256>(oa, 256, r0, cg, merge, s_l, s_merge, s_out);
+    finish<64>(ob, 512, r0, cg, merge, s_l, s_merge, s_out);
+  }
+  const int ctid = tid - 128;
+  constexpr int kChunks = kD * 2 / 16;     // 16-byte chunks of a row: 72
+  if (!merge) {
+    // The block's rows are one contiguous run of the output: copied whole,
+    // 16 bytes a thread.
+    hopper::bar_sync(3, 256);
+    for (int i = ctid; i < nh * kChunks; i += 256) {
+      const int r = i / kChunks;
+      const int c = i - r * kChunks;
+      reinterpret_cast<uint4*>(out_rows + (size_t)r * kD)[c] =
+          reinterpret_cast<const uint4*>(s_out + r * kOutLd)[c];
+    }
   }
 
-  // Token tile i into stage i % kStages: four threads a token, each every
-  // fourth 16-byte chunk of its row.  Tokens past the split's last live
-  // key copy that key (finite; masked below).
-  const size_t tok_stride = (size_t)KV * kD;
-  auto stage_tile = [&](int i) {
-    const int st = i % kStages;
-    const int j = tid >> 2;
-    const int kp = min(k_first + i * kTile + j, k_last);
-    const int page = table[(size_t)row * NP + kp / T];
-    const size_t src = ((size_t)page * T + kp % T) * tok_stride +
-                       (size_t)kvh * kD;
-    __nv_bfloat16* dk = s_k + (st * kTile + j) * kRow;
-    __nv_bfloat16* dv = s_v + (st * kTile + j) * kRow;
-    for (int c = tid & 3; c < kChunks; c += 4) {
-      hopper::cp_async_16(dk + c * 8, k_pages + src + c * 8);
-      if (!shared_kv) hopper::cp_async_16(dv + c * 8, v_pages + src + c * 8);
-    }
-  };
-  stage_tile(0);
-  hopper::cp_async_commit();           // group 0: q and tile 0
-  if (n_tiles > 1) stage_tile(1);
-  hopper::cp_async_commit();           // group 1: tile 1 (or nothing)
+  hopper::cluster_sync();   // every split's partial, m and l in place
+  if (!merge) return;
 
-  // Rows g and g + 8 of the tile: online softmax (log2 domain) and this
-  // warp's 144 output columns.
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float acc[kColTiles][4];
+  // Rows split, split + splits, ... of this head tile: the weight of each
+  // split's partial, exp2(m_z - M) (0 for a split without keys), and
+  // 1 / L, L = sum_z l_z w_z, in split order; then the rows, four columns
+  // an item, summed over the splits in split order.  Every split's loads
+  // of an item, and of two items a thread, are in flight together.
+  const int rows = split < nh ? (nh - split + splits - 1) / splits : 0;
+  for (int k = ctid; k < rows; k += 256) {
+    const int r = split + k * splits;
+    float mz[kMaxCluster], lz[kMaxCluster];
 #pragma unroll
-  for (int i = 0; i < kColTiles; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const int mi = lane >> 3;            // the ldmatrix matrix this lane names
-  const int n0 = warp * 8;             // this warp's tokens in q.K^T
-  const int c_base = warp * kCols;     // ... and its columns in P.V
-
-  for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % kStages;
-    hopper::cp_async_wait<1>();        // groups 0..i are in
-    __syncthreads();
-    const __nv_bfloat16* kt = s_k + st * kTile * kRow;
-    const __nv_bfloat16* vt = s_v + st * kTile * kRow;
-    const int k0 = k_first + i * kTile;
-
-    // Scores of the 16 heads against tokens n0..n0+7, two k16 steps a
-    // K load: matrices mi = dims kk + 8 mi of the 8 tokens.
-    float sc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 6
-    for (int kk = 0; kk < kD; kk += 32) {
-      uint32_t kb[4], qa[4];
-      hopper::ldmatrix_x4(kb, kt + (n0 + (lane & 7)) * kRow + kk + mi * 8);
-      const __nv_bfloat16* qr =
-          s_q + ((lane & 7) + ((mi & 1) << 3)) * kRow + kk + ((mi >> 1) << 3);
-      hopper::ldmatrix_x4(qa, qr);
-      hopper::mma_bf16_16816(sc, qa, kb[0], kb[1]);
-      hopper::ldmatrix_x4(qa, qr + 16);
-      hopper::mma_bf16_16816(sc, qa, kb[2], kb[3]);
+    for (int z = 0; z < kMaxCluster; ++z) {
+      const uint32_t rk = (uint32_t)(ht + mc * z);
+      mz[z] = z < splits ? hopper::dsmem_ld(hopper::dsmem_addr(s_m + r, rk))
+                         : -INFINITY;
+      lz[z] = z < splits ? hopper::dsmem_ld(hopper::dsmem_addr(s_l + r, rk))
+                         : 0.f;
     }
+    float M = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = n0 + 2 * t + (c & 1);
-      s_sc[(g + 8 * (c >> 1)) * kScoreLd + j] =
-          k0 + j <= k_last ? sc[c] * scale_log2 : -INFINITY;
+    for (int z = 0; z < kMaxCluster; ++z) M = fmaxf(M, mz[z]);
+    float L = 0.f;
+#pragma unroll
+    for (int z = 0; z < kMaxCluster; ++z) {
+      const float w = mz[z] == -INFINITY ? 0.f : exp2f(mz[z] - M);
+      s_w[r * kMaxCluster + z] = w;
+      L += w * lz[z];
     }
-    __syncthreads();
-
-    // Every warp: rows g, g + 8 at tokens 2t + {0, 1, 8, 9, 16, 17, 24,
-    // 25} -- the A fragments of P for the tile's two k16 steps.
-    float p[2][8];
-    uint32_t pa[2][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        p[r][e] = s_sc[(g + 8 * r) * kScoreLd + 2 * t + (e & 1) +
-                       8 * (e >> 1)];
-        mx = fmaxf(mx, p[r][e]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(m[r] - m_use);
-      m[r] = m_new;
-      l[r] *= corr;
-#pragma unroll
-      for (int n = 0; n < kColTiles; ++n) {
-        acc[n][2 * r] *= corr;
-        acc[n][2 * r + 1] *= corr;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        p[r][e] = exp2f(p[r][e] - m_use);
-        l[r] += p[r][e];
-      }
-    }
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      pa[ks][0] = hopper::pack_bf16(p[0][4 * ks], p[0][4 * ks + 1]);
-      pa[ks][1] = hopper::pack_bf16(p[1][4 * ks], p[1][4 * ks + 1]);
-      pa[ks][2] = hopper::pack_bf16(p[0][4 * ks + 2], p[0][4 * ks + 3]);
-      pa[ks][3] = hopper::pack_bf16(p[1][4 * ks + 2], p[1][4 * ks + 3]);
-    }
-
-    // P.V over this warp's columns: matrices are tokens 16ks..+7 and
-    // +8..+15 at columns c0, then at c0 + 8.
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      const int j = 16 * ks + (lane & 7) + ((mi & 1) << 3);
-#pragma unroll
-      for (int np = 0; np < kColTiles / 2; ++np) {
-        uint32_t vb[4];
-        hopper::ldmatrix_x4_trans(
-            vb, vt + j * kRow + c_base + np * 16 + ((mi >> 1) << 3));
-        hopper::mma_bf16_16816(acc[2 * np], pa[ks], vb[0], vb[1]);
-        hopper::mma_bf16_16816(acc[2 * np + 1], pa[ks], vb[2], vb[3]);
-      }
-    }
-    __syncthreads();                   // the stage and the scores are free
-    if (i + kStages < n_tiles) stage_tile(i + kStages);
-    hopper::cp_async_commit();
+    s_inv[r] = 1.f / fmaxf(L, 1e-30f);
   }
+  hopper::bar_sync(3, 256);
+  constexpr int kQuads = kD / 4;
+  const int items = rows * kQuads;
+  for (int it0 = ctid; it0 < items; it0 += 2 * 256) {
+    float4 v[2][kMaxCluster];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-
+    for (int b = 0; b < 2; ++b) {
+      const int it = it0 + b * 256;
+      const int k = it / kQuads;
+      const float* src =
+          s_merge + (split + k * splits) * kMergeLd + 4 * (it - k * kQuads);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int hr = g + 8 * r;
-    if (hr >= nh) continue;
-    if (splits == 1) {
-      const float inv = 1.f / fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* o = out + (head0 + hr) * kD + c_base + 2 * t;
+      for (int z = 0; z < kMaxCluster; ++z)
+        if (z < splits && it < items)
+          v[b][z] = hopper::dsmem_ld4(hopper::dsmem_addr(src, ht + mc * z));
+    }
 #pragma unroll
-      for (int n = 0; n < kColTiles; ++n)
-        *reinterpret_cast<uint32_t*>(o + n * 8) = hopper::pack_bf16(
-            acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    } else {
-      const size_t at = base * G + h0 + hr;
-      float* a = ws_acc + at * kD + c_base + 2 * t;
+    for (int b = 0; b < 2; ++b) {
+      const int it = it0 + b * 256;
+      if (it >= items) break;
+      const int k = it / kQuads;
+      const int c4 = 4 * (it - k * kQuads);
+      const int r = split + k * splits;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int n = 0; n < kColTiles; ++n)
-        *reinterpret_cast<float2*>(a + n * 8) =
-            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
-      if (warp == 0 && t == 0) {
-        ws_ml[at * 2] = m[r];
-        ws_ml[at * 2 + 1] = l[r];
+      for (int z = 0; z < kMaxCluster; ++z) {
+        if (z >= splits) break;
+        const float w = s_w[r * kMaxCluster + z];
+        acc.x = fmaf(w, v[b][z].x, acc.x);
+        acc.y = fmaf(w, v[b][z].y, acc.y);
+        acc.z = fmaf(w, v[b][z].z, acc.z);
+        acc.w = fmaf(w, v[b][z].w, acc.w);
       }
+      const float inv = s_inv[r];
+      uint2 pk;
+      pk.x = hopper::pack_bf16(acc.x * inv, acc.y * inv);
+      pk.y = hopper::pack_bf16(acc.z * inv, acc.w * inv);
+      *reinterpret_cast<uint2*>(&out_rows[(size_t)r * kD + c4]) = pk;
     }
   }
+  hopper::cluster_sync();   // no block leaves while its partial is read
+}
+
+template <int BT>
+int launch_bt(const CUtensorMap& tq, const CUtensorMap& tk,
+              const CUtensorMap& tv, const void* table, const void* lengths,
+              void* out, int S, int H, int KV, int T, int NP, int window,
+              float scale, int splits, bool shared_kv, int q_rows,
+              cudaStream_t stream) {
+  const int stages = num_stages(BT, shared_kv);
+  const size_t smem = (size_t)kFixedBytes +
+                      (size_t)stages * stage_bytes(BT, shared_kv);
+  auto kernel = paged_mla_kernel<BT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int mc = (H / KV + kHeads - 1) / kHeads;
+  if (mc * splits > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(KV * mc, splits, S);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = mc;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv,
+                           static_cast<const int*>(table),
+                           static_cast<const int*>(lengths),
+                           static_cast<__nv_bfloat16*>(out), H, KV, T, NP,
+                           window, scale * 1.4426950408889634f,
+                           (int)shared_kv, stages, q_rows, T < BT ? T : BT);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 int launch_mla(const void* q, const void* k_pages, const void* v_pages,
-               const void* table, const void* lengths, void* out,
-               void* ws_acc, void* ws_ml, int S, int H, int KV, int T,
-               int NP, int window, float scale, int splits, int split_pages,
-               cudaStream_t stream) {
-  const size_t smem = smem_bytes(k_pages == v_pages);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_mla_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int G = H / KV;
-  const int tiles = (G + kHeads - 1) / kHeads;
-  float* wa = static_cast<float*>(ws_acc);
-  float* wm = static_cast<float*>(ws_ml);
-  paged_mla_kernel<<<dim3(KV * tiles, S, splits), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pages),
-      static_cast<const __nv_bfloat16*>(v_pages),
-      static_cast<const int*>(table), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), wa, wm, H, KV, T, NP, split_pages,
-      window, scale * 1.4426950408889634f);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  // One merge block per (KV head, row, query head).
-  split::paged_combine_kernel<<<dim3(KV, S, G), split::kCombineThreads, 0,
-                                stream>>>(
-      wa, wm, static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), H, KV, kD, T, NP, splits,
-      split_pages, window);
-  return (int)cudaGetLastError();
+               const void* table, const void* lengths, void* out, int S,
+               int H, int KV, int T, int NP, int P, int window, float scale,
+               int splits, cudaStream_t stream) {
+  const bool shared_kv = k_pages == v_pages;
+  const int G = KV > 0 ? H / KV : 0;
+  const int mc = (G + kHeads - 1) / kHeads;
+  if (G < 1 || G * KV != H || mc > 2 || splits < 1 ||
+      mc * splits > kMaxCluster || T < 1 || NP < 1 || P < 1)
+    return (int)cudaErrorInvalidValue;
+  const int bt = tile_tokens(T, shared_kv);
+  const int q_rows = H < kHeads ? H : kHeads;
+  // q (S, H, D) as (D, H, S): the block's heads are the box (64, q_rows,
+  // 1) at (64a, first head, row); heads past H read as zeros.  The pool
+  // (P, T, KV, D) as (D, KV, T, P): a tile of one KV head is the box
+  // (64, 1, BT, 1) at (64a, kvh, first token, page), tokens past the
+  // page's end zeros.
+  const uint64_t q_dims[3] = {(uint64_t)kD, (uint64_t)H, (uint64_t)S};
+  const uint64_t q_strides[2] = {(uint64_t)kD * 2, (uint64_t)H * kD * 2};
+  const uint32_t q_box[3] = {64, (uint32_t)q_rows, 1};
+  const uint64_t kv_dims[4] = {(uint64_t)kD, (uint64_t)KV, (uint64_t)T,
+                               (uint64_t)P};
+  const uint64_t kv_strides[3] = {(uint64_t)kD * 2, (uint64_t)KV * kD * 2,
+                                  (uint64_t)T * KV * kD * 2};
+  const uint32_t kv_box[4] = {64, 1, (uint32_t)(T < bt ? T : bt), 1};
+  CUtensorMap tq, tk, tv;
+  int rc = hopper::make_map_bf16(&tq, q, 3, q_dims, q_strides, q_box);
+  if (rc == 0)
+    rc = hopper::make_map_bf16(&tk, k_pages, 4, kv_dims, kv_strides, kv_box);
+  if (rc == 0)
+    rc = hopper::make_map_bf16(&tv, v_pages, 4, kv_dims, kv_strides, kv_box);
+  if (rc) return rc;
+  switch (bt) {
+    case 64:
+      return launch_bt<64>(tq, tk, tv, table, lengths, out, S, H, KV, T, NP,
+                           window, scale, splits, shared_kv, q_rows, stream);
+    case 48:
+      return launch_bt<48>(tq, tk, tv, table, lengths, out, S, H, KV, T, NP,
+                           window, scale, splits, shared_kv, q_rows, stream);
+    case 32:
+      return launch_bt<32>(tq, tk, tv, table, lengths, out, S, H, KV, T, NP,
+                           window, scale, splits, shared_kv, q_rows, stream);
+    default:
+      return launch_bt<16>(tq, tk, tv, table, lengths, out, S, H, KV, T, NP,
+                           window, scale, splits, shared_kv, q_rows, stream);
+  }
 }
 
 }  // namespace mla
@@ -1016,20 +1351,23 @@ int launch_mla(const void* q, const void* k_pages, const void* v_pages,
 extern "C" {
 
 // Bytes of shared memory one block of body `path` (0 = simt, 1 = split,
-// 2 = mla) needs; the simt and mla bodies' do not depend on the page, and
-// the mla body's depends on whether K and V are one tensor (`shared_kv`).
-// The wrapper refuses shapes above the 232,448 B a block may use.
+// 2 = mla) needs; the simt body's does not depend on the page, and the mla
+// body's depends on the page (its token tile) and on whether K and V are
+// one tensor (`shared_kv`), not on the group.  The wrapper refuses shapes
+// above the 232,448 B a block may use.
 size_t paged_attention_smem_bytes(int G, int D, int T, int path,
                                   int shared_kv) {
   if (path == 1) return split::smem_bytes(G, D, T);
-  if (path == 2) return mla::smem_bytes(shared_kv != 0);
+  if (path == 2) return mla::smem_bytes(T, shared_kv != 0);
   return simt::smem_bytes(G, D);
 }
 
 // dtype: 0 = float32, 1 = bfloat16; path: 0 = simt, 1 = split, 2 = mla
-// (both bf16 only; ws_acc/ws_ml are the float32 partials, (S, KV, splits,
-// G, D) and (S, KV, splits, G, 2), unused by mla at one split, and P the
-// pool's page count).  All pointers are device pointers on `device`;
+// (both bf16 only; ws_acc/ws_ml are the split body's float32 partials,
+// (S, KV, splits, G, D) and (S, KV, splits, G, 2); the mla body takes
+// none and ignores split_pages: its `splits` blocks of a (row, head tile)
+// share its live tiles and merge in their cluster; P is the pool's page
+// count).  All pointers are device pointers on `device`;
 // `stream` is a cudaStream_t.
 int paged_attention_fwd(const void* q, const void* k_pages,
                         const void* v_pages, const void* table,
@@ -1042,9 +1380,9 @@ int paged_attention_fwd(const void* q, const void* k_pages,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == 2)
-    return mla::launch_mla(q, k_pages, v_pages, table, lengths, out, ws_acc,
-                           ws_ml, S, H, KV, page_tokens, NP, window, scale,
-                           splits, split_pages, st);
+    return mla::launch_mla(q, k_pages, v_pages, table, lengths, out, S, H,
+                           KV, page_tokens, NP, P, window, scale, splits,
+                           st);
   if (path == 1)
     return split::launch_split(q, k_pages, v_pages, table, lengths, out,
                                ws_acc, ws_ml, S, H, KV, D, page_tokens, NP, P,

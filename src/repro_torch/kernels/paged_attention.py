@@ -14,15 +14,15 @@ Routing, with no fallback between any two:
     across blocks, pages staged by TMA, products on the tensor cores, and
     a second launch that merges the splits; ``"mla"``: bf16 at the MLA
     latent's head dim 576 with up to 128 query heads per KV head (the
-    absorbed MLA decode of DeepSeek-V2: K = V = the latent pool) -- 16-head
-    tiles in the grid, 32-token tiles by cp.async, products on the tensor
-    cores, the output columns split over the warps, and the splits, where
-    there are several, merged as the split body's are; ``"simt"``: the
+    absorbed MLA decode of DeepSeek-V2: K = V = the latent pool) -- 64-head
+    tiles on wgmma fed by TMA, the two head tiles of a row one cluster fed
+    by multicast, and a row's splits, where there are several, one cluster
+    that merges through distributed shared memory; ``"simt"``: the
     rest, on the CUDA cores, in 16-head, 16-token tiles where the whole
     group does not fit a block), or an exception.  The wrapper checks
-    devices, dtypes, contiguity and shapes, allocates the output and the
-    split workspace, launches on ``torch.cuda.current_stream()`` and
-    raises when the launch reports an error.
+    devices, dtypes, contiguity and shapes, allocates the output (and the
+    split body's workspace), launches on ``torch.cuda.current_stream()``
+    and raises when the launch reports an error.
 
 The split count comes from shapes alone (``split_plan``,
 ``mla_split_plan``): ``lengths`` is never read on the host, so a launch
@@ -75,15 +75,22 @@ SPLIT_HEAD_DIMS = (64, 128)
 SPLIT_MAX_PAGE = 256
 SPLIT_MAX_GROUP = 16
 #: The mla body: the head dim it takes (DeepSeek-V2's latent row, kv_lora
-#: 512 + rope 64), the most query heads per KV head, and its block's heads
-#: (one m16 tile), token tile, stages, staged row (padded) and score row.
+#: 512 + rope 64), the most query heads per KV head, its block's heads (one
+#: wgmma m64 tile), the token tiles it is built for (largest first; K != V
+#: takes ``MLA_TILES_KV``), its most ring stages, the bytes a block holds
+#: besides the ring (alignment slack, the Q tile, the P tile, mbarriers
+#: and per-row floats), and the blocks of a cluster its plan uses
+#: (portable) and the kernel takes (non-portable above 8).
 MLA_HEAD_DIM = 576
 MLA_MAX_GROUP = 128
-MLA_HEADS = 16
-MLA_TILE = 32
-MLA_STAGES = 2
-MLA_ROW = MLA_HEAD_DIM + 8
-MLA_SCORE_LD = MLA_TILE + 8
+MLA_HEADS = 64
+MLA_TILES = (64, 48, 32, 16)
+MLA_TILES_KV = (32, 16)
+MLA_MAX_STAGES = 8
+MLA_FIXED_BYTES = 1024 + MLA_HEADS * MLA_HEAD_DIM * 2 + MLA_HEADS * 128 \
+    + 1024
+MLA_PLAN_CLUSTER = 8
+MLA_MAX_CLUSTER = 16
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"simt": 0, "split": 1, "mla": 2}
@@ -144,22 +151,52 @@ def split_plan(rows: int, n_kv: int, table_width: int, page_tokens: int,
     return -(-max(1, table_width) // pages), pages
 
 
+def mla_tile(page_tokens: int, shared_kv: bool = True) -> Tuple[int, int]:
+    """``(tokens a tile, ring stages)`` of the mla body for pages of
+    ``page_tokens`` (its ``tile_tokens`` and ``num_stages``).
+
+    A tile never crosses a page, so of ``MLA_TILES`` (``MLA_TILES_KV``
+    when K and V are two tensors) the tile is the one that pads a page
+    least, the larger on a tie: 48 at DeepSeek-V2's 96-token pages, 64 at
+    64 and 128, 16 at 8.  The ring holds as many stages as fit a block beside
+    ``MLA_FIXED_BYTES``, at most ``MLA_MAX_STAGES``."""
+    best, best_pad = 16, None
+    for bt in (MLA_TILES if shared_kv else MLA_TILES_KV):
+        pad = -(-page_tokens // bt) * bt
+        if best_pad is None or pad < best_pad:
+            best, best_pad = bt, pad
+    stage = _mla_stage_bytes(best, shared_kv)
+    return best, min(MLA_MAX_STAGES,
+                     (h100_spec().smem_bytes - MLA_FIXED_BYTES) // stage)
+
+
+def _mla_stage_bytes(tile: int, shared_kv: bool) -> int:
+    return (MLA_HEAD_DIM // 64) * tile * 128 * (1 if shared_kv else 2)
+
+
 def mla_split_plan(rows: int, n_kv: int, group: int, table_width: int,
                    page_tokens: int, spec=None) -> Tuple[int, int]:
-    """``(splits, split_pages)`` of the mla body, from shapes alone.
+    """``(splits, blocks of a cluster)`` of the mla body, from shapes alone.
 
-    A block is one (row, KV head, 16-head tile).  Where those blocks
-    already fill the card's SMs -- a prefill chunk: 96 rows x 8 head tiles
-    at DeepSeek-V2 -- there is one split, and each block writes its rows
-    with no workspace (split, the float32 partials would be 295 KB a
-    (row, split) at 128 heads x 576).  Otherwise ``split_plan`` over the
-    head tiles as it plans over KV heads: at decode (8 rows x 8 tiles, 43
-    pages of 96 tokens) one page a split, 43 splits."""
+    A block is one (row, KV head, 64-head tile); a group over 64 heads is
+    two tiles, one cluster fed by TMA multicast.  Where those blocks fill
+    the card's SMs -- a prefill chunk: 96 rows x 2 head tiles at
+    DeepSeek-V2 -- there is one split.  Otherwise each (row, head tile)
+    gets the splits that bring the launch to about one block per SM, at
+    most ``MLA_PLAN_CLUSTER`` blocks a cluster with its head tiles, and no
+    more than a full table has tiles: the splits share the row's live
+    tiles evenly on the card (from ``lengths`` there), so every split of a
+    long row works, and merge in their cluster.  At decode (8 rows x 2
+    head tiles) 4 splits, clusters of 8; at 16 heads 8 splits."""
     spec = spec or h100_spec()
-    tiles = n_kv * -(-group // MLA_HEADS)
-    if rows * tiles >= spec.num_sms:
-        return 1, max(1, table_width)
-    return split_plan(rows, tiles, table_width, page_tokens, spec)
+    tiles = -(-group // MLA_HEADS)
+    blocks = rows * n_kv * tiles
+    if blocks >= spec.num_sms:
+        return 1, tiles
+    tile, _ = mla_tile(page_tokens)
+    full = max(1, table_width) * -(-page_tokens // tile)
+    splits = min(MLA_PLAN_CLUSTER // tiles, -(-spec.num_sms // blocks), full)
+    return splits, tiles * splits
 
 
 def simt_plan(group: int, head_dim: int) -> Tuple[int, int]:
@@ -185,6 +222,17 @@ def split_workspace(rows: int, n_kv: int, splits: int, group: int,
             (rows, n_kv, splits, group, 2))
 
 
+def workspace_bytes(path: str, rows: int, n_kv: int, splits: int,
+                    group: int, head_dim: int) -> int:
+    """Bytes of float32 workspace body ``path`` writes to device memory:
+    the split body's partials (``split_workspace``); none for the mla body,
+    whose splits merge in their cluster, or for simt."""
+    if path != "split":
+        return 0
+    acc, ml = split_workspace(rows, n_kv, splits, group, head_dim)
+    return 4 * (math.prod(acc) + math.prod(ml))
+
+
 def smem_bytes(group: int, head_dim: int, page_tokens: int,
                path: str = "split", shared_kv: bool = True) -> int:
     """Shared memory of one block of body ``path``, as the CUDA source lays
@@ -197,10 +245,13 @@ def smem_bytes(group: int, head_dim: int, page_tokens: int,
     (``SPLIT_WARPS x (G x D + 2G)`` floats); one 8-byte mbarrier per stage
     and ``MAX_SPLIT_PAGES`` table entries.
 
-    ``mla``: the bf16 q tile (``MLA_HEADS`` rows of ``MLA_ROW``), the ring
-    of ``MLA_STAGES`` tiles of ``MLA_TILE`` tokens (one ring when K and V
-    are one tensor -- ``shared_kv`` -- two otherwise) and the tile's
-    float32 scores; it depends on neither the page nor the group.
+    ``mla``: ``MLA_FIXED_BYTES`` (1,024 B of alignment slack, the bf16 Q
+    tile of ``MLA_HEADS`` x 576, the bf16 P tile of 64 x 64 and 1,024 B of
+    mbarriers and per-row floats) and ``mla_tile``'s stages of its token
+    tile, each the tile's 576 columns of K, and of V when V is a tensor of
+    its own (``shared_kv`` False); it depends on the page, not the group.
+    After the last tile the Q tile and the ring hold the block's bf16 rows
+    or its float32 partial (64 rows of 584).
 
     ``simt``: float32 q and accumulator (heads x D each), one tile of K
     (rows padded by one float) and of V, the tile's logits (heads x tile)
@@ -213,10 +264,8 @@ def smem_bytes(group: int, head_dim: int, page_tokens: int,
         return 1024 + max(ring, merge) + SPLIT_STAGES * 8 \
             + MAX_SPLIT_PAGES * 4
     if path == "mla":
-        rings = 1 if shared_kv else 2
-        return (MLA_HEADS * MLA_ROW * 2
-                + rings * MLA_STAGES * MLA_TILE * MLA_ROW * 2
-                + MLA_HEADS * MLA_SCORE_LD * 4)
+        tile, stages = mla_tile(page_tokens, shared_kv)
+        return MLA_FIXED_BYTES + stages * _mla_stage_bytes(tile, shared_kv)
     gb, tile = simt_plan(g, d)
     return 4 * _simt_floats(gb, d, tile)
 
@@ -260,7 +309,9 @@ def paged_attention(
     ``paged_path`` would pick split or mla (to compare them);
     ``split_pages`` overrides the split plan's pages per split (to time
     other splits; up to ``MAX_SPLIT_PAGES`` on the split body, up to the
-    table's width on the mla body).
+    table's width on the mla body, whose splits are then
+    ``ceil(table width / split_pages)``, at most ``MLA_MAX_CLUSTER``
+    blocks a cluster with the head tiles).
     """
     if any(isinstance(x, DTensor)
            for x in (q, k_pages, v_pages, page_table, lengths)):
@@ -289,11 +340,18 @@ def paged_attention(
                          f"{q.dtype} at D={d}, page {t}, group {h // n_kv}")
     path = path or routed
     # The split body holds a split's table entries in shared memory; the
-    # mla body reads them as it goes, so any split size works there.
+    # mla body reads them as it goes, and its splits are one cluster.
     top = MAX_SPLIT_PAGES if path == "split" else max(1, page_table.shape[1])
     if split_pages is not None and not 1 <= split_pages <= top:
         raise ValueError(f"split_pages must be in 1..{top}; got "
                          f"{split_pages}")
+    if split_pages is not None and path == "mla":
+        tiles = -(-(h // n_kv) // MLA_HEADS)
+        blocks = tiles * -(-page_table.shape[1] // split_pages)
+        if blocks > MLA_MAX_CLUSTER:
+            raise ValueError(f"split_pages={split_pages} makes clusters of "
+                             f"{blocks} blocks; the mla body takes at most "
+                             f"{MLA_MAX_CLUSTER}")
     tensors = (q, k_pages, v_pages, page_table, lengths)
     if all(x.device.type == "cpu" for x in tensors):
         return paged_attention_ref(q, k_pages, v_pages, page_table, lengths,
@@ -342,7 +400,7 @@ def paged_attention(
         if split_pages is not None:
             pages = split_pages
             splits = -(-max(1, n_pages) // pages)
-        if path == "split" or splits > 1:
+        if path == "split":
             acc_shape, ml_shape = split_workspace(s, n_kv, splits, g, d)
             ws_acc = torch.empty(acc_shape, dtype=torch.float32,
                                  device=q.device)

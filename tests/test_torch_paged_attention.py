@@ -528,22 +528,31 @@ def test_cuda_mixtral_window_shapes(dtype, shape):
 
 
 def test_mla_split_plan_and_shared_memory():
-    """The mla body's splits come from shapes alone: at DeepSeek-V2 decode
-    (8 rows x 8 head tiles, 43 pages of 96 tokens) one page a split, 43
-    splits; a 96-row prefill chunk (768 blocks, more than the 132 SMs)
-    does not split, so it needs no workspace.  Its block stages the 16-head
-    q tile, one ring of two 32-token tiles when K and V are one tensor (two
-    otherwise) and the tile's scores, whatever the page and group.  The
-    simt body takes the same shape in 16-head, 16-token tiles (148,736 B
-    where the whole group would need 919,296 B)."""
-    assert pa_mod.mla_split_plan(8, 1, 128, 43, 96) == (43, 1)
-    assert pa_mod.mla_split_plan(96, 1, 128, 43, 96) == (1, 43)
-    assert pa_mod.mla_split_plan(2, 1, 4, 5, 8)[0] >= 1
-    row = 2 * (576 + 8)
+    """The mla body's splits come from shapes alone.  At DeepSeek-V2
+    decode (8 rows x 2 head tiles of 64, 43 pages of 96 tokens) each (row,
+    head tile) gets 4 splits: 64 blocks in clusters of 2 x 4, the splits
+    sharing each row's live tiles on the card; at 16 and 8 local heads (one
+    padded tile) 8 splits; a 96-row prefill chunk (192 blocks, more than
+    the 132 SMs) one split, clusters of the two head tiles.  A block holds
+    the 64-row Q tile, the P tile and a ring of 48-token tiles at 96-token
+    pages (16 at 8), whatever the group.  The simt body takes the same
+    shape in 16-head, 16-token tiles (148,736 B where the whole group would
+    need 919,296 B)."""
+    assert pa_mod.mla_split_plan(8, 1, 128, 43, 96) == (4, 8)
+    assert pa_mod.mla_split_plan(96, 1, 128, 43, 96) == (1, 2)
+    assert pa_mod.mla_split_plan(8, 1, 16, 43, 96) == (8, 8)
+    assert pa_mod.mla_split_plan(8, 1, 8, 43, 96) == (8, 8)
+    assert pa_mod.mla_split_plan(2, 1, 4, 5, 8) == (5, 5)
+    assert pa_mod.mla_tile(96) == (48, 2)
+    assert pa_mod.mla_tile(64) == (64, 2)
+    assert pa_mod.mla_tile(8) == (16, 8)
+    assert pa_mod.mla_tile(96, shared_kv=False) == (32, 2)
+    fixed = 1024 + 64 * 576 * 2 + 64 * 128 + 1024
+    assert pa_mod.MLA_FIXED_BYTES == fixed == 83_968
     assert pa_mod.smem_bytes(128, 576, 96, "mla") == \
-        16 * row + 2 * 32 * row + 16 * 40 * 4 == 96_000
+        fixed + 2 * 9 * 48 * 128 == 194_560
     assert pa_mod.smem_bytes(4, 576, 8, "mla", shared_kv=False) == \
-        96_000 + 2 * 32 * row <= 232_448
+        fixed + 4 * 2 * 9 * 16 * 128 == 231_424
     assert pa_mod.simt_plan(128, 576) == (16, 16)
     assert pa_mod.smem_bytes(128, 576, 96, "simt") == 148_736
     assert 4 * (2 * 128 * 576 + 64 * 577 + 64 * 576 + 128 * 64
@@ -551,12 +560,73 @@ def test_mla_split_plan_and_shared_memory():
     assert pa_mod.simt_plan(4, 64) == (4, 64)
 
 
-def _mla_case(dtype, shape, shared=True, seed=17):
-    """DeepSeek-V2's paged MLA call at its published widths: q (S, 128,
-    576), the latent pool (P, 96, 1, 576) as K and V, the engine's 43-page
-    table (4096 tokens).  Decode: 8 rows of ragged lengths; prefill: one
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("t", [8, 96])
+@pytest.mark.parametrize("group", [4, 8, 16, 64, 128])
+def test_mla_shared_memory_fits_a_block(group, t, shared):
+    """At every group the body takes (4 in the tests, 8 and 16 local heads
+    on the production meshes, one and two head tiles), K = V and K != V,
+    pages of 8 and 96: a block fits the 232,448 B it may use, its ring has
+    two stages at least, and Q and the ring hold the float32 merge buffer
+    (64 rows of 584 floats) that the splits' partials use after the last
+    tile."""
+    tile, stages = pa_mod.mla_tile(t, shared)
+    smem = pa_mod.smem_bytes(group, 576, t, "mla", shared_kv=shared)
+    assert smem <= 232_448
+    assert stages >= 2 and tile % 16 == 0
+    ring = smem - pa_mod.MLA_FIXED_BYTES
+    assert ring == stages * 9 * tile * 128 * (1 if shared else 2)
+    assert 64 * 576 * 2 + ring >= 64 * 584 * 4
+    assert pa_mod.mla_split_plan(8, 1, group, 43, t)[1] <= \
+        pa_mod.MLA_PLAN_CLUSTER
+
+
+def test_mla_writes_no_workspace():
+    """The mla body merges a row's splits in their cluster, so the wrapper
+    allocates nothing but the output: no float32 partials at all, let
+    alone more than the latent the decode reads (3,178 live tokens of 576
+    bf16 at ``DECODE_LENS``: 3.66 MB).  The split body keeps its
+    workspace."""
+    lens = (0, 1, 57, 300, 700, 1056, 1000, 64)
+    latent = sum(lens) * 576 * 2
+    assert latent == 3_661_056
+    splits, _ = pa_mod.mla_split_plan(8, 1, 128, 43, 96)
+    assert pa_mod.workspace_bytes("mla", 8, 1, splits, 128, 576) == 0
+    assert pa_mod.workspace_bytes("split", 8, 8, 37, 4, 64) == \
+        4 * 8 * 8 * 37 * (4 * 64 + 4 * 2)
+
+
+def test_mla_split_pages_stays_in_one_cluster():
+    """The mla body's splits of a row are one cluster with its head tiles,
+    at most ``MLA_MAX_CLUSTER`` blocks: a ``split_pages`` that asks for
+    more raises, on the CPU too, and moves no counter; one that fits
+    returns the plain version's result there."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 128, 576)).astype(
+        np.float32)).bfloat16()
+    pool = torch.from_numpy(rng.standard_normal((3, 96, 1, 576)).astype(
+        np.float32)).bfloat16()
+    table = torch.tensor([[1, 2] + [0] * 41] * 2, dtype=torch.int32)
+    lens = torch.tensor([150, 7], dtype=torch.int32)
+    before = pa_mod.LAUNCHES
+    with pytest.raises(ValueError, match="clusters of 86 blocks"):
+        paged_attention(q, pool, pool, table, lens, page_tokens=96,
+                        split_pages=1)
+    out = paged_attention(q, pool, pool, table, lens, page_tokens=96,
+                          split_pages=6)             # 2 x 8 blocks
+    assert pa_mod.LAUNCHES == before
+    torch.testing.assert_close(
+        out, paged_attention_ref(q, pool, pool, table, lens))
+
+
+def _mla_case(dtype, shape, shared=True, seed=17, heads=128, t=96):
+    """DeepSeek-V2's paged MLA call at its published widths: q (S, heads,
+    576) (128 heads, or a mesh rank's local ones), the latent pool (P, t,
+    1, 576) as K and V, the engine's 4096-token table (43 pages of 96).
+    Decode: 8 rows of ragged lengths, one of them 0; prefill: one
     96-token chunk at 961..1056 over one table."""
-    t, h, d, n_logical = 96, 128, 576, 43
+    h, d = heads, 576
+    n_logical = -(-4096 // t)
     gen = torch.Generator().manual_seed(seed)
     if shape == "decode":
         lengths = [0, 1, 57, 300, 700, 1056, 1000, 64]
@@ -569,10 +639,11 @@ def _mla_case(dtype, shape, shared=True, seed=17):
             table[i, :n] = perm[at:at + n]
             at += n
     else:
-        lengths = list(range(10 * t + 1, 11 * t + 1))
-        p_total = 1 + 11
+        lengths = list(range(961, 1057))
+        n = -(-1056 // t)
+        p_total = 1 + n
         row = torch.zeros(n_logical, dtype=torch.int32)
-        row[:11] = (1 + torch.randperm(11, generator=gen)).int()
+        row[:n] = (1 + torch.randperm(n, generator=gen)).int()
         table = row[None].expand(len(lengths), n_logical).contiguous()
     q = torch.randn(len(lengths), h, d, generator=gen).to("cuda", dtype)
     k = torch.randn(p_total, t, 1, d, generator=gen).to("cuda", dtype)
@@ -615,14 +686,15 @@ def test_cuda_mla_shapes(dtype, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", [0, 200])
 @pytest.mark.parametrize("shared", [True, False])
-@pytest.mark.parametrize("split_pages", [None, 1, 3, 16])
+@pytest.mark.parametrize("split_pages", [None, 43, 11, 6])
 def test_cuda_mla_body_splits_windows_and_distinct_kv(split_pages, shared,
                                                       window):
-    """The mla body at DeepSeek-V2's decode shape over splits of 1, 3 and
-    16 pages (the 16-page split covers rows whose keys cross pages inside
-    one block), a window that starts inside a page, and K and V as two
-    tensors (staged in two rings) as well as one: against the plain
-    version, reruns bit-identical."""
+    """The mla body at DeepSeek-V2's decode shape at the plan's splits and
+    at 1, 4 and 8 splits of each (row, head tile) (``split_pages`` 43, 11
+    and 6 of the 43-page table; 8 splits make clusters of 16 blocks), a
+    window that starts inside a page, and K and V as two tensors (two
+    rings of 32-token tiles) as well as one: against the plain version,
+    reruns bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     q, k, v, table, lens = _mla_case(torch.bfloat16, "decode", shared,
@@ -640,3 +712,40 @@ def test_cuda_mla_body_splits_windows_and_distinct_kv(split_pages, shared,
     err = (out.float() - ref)[live].abs()
     assert bool((err <= 2e-2 * (1 + ref[live].abs())).all()), \
         float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("t", [96, 8])
+@pytest.mark.parametrize("shape", ["decode", "prefill"])
+@pytest.mark.parametrize("heads", [4, 8, 16, 128])
+def test_cuda_mla_groups_pages_and_windows(heads, shape, t, shared):
+    """The mla body at 4 query heads (the tests' group), 8 and 16 (a mesh
+    rank's local heads: one 64-row tile, mostly padding) and 128 (two
+    tiles, one cluster fed by multicast); decode (a length-0 row among
+    them: zeros) and prefill; 96-token pages (48-token tiles; 32 when K !=
+    V) and 8-token ones (16-token tiles past the page's end); K = V and
+    K != V; with and without a window: against the plain version within
+    bf16's 2e-2, two launches bit-identical, the launches counted on
+    ``mla``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, table, lens = _mla_case(torch.bfloat16, shape, shared,
+                                     seed=heads + t, heads=heads, t=t)
+    assert pa_mod.paged_path(torch.bfloat16, 576, t, heads) == "mla"
+    for window in (0, 200):
+        before = pa_mod.LAUNCHES_MLA
+        out = paged_attention(q, k, v, table, lens, window=window,
+                              page_tokens=t)
+        again = paged_attention(q, k, v, table, lens, window=window,
+                                page_tokens=t)
+        torch.cuda.synchronize()
+        assert pa_mod.LAUNCHES_MLA == before + 2
+        assert torch.equal(out, again)
+        ref = paged_attention_ref(q, k, v, table, lens,
+                                  window=window).float()
+        live = lens > 0
+        err = (out.float() - ref)[live].abs()
+        assert bool((err <= 2e-2 * (1 + ref[live].abs())).all()), \
+            (window, float(err.max()))
+        assert not out[~live].float().abs().any()

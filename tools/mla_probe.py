@@ -9,23 +9,28 @@ At deepseek-v2-236b's paged MLA call -- 128 query heads over the one
 ``chip_smoke.DECODE_LENS``; prefill: 96 rows at 961..1056 over one table,
 the inputs ``chip_smoke.py`` phase 15 times -- it prints, for each shape:
 
-  * the device ms of the wrapper call (``chip_smoke.cuda_ms``: CUDA
-    events, the card asleep while the host queues the calls) at the split
-    plan's pages per split and at others;
-  * the device ms of the same launches made through the C entry point
-    with the output and workspace allocated once (so the wrapper's checks
-    and allocations are out of the loop);
-  * ``torch.profiler`` over 20 wrapper calls: every device activity by
-    name, the sum of their times, and the span from the first one's start
-    to the last one's end (span minus sum is time the card ran none);
+  * the plan (splits, cluster blocks, token tile, ring stages);
+  * the device ms of the call (``chip_smoke.cuda_ms``: CUDA events, the
+    card asleep while the host queues the calls) at each of ``SPLITS``
+    splits of a (row, head tile), the plan's among them, cold (the calls
+    cycle 16 pool copies, as layers do: the latent is not in L2) and warm
+    (one pool, whose 3.66 MB stay in L2);
+  * ``torch.profiler`` over 20 calls at the plan: every device activity
+    by name (one kernel: the splits merge in their cluster);
 
-with the card's ``nvidia-smi`` name and power limit.
+and, at decode, the merge on its own: the call at each split count over
+rows of one token (one tile a row, so the other splits hold no key and
+the call is mostly the cluster's merge of 128 x 576 float32 partials
+through distributed shared memory) beside one split, and, for the
+workspace merge the body no longer runs, the float32 partials' bytes
+written and read once by a device copy (``Tensor.copy_``, cold and warm):
+the least that merge would move through device memory.  With the card's
+``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations
 
 import json
-import math
 import os
 import sys
 
@@ -36,81 +41,52 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
 
-SPLITS = (1, 2, 4, 8, 43)
+#: Splits of a (row, head tile) timed beside the plan's: 8 at 128 heads
+#: makes clusters of 16 blocks (non-portable).
+SPLITS = (1, 2, 4, 8)
 
 
-def case(shape: str, t: int) -> dict:
-    lens = cs.DECODE_LENS if shape == "decode" else \
-        tuple(range((1024 // t) * t + 1, (1024 // t) * t + t + 1))
+def case(shape: str, t: int, lens=None) -> dict:
+    lens = lens or (cs.DECODE_LENS if shape == "decode" else
+                    tuple(range((1024 // t) * t + 1,
+                                (1024 // t) * t + t + 1)))
     c = cs.make_case(torch.bfloat16, lens, t, shape == "prefill",
                      cs.LAYER_COPIES, cfg=cs.deepseek_cfg())
     c["lens"] = lens
     return c
 
 
-def raw_ms(c: dict, t: int, split_pages: int) -> float:
-    """The mla launches through the C entry point, output and workspace
-    allocated once."""
-    from repro_torch.kernels import paged_attention as pa
-
-    q, kp, table, lengths = c["q"], c["k"], c["table"], c["lengths"]
-    s, h, d = q.shape
-    n_pages = table.shape[1]
-    splits = -(-n_pages // split_pages)
-    out = torch.empty_like(q)
-    ws = [None, None]
-    if splits > 1:
-        acc, ml = pa.split_workspace(s, 1, splits, h, d)
-        ws = [torch.empty(acc, device=q.device), torch.empty(ml,
-                                                             device=q.device)]
-    fn = pa._kernel()[0]
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run(i):
-        pool = kp[i % cs.LAYER_COPIES]
-        rc = fn(q.data_ptr(), pool.data_ptr(), pool.data_ptr(),
-                table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                0 if ws[0] is None else ws[0].data_ptr(),
-                0 if ws[1] is None else ws[1].data_ptr(),
-                s, h, 1, d, t, n_pages, pool.shape[0], 0,
-                1.0 / math.sqrt(d), splits, split_pages, 1, 2,
-                q.device.index, stream)
-        assert rc == 0, rc
-
-    return cs.cuda_ms(run)
+def split_pages_for(n_pages: int, splits: int) -> int:
+    """The wrapper's ``split_pages`` that gives ``splits`` splits."""
+    return -(-n_pages // splits)
 
 
-def profiled(c: dict, t: int, reps: int = 20) -> dict:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def call_ms(c: dict, t: int, split_pages, warm: bool) -> float:
     from repro_torch.kernels.paged_attention import paged_attention
 
     q, kp, table, lengths = c["q"], c["k"], c["table"], c["lengths"]
 
     def run(i):
-        pool = kp[i % cs.LAYER_COPIES]
-        paged_attention(q, pool, pool, table, lengths, page_tokens=t)
+        pool = kp[0 if warm else i % cs.LAYER_COPIES]
+        paged_attention(q, pool, pool, table, lengths, page_tokens=t,
+                        split_pages=split_pages)
 
-    run(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            run(i)
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
-    for e in dev:
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + \
-            e.time_range.elapsed_us() / reps
-    busy = sum(e.time_range.elapsed_us() for e in dev) / reps
-    span = ((max(e.time_range.end for e in dev)
-             - min(e.time_range.start for e in dev)) / reps) if dev else 0.0
-    return {"device_us_by_name": {k: round(v, 3) for k, v in
-                                  by_name.items()},
-            "activities": len(dev), "busy_us": round(busy, 3),
-            "span_us": round(span, 3)}
+    return cs.cuda_ms(run)
+
+
+def workspace_floor_ms(rows: int, heads: int, splits: int) -> dict:
+    """A device copy of the float32 partials a workspace merge would write
+    and read again (rows x splits x heads x 576), cold (16 buffers) and
+    warm (one)."""
+    n = rows * splits * heads * 576
+    src = [torch.empty(n, device="cuda") for _ in range(cs.LAYER_COPIES)]
+    dst = torch.empty(n, device="cuda")
+    out = {"bytes": 2 * 4 * n}
+    for name, pick in (("cold", lambda i: src[i % cs.LAYER_COPIES]),
+                       ("warm", lambda i: src[0])):
+        out[f"{name}_ms"] = round(cs.cuda_ms(
+            lambda i, pick=pick: dst.copy_(pick(i))), 5)
+    return out
 
 
 def main() -> int:
@@ -118,6 +94,7 @@ def main() -> int:
         print("mla_probe: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels.paged_attention import (mla_split_plan,
+                                                     mla_tile,
                                                      paged_attention)
     from repro_torch.serve.engine import plan_decode
 
@@ -128,18 +105,38 @@ def main() -> int:
     for shape in ("decode", "prefill"):
         c = case(shape, t)
         q, kp, table, lengths = c["q"], c["k"], c["table"], c["lengths"]
-        planned = mla_split_plan(q.shape[0], 1, q.shape[1], table.shape[1],
-                                 t)
-        row = {"planned": {"splits": planned[0], "split_pages": planned[1]}}
-        for sp in sorted(set(SPLITS) | {planned[1]}):
-            def run(i, sp=sp):
-                pool = kp[i % cs.LAYER_COPIES]
-                paged_attention(q, pool, pool, table, lengths,
-                                page_tokens=t, split_pages=sp)
-            row[f"wrapper_ms@{sp}"] = round(cs.cuda_ms(run), 5)
-            row[f"raw_ms@{sp}"] = round(raw_ms(c, t, sp), 5)
-        row["profile"] = profiled(c, t)
+        n_pages = table.shape[1]
+        splits, cluster = mla_split_plan(q.shape[0], 1, q.shape[1], n_pages,
+                                         t)
+        tile, stages = mla_tile(t)
+        row = {"planned": {"splits": splits, "cluster": cluster,
+                           "tile": tile, "stages": stages}}
+        for z in sorted(set(SPLITS) | {splits}):
+            sp = split_pages_for(n_pages, z)
+            for warm in (False, True):
+                key = f"{'warm' if warm else 'cold'}_ms@{z}"
+                try:
+                    row[key] = round(call_ms(c, t, sp, warm), 5)
+                except (RuntimeError, ValueError) as e:   # a cluster of 16
+                    row[key] = f"refused: {e}"            # may not launch
+        row["profile"] = cs.kernel_us(
+            lambda: paged_attention(q, kp[0], kp[0], table, lengths,
+                                    page_tokens=t), reps=20)
         print(f"{shape}: " + json.dumps(row), flush=True)
+    # The merge alone: one-token rows, so each (row, head tile) has one
+    # tile and the other splits only merge.
+    c = case("decode", t, lens=(1,) * len(cs.DECODE_LENS))
+    n_pages = c["table"].shape[1]
+    merge = {}
+    for z in SPLITS:
+        try:
+            merge[f"cold_ms@{z}"] = round(
+                call_ms(c, t, split_pages_for(n_pages, z), False), 5)
+        except (RuntimeError, ValueError) as e:
+            merge[f"cold_ms@{z}"] = f"refused: {e}"
+    merge["workspace_copy"] = {
+        z: workspace_floor_ms(len(cs.DECODE_LENS), 128, z) for z in SPLITS}
+    print("merge: " + json.dumps(merge), flush=True)
     print(cs.smi_line())
     return 0
 
