@@ -275,7 +275,13 @@ Phases (each prints its results; the script exits non-zero if any fails):
      (32 new, after a 2-prompt warm-up), the mesh engine's wall and tok/s
      beside the meshless engine's and its paged launches, all ``split``
      (counted in the kernels line under ``mesh``); the world is destroyed
-     after; (b) 4 gloo ranks on the card's host (``spawn_world``) serve
+     after (those tokens run through the vocab-parallel embedding lookup);
+     then one full-width xlstm-1.3b mLSTM block, bf16, on its own
+     one-rank world: a 64-token chunkwise call and a decode step through
+     the mesh route held to the meshless block within ``TOL`` (outputs
+     and state), and the cell's key-dim form ("state_inner": its partial
+     sums and gradient sums NCCL all-reduces) held to the cell without it,
+     forward, backward and step; (b) 4 gloo ranks on the card's host (``spawn_world``) serve
      the reduced llama3.2-1b at (2, 2), paged and cohort, under a shrunk
      ``h100_spec(hbm_bytes=250_000)`` (kv_shard 2) and the default spec
      (kv_shard 1): tokens equal the meshless engine's; (c) the dry run on
@@ -4879,6 +4885,118 @@ def mla_local_heads(pa_mod, t: int) -> dict:
     return out
 
 
+#: Phase 35 (a)'s mLSTM block: xlstm-1.3b's full width, 2 batch rows, a
+#: 64-token chunkwise call (one chunk) and a decode step, bf16.
+MESH_MLSTM_ROWS = 2
+MESH_MLSTM_TOKENS = 64
+
+
+def phase_mesh_mlstm(smesh) -> dict:
+    """(a) One full-width xlstm-1.3b mLSTM block on ``make_host_mesh()``
+    (a one-rank NCCL world), bf16: through the mesh route
+    (``models.xlstm.mlstm_on_shards`` on DTensors placed by the port's
+    rules, the cache placed as ``launch.specs`` places it), a 64-token
+    chunkwise call from a cache a 64-token prompt filled, then a decode
+    step, held to the meshless block on the same inputs within ``TOL``
+    (outputs and every state leaf).  Then the cell's key-dim form -- the
+    "state_inner" rule's, whose partial sums and gradient sums run as
+    NCCL all-reduces over the mesh's model dim (one rank here) -- held to
+    the cell without it: ``mlstm_chunkwise`` forward and backward and
+    ``mlstm_step``.  Returns the largest errors, with the llama mesh
+    engine's tokens of ``phase_serve_mesh`` (``smesh``), which run
+    through the vocab-parallel lookup."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import (arch_rules, logical_sharding,
+                                           param_shardings, use_mesh_rules)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import cache_logical_axes
+    from repro_torch.launch.trainer import distribute
+    from repro_torch.models import xlstm as XL
+
+    free_card()
+    cfg = xlstm_cfg()
+    bf = torch.bfloat16
+    rows, n = MESH_MLSTM_ROWS, MESH_MLSTM_TOKENS
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    specs = XL.mlstm_param_specs(cfg)
+    params = {k: randn(gen, sp.shape, bf, sp.shape[0] ** -0.5)
+              for k, sp in specs.items()}
+    params["out_norm"] = torch.ones_like(params["out_norm"])
+    di = params["wq"].shape[0]
+    h = cfg.n_heads
+    dh = di // h
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    cache = {"conv": torch.zeros((rows, cfg.xlstm.conv_width - 1, di),
+                                 dtype=bf, device=DEVICE),
+             "C": torch.zeros((rows, h, dh, dh), **f32),
+             "n": torch.zeros((rows, h, dh), **f32),
+             "m": torch.full((rows, h), XL.NEG, **f32)}
+    xs = {k: randn(gen, (rows, t, cfg.d_model), bf) for k, t in (
+        ("prompt", n), ("chunk", n), ("step", 1))}
+    with torch.no_grad():
+        _, cache = XL.mlstm_block(params, xs["prompt"], cfg, cache, n)
+        want = {}
+        c = cache
+        for call in ("chunk", "step"):
+            y, c = XL.mlstm_block(params, xs[call], cfg, c, n)
+            want[call] = (y, c)
+    out = {"arch": XLSTM, "rows": rows, "tokens": n}
+    mesh = make_host_mesh()
+    try:
+        rules = arch_rules(cfg, mesh)
+        pl = param_shardings(mesh, rules, specs)
+        mp = {k: distribute(v, mesh, pl[k]) for k, v in params.items()}
+        axes = cache_logical_axes(cfg, {k: v[None] for k, v in
+                                        cache.items()}, False)
+        mc = {k: distribute(v[None], mesh, logical_sharding(
+            mesh, rules, axes[k], v[None].shape, "act"))[0]
+            for k, v in cache.items()}
+        row_pl = logical_sharding(mesh, rules, ("batch", None, None),
+                                  xs["chunk"].shape, "act")
+        errs = {}
+        with torch.no_grad(), use_mesh_rules(mesh, rules):
+            for call in ("chunk", "step"):
+                y, mc = XL.mlstm_block(
+                    mp, distribute(xs[call], mesh, row_pl), cfg, mc, n)
+                wy, wc = want[call]
+                errs[f"{call}/y"] = held_to(
+                    y.full_tensor(), wy, TOL[bf], f"mLSTM {call} y (mesh)")
+                for k, v in wc.items():
+                    errs[f"{call}/{k}"] = held_to(
+                        mc[k].full_tensor(), v, TOL[bf],
+                        f"mLSTM {call} {k} (mesh)")
+        # The key-dim form over the model dim (one rank: each partial sum
+        # is whole, and the all-reduces run on NCCL all the same).
+        group = (mesh, mesh.mesh_dim_names.index("model"))
+        q, k, v = (randn(gen, (rows, n, h, dh), bf) for _ in range(3))
+        i_pre, f_pre = (randn(gen, (rows, n, h), bf) for _ in range(2))
+        seed = randn(gen, (rows, n, h, dh), torch.float32)
+        got = []
+        for g in (None, group):
+            leaves = [t.clone().requires_grad_(True)
+                      for t in (q, k, v, i_pre, f_pre)]
+            hc, st = XL.mlstm_chunkwise(*leaves, n, None, g)
+            (hc.float() * seed).sum().backward()
+            with torch.no_grad():
+                hs, _ = XL.mlstm_step(q[:, 0], k[:, 0], v[:, 0],
+                                      i_pre[:, 0], f_pre[:, 0], st, g)
+            got.append([t.detach() for t in (hc, *st, hs)]
+                       + [t.grad for t in leaves])
+        names = ["h", "C", "n", "m", "step_h", "dq", "dk", "dv", "di", "df"]
+        for name, a, b in zip(names, got[1], got[0]):
+            errs[f"inner/{name}"] = held_to(a, b, TOL[bf],
+                                            f"mLSTM key-dim form {name}")
+    finally:
+        dist.destroy_process_group()
+    out["max_abs_err"] = max(errs.values())
+    out["max_abs_err_by"] = errs
+    out["llama_mesh_tokens_equal"] = {
+        name: row["tokens_equal"] for name, row in smesh.items()}
+    log("  (a) mLSTM block: " + json.dumps(out))
+    return out
+
+
 def phase_serve_mesh_prefix(pa_mod) -> dict:
     """(a) llama3.2-1b at full width on ``make_host_mesh()`` with the radix
     cache, bf16, on the system-prompt trace: a warm mesh engine serves
@@ -5510,6 +5628,8 @@ def main() -> int:
                       phase_serve_mesh_deepseek, pa_mod, dt)
         pmesh = phase("phase 35a radix cache on the mesh",
                       phase_serve_mesh_prefix, pa_mod)
+        xmesh = phase("phase 35a mLSTM block on the mesh",
+                      phase_mesh_mlstm, smesh or {})
         scpu = phase("phase 35b 4 gloo ranks serve", phase_serve_mesh_cpu)
         sdry = phase("phase 35c dry run", phase_dryrun, dry)
         log(f"  phase 35: {time.perf_counter() - t35:.1f} s")
@@ -5518,7 +5638,7 @@ def main() -> int:
                           cserve, pparity, pllama, pzamba, pexport, pcli,
                           pcap, ppaper, pcluster, tguard, tparity, tfull,
                           tloop, rblocks, rone, tmesh, tcpu, smesh, zmesh,
-                          dmesh, pmesh, scpu, sdry):
+                          dmesh, pmesh, xmesh, scpu, sdry):
         log(f"FAILED phases: {failed}")
         return 1
     dec = kern["timings"]["decode"]
@@ -5737,6 +5857,9 @@ def main() -> int:
                          dmesh[name]["mesh"]["tok_s"]]}
         for name in ("float32", "bfloat16")}))
     log("radix cache on a mesh: " + json.dumps(pmesh))
+    log("mLSTM block on a mesh: " + json.dumps(
+        {k: xmesh[k] for k in ("arch", "rows", "tokens", "max_abs_err",
+                               "llama_mesh_tokens_equal")}))
     log("zamba2 on a mesh: " + json.dumps({
         name: {b: {"tokens_equal": r["tokens_equal"],
                    "wall_s": [r["meshless"]["wall_s"], r["mesh"]["wall_s"]],

@@ -652,35 +652,65 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
+    """``t`` summed over each ``(mesh, dim)`` of ``groups`` in turn
+    (functional collectives: they trace under ``FakeTensorMode``)."""
+    import torch.distributed._functional_collectives as funcol
+
+    for group in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+    return t
+
+
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]``: the embedding lookup.  On a mesh the table is
-    gathered whole and each rank looks up its own ids' rows; the result
-    takes the ids' placements (plus the row dim, unsharded), and the
-    table's gradient is a partial sum over the mesh dims that shard the
-    ids.  DTensor's own ``index``/``index_put`` rules are avoided: some
-    torch versions fail in the backward of a sharded lookup."""
+    """``table[ids]``: the embedding lookup.  On a mesh it runs on the
+    table's vocab shards: each rank looks up the ids its shard holds
+    (zeros for the others; ids outside it read row 0 and send it a zero
+    gradient) and one all-reduce of the rows over each mesh dim that
+    shards the vocab gives every id its row (``sum_partials``: exact, as
+    each row is added to zeros); the backward is the lookup's own, into
+    the local shard, so no rank gathers the table or builds its (V, d)
+    gradient, and a mesh of one rank computes what the meshless lookup
+    computes, bit for bit.  The table's "embed" columns are
+    gathered over the mesh dims that shard them (FSDP over data) and
+    nowhere else, and a mesh dim that shards both the vocab and the ids
+    gathers the vocab there.  The result takes the ids' placements (plus
+    the row dim, unsharded); the table's gradient is a partial sum over
+    the mesh dims that shard the ids.  DTensor's own ``index``/
+    ``index_put`` rules are avoided: some torch versions fail in the
+    backward of a sharded lookup.  Off a mesh, ``table[ids]``."""
     if not isinstance(table, DTensor):
         return table[ids.long()]
     mesh = table.device_mesh
-    rep = [Replicate()] * mesh.ndim
     if isinstance(ids, DTensor):
         ids_pl = tuple(ids.placements)
         ids = ids.to_local()
     else:
-        ids_pl = tuple(rep)
-    grad = [Partial() if isinstance(p, Shard) else Replicate()
-            for p in ids_pl]
-    if tuple(table.placements) != tuple(rep):
-        table = table.redistribute(mesh, rep)
-    rows = table.to_local(grad_placements=grad)[ids.long()]
+        ids_pl = (Replicate(),) * mesh.ndim
+    want, grad, groups = [], [], []
+    for i, (p, q) in enumerate(zip(table.placements, ids_pl)):
+        if isinstance(p, Shard) and p.dim == 0 and not isinstance(q, Shard):
+            want.append(p)
+            grad.append(p)
+            groups.append((mesh, i))
+        else:
+            want.append(Replicate())
+            grad.append(Partial() if isinstance(q, Shard) else Replicate())
+    if tuple(table.placements) != tuple(want):
+        table = table.redistribute(mesh, want)
+    lo, _ = local_extent(table, 0)
+    local = table.to_local(grad_placements=grad)
+    ids = ids.long()
+    own = (ids >= lo) & (ids < lo + local.shape[0])
+    rows = torch.where(own[..., None], local[torch.where(own, ids - lo, 0)],
+                       0)
+    for group in groups:
+        rows, = sum_partials(group, rows)
     shape = list(rows.shape)
     for i, p in enumerate(ids_pl):
         if isinstance(p, Shard):
             shape[p.dim] *= mesh.size(i)
-    shape = torch.Size(shape)
-    return DTensor.from_local(rows, mesh, ids_pl, run_check=False,
-                              shape=shape,
-                              stride=contiguous_stride(shape))
+    return from_local_like(rows, mesh, ids_pl, shape)
 
 
 def local_extent(t: DTensor, dim: int) -> Tuple[int, int]:
@@ -822,8 +852,8 @@ def rows_heads_roles(t: DTensor, row: Optional[int],
 
 
 def local_rows_heads(fn, args: Sequence,
-                     outs: Sequence[Tuple[Optional[int], Optional[int]]],
-                     roles: Sequence[Optional[str]]):
+                     outs: Sequence[Tuple[Optional[int], ...]],
+                     roles: Sequence[Optional[str]], partial: bool = True):
     """``fn`` on the local shards of tensors that share a row dim and a
     head dim, whose work is independent along both (a recurrent scan over
     batch rows and state heads).  ``args`` holds ``(tensor, row_dim,
@@ -834,8 +864,13 @@ def local_rows_heads(fn, args: Sequence,
     shards its row dim and every "head" one its head dim, the rest
     replicated; ``fn`` gets the local tensors; each tensor it returns,
     whose ``(row_dim, head_dim)`` ``outs`` gives, comes back as a DTensor
-    placed alike.  Differentiable: an argument replicated over a mesh dim
-    that splits the work gets a partial-sum gradient there."""
+    placed alike (replicated over the "head" mesh dims where its head dim
+    is None).  An ``outs`` entry may add the head dim's global size, where
+    it is not the arguments' (heads returned flattened with their width).
+    Differentiable: an argument replicated over a mesh dim that splits
+    the work gets a partial-sum gradient there -- or, with ``partial``
+    False, a whole one, where ``fn``'s own backward has summed it (a cell
+    that splits a contraction over the "head" dims, ``reduce_grads``)."""
     tensors = [a for a, _, _ in args if isinstance(a, DTensor)]
     mesh = tensors[0].device_mesh
     n_rows = n_heads = None
@@ -855,7 +890,8 @@ def local_rows_heads(fn, args: Sequence,
         for role in roles:
             d = row if role == "row" else head if role == "head" else None
             want.append(Shard(d) if d is not None else Replicate())
-            grad.append(Partial() if d is None and role else want[-1])
+            grad.append(Partial() if d is None and role and (
+                partial or role == "row") else want[-1])
         if tuple(t.placements) != tuple(want):
             t = t.redistribute(mesh, want)
         locals_.append(_ContiguousGrad.apply(
@@ -863,16 +899,71 @@ def local_rows_heads(fn, args: Sequence,
     result = fn(*locals_)
     single = isinstance(result, torch.Tensor)
     wrapped = []
-    for y, (row, head) in zip((result,) if single else result, outs):
-        place = tuple(Shard(row) if role == "row" else Shard(head)
-                      if role == "head" else Replicate() for role in roles)
+    for y, (row, head, *size) in zip((result,) if single else result, outs):
+        place = tuple(Shard(row) if role == "row" and row is not None
+                      else Shard(head) if role == "head" and head is not None
+                      else Replicate() for role in roles)
         shape = list(y.shape)
         if row is not None:
             shape[row] = n_rows
         if head is not None:
-            shape[head] = n_heads
+            shape[head] = size[0] if size else n_heads
         wrapped.append(from_local_like(y, mesh, place, shape))
     return wrapped[0] if single else tuple(wrapped)
+
+
+def _packed_sum(ts, group) -> list:
+    """The tensors ``ts`` summed over ``group`` by ONE all-reduce of
+    their flattened concatenation."""
+    flat = _all_reduce(torch.cat([t.reshape(-1) for t in ts]), (group,))
+    return [f.view(t.shape) for f, t in
+            zip(flat.split([t.numel() for t in ts]), ts)]
+
+
+class _SumPartials(torch.autograd.Function):
+    """Partial sums over ``group`` made whole: one all-reduce forward; the
+    identity backward, as every rank then computes the same thing from
+    the sums and hands back the same gradient (Megatron's "g")."""
+
+    @staticmethod
+    def forward(ctx, group, *ts):
+        return tuple(_packed_sum(ts, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + grads
+
+
+class _ReduceGrads(torch.autograd.Function):
+    """Whole tensors entering a computation split over ``group``: the
+    identity forward; one all-reduce of their gradients backward, which
+    each rank's split computation gives as a partial sum (Megatron's
+    "f")."""
+
+    @staticmethod
+    def forward(ctx, group, *ts):
+        ctx.group = group
+        ctx.like = [(t.shape, t.dtype, t.device) for t in ts]
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros(s, dtype=dt, device=dev) if g is None else g
+                 for g, (s, dt, dev) in zip(grads, ctx.like)]
+        return (None,) + tuple(_packed_sum(grads, ctx.group))
+
+
+def sum_partials(group, *ts) -> tuple:
+    """``ts``, each a partial sum over the mesh dim ``group`` (``(mesh,
+    dim)``), summed there; ``ts`` unchanged where ``group`` is None."""
+    return ts if group is None else _SumPartials.apply(group, *ts)
+
+
+def reduce_grads(group, *ts) -> tuple:
+    """``ts`` (whole on every rank of ``group``) as they are, their
+    gradients summed over ``group`` in the backward; ``ts`` unchanged
+    where ``group`` is None."""
+    return ts if group is None else _ReduceGrads.apply(group, *ts)
 
 
 def like_heads_of(t: DTensor, pool: DTensor, head_dim: int,

@@ -27,7 +27,10 @@ The port's counterpart runs each cell's step ONCE under ``FakeTensorMode``
     the state that persists across them.  The report's ``counted`` says
     which way a cell was counted.
 
-The report keeps the reference's keys, less the compile: ``lower_s`` and
+The report keeps the reference's keys, less the compile (and adds
+``collective_result_bytes``: what each collective hands back to the rank,
+an all-gather's gathered tensor, beside the reference's operand bytes in
+``collective_bytes``): ``lower_s`` and
 ``compile_s`` become ``trace_s`` (host seconds of the traced step: a
 host-CPU time, never a card's), ``xla_cost_flops_looponce`` goes,
 ``memory.peak_bytes`` is ``MemTracker``'s per-rank peak and
@@ -296,6 +299,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "flops": summary.flops,
         "hbm_bytes": summary.hbm_bytes,
         "collective_bytes": dict(summary.collective_bytes),
+        "collective_result_bytes": dict(summary.collective_result_bytes),
         "collective_shapes": sorted({(kind, tuple(shape))
                                      for kind, shapes in summary.collectives
                                      for shape in shapes}),

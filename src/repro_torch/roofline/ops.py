@@ -89,11 +89,15 @@ class OpSummary:
     """``HLOSummary``'s fields for an eager step: per-rank ``flops``,
     ``hbm_bytes``, ``collective_bytes`` keyed by the five collective
     names, and ``n_collective_ops``; ``collectives`` records each
-    dispatcher collective as ``(name, operand shapes)``."""
+    dispatcher collective as ``(name, operand shapes)``, and
+    ``collective_result_bytes`` the bytes each hands back to the rank (an
+    all-gather's gathered tensor, the group size times its operand)."""
 
     flops: float = 0.0
     hbm_bytes: float = 0.0
     collective_bytes: Dict[str, float] = field(
+        default_factory=lambda: {k: 0.0 for k in COLLECTIVES})
+    collective_result_bytes: Dict[str, float] = field(
         default_factory=lambda: {k: 0.0 for k in COLLECTIVES})
     flops_by_op: Dict[str, float] = field(default_factory=dict)
     collectives: List[Tuple[str, List[Tuple[int, ...]]]] = field(
@@ -128,10 +132,13 @@ _ACTIVE = threading.local()
 def book_collective(kind: str, nbytes: int) -> None:
     """Book ``nbytes`` of a collective the program asked for outside the
     dispatcher (the rings' P2P sends: "collective-permute") with the
-    analysis running in this thread; a no-op without one."""
+    analysis running in this thread, as many bytes handed back as sent;
+    a no-op without one."""
     counter = getattr(_ACTIVE, "counter", None)
     if counter is not None and not counter.suppress:
         counter.summary.collective_bytes[kind] += counter.weight * nbytes
+        counter.summary.collective_result_bytes[kind] += \
+            counter.weight * nbytes
         counter.summary.n_collective_ops += 1
 
 
@@ -274,6 +281,8 @@ class _OpCounter(TorchDispatchMode):
         if kind is not None:
             ins = _tensors(args[:1])
             s.collective_bytes[kind] += wt * sum(_nbytes(t) for t in ins)
+            s.collective_result_bytes[kind] += wt * sum(
+                _nbytes(t) for t in _tensors(out))
             s.n_collective_ops += 1
             s.collectives.append((kind, [tuple(t.shape) for t in ins]))
             return

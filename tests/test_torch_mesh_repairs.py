@@ -1,6 +1,7 @@
 """The port's mesh paths hold what the meshless ones compute, without
-redundant work: the row-parallel product, the vocab-parallel loss, the
-dry run's sampled loops, the cells DTensor could not propagate, and the
+redundant work: the row-parallel product, the vocab-parallel loss and
+embedding lookup, the mLSTM cell on its state's shards, the dry run's
+sampled loops, the cells DTensor could not propagate, and the
 ``ssd_scan`` wrapper's refusal of a DTensor.
 
   * On 4 gloo ranks at (2, 2) (``launch.mesh.spawn_world``; rank functions
@@ -19,7 +20,20 @@ dry run's sampled loops, the cells DTensor could not propagate, and the
         mixtral (the router on local shards) and xlstm at a global batch
         of 2, one row a data rank (its projections on local shards)
         equals the meshless step: loss, gradient norm and both moments at
-        1e-4 relative.
+        1e-4 relative;
+      - ``layers.embed_tokens`` on a table whose vocab shards over "model"
+        (its columns replicated, or FSDP's shard over "data"), ids at both
+        ends of both shards, gives the meshless rows and table gradient
+        exactly (integer-valued inputs), the gradient on the table's own
+        shards, and gathers nothing of the table but FSDP's columns;
+      - on a (1, 4) mesh, one mLSTM block of reduced xlstm at 4 heads (its
+        heads split) and at 2 (its state's key dim split) gives the
+        meshless block's output and gradients, and from a cache its
+        chunkwise call and decode step (output and state), at 1e-4
+        relative; ``C`` stays on its shards and no all-gather carries one;
+        each rank's FLOPs are at most half the meshless block's, the
+        cell's exactly a quarter with split heads and at most half with a
+        split key dim.
   * In a subprocess over a 4-rank fake world (``FakeTensorMode``), the
     dry run's ``lower_cell``:
       - on reduced llama3.2-1b x train_4k at (2, 2): no all-gather with
@@ -40,6 +54,10 @@ dry run's sampled loops, the cells DTensor could not propagate, and the
         first three, on a (2, 1, 2) pod mesh;
       - lowers reduced xlstm-1.3b x train at (2, 2) with a global batch
         of 2, one row a data rank;
+      - lowers reduced xlstm x train and x decode with its 4 heads on
+        (2, 2) and at 2 heads on (1, 4), and reduced llama x decode on
+        (2, 2): no all-gather of an mLSTM ``C`` shard or of the table's
+        vocab shard;
       - over a 512-rank fake world, lowers the two multi-pod cells DTensor
         refused, xlstm-1.3b and zamba2-1.2b x train_4k on 2x16x16, at full
         width with the depth cut to one period of the products that
@@ -47,6 +65,7 @@ dry run's sampled loops, the cells DTensor could not propagate, and the
   * ``kernels.ssd_scan.ssd_scan`` raises ``TypeError`` on a DTensor.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -63,10 +82,14 @@ import torch_mesh_parity as M
 from repro_torch.configs import ShapeConfig, TrainConfig, get_model_config
 from repro_torch.launch.mesh import spawn_world
 from repro_torch.launch.trainer import make_train_step
-from repro_torch.models.layers import blockwise_attention, cross_entropy_loss
+from repro_torch.models.layers import (blockwise_attention,
+                                       cross_entropy_loss, embed_tokens,
+                                       padded_vocab)
 from repro_torch.models.model import Model
 from repro_torch.models.params import params_from_numpy
-from repro_torch.models.xlstm import mlstm_chunkwise, slstm_scan
+from repro_torch.models.xlstm import (_round128, mlstm_block,
+                                      mlstm_chunkwise, mlstm_param_specs,
+                                      slstm_scan)
 from repro_torch.optim import adamw_init
 from repro_torch.roofline.ops import analyze_ops, sampling_loops
 from repro_torch.tree import tree_flatten_with_paths
@@ -82,6 +105,10 @@ STEP_SHAPES = {"xlstm-1.3b": ROW_A_RANK}
 #: zamba2's Mamba2 mixers.
 MULTI_POD_DEPTHS = {"xlstm-1.3b": 8, "zamba2-1.2b": 2}
 TOL = dict(rtol=1e-5, atol=1e-5)
+#: The vocab of the fake world's reduced xlstm state cells: its shards
+#: (80 rows on (1, 4), 160 on (2, 2)) match no weight's shard, as the
+#: registry's 256 would (w_up's (64, 64) on (1, 4)).
+STATE_VOCAB = 320
 
 _FAKE = textwrap.dedent("""
     import dataclasses, json, sys
@@ -126,8 +153,8 @@ _FAKE = textwrap.dedent("""
     decode = ShapeConfig("decode_32k", 64, 8, "decode")
     out = {}
 
-    def cell(arch, shape, cfg=None):
-        r = lower_cell(arch, shape.name, False, mesh=mesh,
+    def cell(arch, shape, cfg=None, on=None):
+        r = lower_cell(arch, shape.name, False, mesh=on or mesh,
                        cfg=cfg or get_model_config(arch).reduced(),
                        shape=shape)
         return {k: r[k] for k in ("status", "flops", "hbm_bytes",
@@ -183,8 +210,85 @@ _FAKE = textwrap.dedent("""
         # of xLSTM's weight-gradient products at this batch.
         out["cells/xlstm-1.3b/train_4k_batch2/2x2"] = cell(
             "xlstm-1.3b", dataclasses.replace(train, global_batch=2))
+        # The mLSTM state on its own shards: its 4 heads on (2, 2)'s model
+        # axis, and at 2 heads its key dim on (1, 4)'s; the lookup on the
+        # table's vocab shards in a serving tick.  A vocab of STATE_VOCAB
+        # gives the table's shard a shape no weight's shard has.
+        wide = init_device_mesh("cpu", (1, 4),
+                                mesh_dim_names=("data", "model"))
+        xl = dataclasses.replace(get_model_config("xlstm-1.3b").reduced(),
+                                 vocab_size=int(sys.argv[3]))
+        for case, on, cfg in (
+                ("heads", mesh, xl),
+                ("inner", wide, dataclasses.replace(xl, n_heads=2,
+                                                    n_kv_heads=2))):
+            for shape in (train, decode):
+                out[f"state/{case}/{shape.name}"] = cell(
+                    "xlstm-1.3b", shape, cfg=cfg, on=on)
+        out["cells/llama3.2-1b/decode_32k/2x2"] = cell("llama3.2-1b",
+                                                       decode)
     print(json.dumps(out))
 """)
+
+
+#: The mLSTM block's batch rows and tokens in ``W.mlstm_world``: 64
+#: tokens a rank, as many as ``w_up`` has rows, so its training form takes
+#: the up-projection's weight-split route (``xlstm._up_proj``); its chunk
+#: call continues a 10-token prompt's state by 12 tokens and its step by
+#: one, on the product route.
+CELL_ROWS, CELL_TOKENS = 2, 32
+#: The lookup's table: 64 rows of 8, two vocab shards of 32 on (2, 2).
+EMBED_VOCAB, EMBED_WIDTH = 64, 8
+
+
+def _block_params(cfg, rng) -> dict:
+    out = {}
+    for k, spec in mlstm_param_specs(cfg).items():
+        a = rng.standard_normal(spec.shape) / np.sqrt(spec.shape[0])
+        out[k] = (1 + 0.1 * a if k == "out_norm" else a).astype(np.float32)
+    return out
+
+
+def _cell_inputs(rng) -> dict:
+    """``W.mlstm_world``'s and ``W.embed_world``'s inputs: each mLSTM
+    case's block parameters, input, output seed, a cache made by the
+    meshless block from a 10-token prompt and the chunk and step calls'
+    inputs; the lookup's table, ids and seed -- small integers, so every
+    sum is exact in float32, and ids at both ends of both vocab shards."""
+    d = {}
+    for case, arch in W.MLSTM_CASES.items():
+        cfg = W._cfg(arch)
+        pre = f"mlstm/{case}/"
+        params = _block_params(cfg, rng)
+        d.update({pre + "p/" + k: v for k, v in params.items()})
+        for k, n in (("x", CELL_TOKENS), ("seed", CELL_TOKENS),
+                     ("prompt", 10), ("x_chunk", 12), ("x_step", 1)):
+            d[pre + k] = rng.standard_normal(
+                (CELL_ROWS, n, cfg.d_model)).astype(np.float32)
+        _, cache = mlstm_block(
+            {k: torch.from_numpy(v) for k, v in params.items()},
+            torch.from_numpy(d[pre + "prompt"]), cfg,
+            _zero_cache(cfg, CELL_ROWS), W.MLSTM_CHUNK)
+        d.update({pre + "c/" + k: v.numpy() for k, v in cache.items()})
+    half = EMBED_VOCAB // 2
+    ids = rng.integers(0, EMBED_VOCAB, (4, 6))
+    ids[0, :4] = ids[3, 2:] = [0, half - 1, half, EMBED_VOCAB - 1]
+    d["embed/ids"] = ids
+    d["embed/table"] = rng.integers(
+        -8, 8, (EMBED_VOCAB, EMBED_WIDTH)).astype(np.float32)
+    d["embed/seed"] = rng.integers(-4, 4, (4, 6, EMBED_WIDTH)).astype(
+        np.float32)
+    return d
+
+
+def _zero_cache(cfg, rows: int) -> dict:
+    """One mLSTM layer's empty cache (``Model.init_cache``'s leaves)."""
+    di = _round128(cfg.xlstm.mlstm_proj_factor * cfg.d_model)
+    h = cfg.n_heads
+    return {"conv": torch.zeros(rows, cfg.xlstm.conv_width - 1, di),
+            "C": torch.zeros(rows, h, di // h, di // h),
+            "n": torch.zeros(rows, h, di // h),
+            "m": torch.full((rows, h), -1e30)}
 
 
 def _env():
@@ -204,6 +308,7 @@ def results(tmp_path_factory):
          "seed": rng.standard_normal((4, 6, 12)).astype(np.float32),
          "logits": (3 * rng.standard_normal((4, 6, 32))).astype(np.float32),
          "labels": rng.integers(0, 32, (4, 6)).astype(np.int64)}
+    d.update(_cell_inputs(rng))
     inputs = str(tmp / "inputs.npz")
     np.savez(inputs, **d)
     groups = []
@@ -214,7 +319,8 @@ def results(tmp_path_factory):
         M._inputs(archs, path, shape)
         groups.append((path, archs, shape.seq_len, shape.global_batch))
     procs = [subprocess.Popen([sys.executable, "-c", _FAKE, which,
-                               json.dumps(MULTI_POD_DEPTHS)],
+                               json.dumps(MULTI_POD_DEPTHS),
+                               str(STATE_VOCAB)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, env=_env())
              for which in ("main", "pods", "multi")]
@@ -387,6 +493,140 @@ def test_meshed_step_equals_meshless(results, arch):
     for r in ranks:
         for k, v in want.items():
             M._close(r[f"{arch}/step/{k}"], v, f"{arch} {k}")
+
+
+def _meshless_block(d: dict, case: str):
+    """``W.mlstm_world``'s block meshless on its inputs: the output and
+    gradients of ``<out, seed>``, the FLOPs of that forward and backward
+    (all, and the cell's ``bmm``), and the chunk and step calls from the
+    cache."""
+    cfg = W._cfg(W.MLSTM_CASES[case])
+    pre = f"mlstm/{case}/"
+    params = {k: torch.from_numpy(d[pre + "p/" + k]).requires_grad_(True)
+              for k in mlstm_param_specs(cfg)}
+    x = torch.from_numpy(d[pre + "x"]).requires_grad_(True)
+    box = {}
+
+    def run():
+        box["y"], _ = mlstm_block(params, x, cfg, None, W.MLSTM_CHUNK)
+        (box["y"] * torch.from_numpy(d[pre + "seed"])).sum().backward()
+
+    ops = analyze_ops(run)
+    flops = (ops.flops, ops.flops_by_op["bmm"])
+    want = {"y": box["y"].detach().numpy(), "dx": x.grad.numpy()}
+    want.update({"d/" + k: v.grad.numpy() for k, v in params.items()})
+    cache = {k: torch.from_numpy(d[pre + "c/" + k])
+             for k in ("conv", "C", "n", "m")}
+    with torch.no_grad():
+        for call in ("chunk", "step"):
+            y, cache = mlstm_block(params, torch.from_numpy(
+                d[pre + "x_" + call]), cfg, cache, W.MLSTM_CHUNK)
+            want[call + "/y"] = y.numpy()
+            want.update({f"{call}/c/{k}": v.numpy()
+                         for k, v in cache.items()})
+    return want, flops
+
+
+@pytest.mark.parametrize("case", list(W.MLSTM_CASES))
+def test_mlstm_block_on_state_shards_matches_meshless(results, case):
+    """One mLSTM block on (1, 4): with its heads split ("heads": no
+    collective in the cell) and with its state's key dim split ("inner":
+    partial sums over "model"), the output and every gradient of the
+    training form, and the chunkwise call and the decode step from a
+    cache placed as the engine places it (outputs and new state), equal
+    the meshless block at 1e-4 relative; ``C`` stays on its shards (heads
+    on dim 1, the key dim on dim 2) and no all-gather carries a shard of
+    it."""
+    d, ranks, _, _ = results
+    want, _ = _meshless_block(d, case)
+    cfg = W._cfg(W.MLSTM_CASES[case])
+    dh = _round128(cfg.xlstm.mlstm_proj_factor * cfg.d_model) // cfg.n_heads
+    pre = f"mlstm/{case}/"
+    for r in ranks:
+        for k, v in want.items():
+            M._close(r[pre + k], v, f"{case} {k}")
+        split = {"heads": "S(1)", "inner": "S(2)"}[case]
+        assert list(r[pre + "C_placements"]) == ["R", split]
+        assert not [s for s in r[pre + "serve_gathers"]
+                    if len(s) == 4 and s[-1] == dh]
+
+
+@pytest.mark.parametrize("case", list(W.MLSTM_CASES))
+def test_mlstm_block_work_a_rank(results, case):
+    """The block's forward and backward on each of the 4 ranks traces at
+    most half the meshless block's FLOPs in both rule cases (the
+    up-projection's halves column-parallel), and so does its cell alone:
+    split by head, exactly a quarter of the cell's; split on the key dim,
+    all but the scores' product with ``v``, which every rank makes whole
+    (the cell gathered whole made all of it)."""
+    d, ranks, _, _ = results
+    _, (block, cell) = _meshless_block(d, case)
+    for r in ranks:
+        assert 0 < float(r[f"mlstm/{case}/flops"]) <= block / 2
+        got = float(r[f"mlstm/{case}/cell_flops"])
+        if case == "heads":
+            assert got == cell / 4
+        else:
+            assert 0 < got <= cell / 2
+
+
+@pytest.mark.parametrize("table", ["replicated", "fsdp"])
+def test_vocab_parallel_lookup_matches_meshless(results, table):
+    """``embed_tokens`` on a table whose vocab shards over "model" (its
+    columns replicated, or sharded over "data" as FSDP places them), ids
+    at both ends of both shards: the meshless rows and table gradient,
+    exactly (integer-valued inputs: every sum is exact in float32).  The
+    gradient keeps the vocab shard (a partial sum over the data ranks,
+    whose ids differ; FSDP's column shard), and the only all-gather of the
+    table is FSDP's over "data": one, of its (32, 4) shard."""
+    d, ranks, _, _ = results
+    tb = torch.from_numpy(d["embed/table"]).requires_grad_(True)
+    rows = embed_tokens({"embedding": tb}, torch.from_numpy(d["embed/ids"]),
+                        torch.float32)
+    (rows * torch.from_numpy(d["embed/seed"])).sum().backward()
+    half = EMBED_VOCAB // 2
+    for r in ranks:
+        pre = f"embed/{table}/"
+        assert np.array_equal(r[pre + "rows"], rows.detach().numpy())
+        assert np.array_equal(r[pre + "grad"], tb.grad.numpy())
+        data = "S(1)" if table == "fsdp" else "P(sum)"
+        assert list(r[pre + "grad_placements"]) == [data, "S(0)"]
+        gathers = [s for s in r[pre + "gathers"] if len(s) == 2]
+        assert gathers == ([(half, EMBED_WIDTH // 2)] if table == "fsdp"
+                           else [])
+
+
+@pytest.mark.parametrize("cell", ["heads/train_4k", "heads/decode_32k",
+                                  "inner/train_4k", "inner/decode_32k"])
+def test_no_gathered_state_or_table_in_the_dry_run(results, cell):
+    """Reduced xlstm's train and decode lowerings on a 4-rank fake world,
+    its 4 heads on (2, 2)'s model axis and 2 heads' key dim on (1, 4)'s:
+    no all-gather carries a shard of the mLSTM state ``C`` (its last dim
+    the head dim), and none the embedding table's vocab rows."""
+    rep = results[2][f"state/{cell}"]
+    assert rep["status"] == "ok" and rep["flops"] > 0
+    cfg = dataclasses.replace(get_model_config("xlstm-1.3b").reduced(),
+                              vocab_size=STATE_VOCAB)
+    heads = cfg.n_heads if cell.startswith("heads") else 2
+    dh = _round128(cfg.xlstm.mlstm_proj_factor * cfg.d_model) // heads
+    model = 2 if cell.startswith("heads") else 4
+    v_local = padded_vocab(cfg) // model
+    gathers = [s for k, s in rep["collective_shapes"] if k == "all-gather"]
+    assert not [s for s in gathers if len(s) >= 4 and s[-1] == dh]
+    assert not [s for s in gathers if len(s) == 2 and s[0] == v_local]
+
+
+@pytest.mark.parametrize("cell", ["llama3.2-1b/train_4k/2x2",
+                                  "llama3.2-1b/decode_32k/2x2"])
+def test_no_gathered_table_in_the_dry_run(results, cell):
+    """Reduced llama's training step and serving tick on (2, 2): the
+    lookup asks for no all-gather of the table's vocab shard."""
+    fake = results[2]
+    rep = fake["loss/new" if "train" in cell else f"cells/{cell}"]
+    assert rep["status"] == "ok"
+    v_local = padded_vocab(get_model_config("llama3.2-1b").reduced()) // 2
+    assert not [s for k, s in rep["collective_shapes"]
+                if k == "all-gather" and len(s) == 2 and s[0] == v_local]
 
 
 def test_ssd_scan_refuses_a_dtensor(tmp_path):

@@ -2,18 +2,21 @@
 families against the JAX package's, on 4 ranks in float32 (the runs and
 the tolerance rule are in ``tests/torch_mesh_parity.py``).
 
-For reduced xlstm-1.3b (the cells on each data rank's batch rows) and
-zamba2-1.2b (Mamba2 blocks and the shared attention): the training
-forward under gspmd, ring and serpentine rules on a (1, 4) mesh at 2e-4,
-and one ``make_train_step`` step on (2, 2) against the reference's step
-on a (2, 2) host mesh.
+For reduced xlstm-1.3b at its 4 heads (the mLSTM cell on each rank's
+rows and heads, the heads filling the model axis: "state_heads") and at 2
+heads (``torch_dist_workers.VARIANTS``: on the (1, 4) mesh the state's
+key dim splits over "model", "state_inner", and the cell sums its partial
+products there), and zamba2-1.2b (Mamba2 blocks and the shared
+attention): the training forward under gspmd, ring and serpentine rules
+on a (1, 4) mesh at 2e-4, and one ``make_train_step`` step on (2, 2)
+against the reference's step on a (2, 2) host mesh.
 """
 
 import pytest
 
 import torch_mesh_parity as M
 
-ARCHS = ["xlstm-1.3b", "zamba2-1.2b"]
+ARCHS = ["xlstm-1.3b", "xlstm-1.3b-2h", "zamba2-1.2b"]
 
 
 @pytest.fixture(scope="module")

@@ -101,10 +101,20 @@ def ring_world(rank: int, inputs: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+#: Reduced configs beyond the registry's: reduced xlstm-1.3b at 2 heads,
+#: whose state splits its key dim ("state_inner") on a model axis of 4.
+VARIANTS = {"xlstm-1.3b-2h": ("xlstm-1.3b", {"n_heads": 2,
+                                             "n_kv_heads": 2})}
+
+
 def _cfg(arch: str = "llama3.2-1b"):
+    """``arch``'s reduced config, or a ``VARIANTS`` entry's."""
+    import dataclasses
+
     from repro_torch.configs import get_model_config
 
-    return get_model_config(arch).reduced()
+    base, over = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(get_model_config(base).reduced(), **over)
 
 
 def loop_world(rank: int, ckpt_dir: str) -> dict:
@@ -692,12 +702,144 @@ def step_world(rank: int, inputs: str, archs: list, seq_len: int,
     return out
 
 
+#: The mLSTM block cases of ``mlstm_world``: reduced xlstm-1.3b at 4 heads
+#: (its heads fill the (1, 4) mesh's model axis: "state_heads") and at 2
+#: ("state_inner": the state's key dim splits).
+MLSTM_CASES = {"heads": "xlstm-1.3b", "inner": "xlstm-1.3b-2h"}
+#: The chunk the block's chunkwise cell runs at (two chunks a call).
+MLSTM_CHUNK = 8
+
+
+def mlstm_world(rank: int, inputs: str) -> dict:
+    """One mLSTM block (``models.xlstm.mlstm_block``) of each
+    ``MLSTM_CASES`` config on a (1, 4) mesh under ``arch_rules``, from its
+    parameters, inputs and cache in ``inputs``: the output and the
+    gradients of ``<out, seed>`` (gathered) with the FLOPs this rank's
+    forward and backward trace (``roofline.ops.analyze_ops``), all and
+    the cell's (its ``bmm``: the projections are ``mm``); then, from
+    the cache placed as ``launch.specs.cache_logical_axes`` places it, a
+    chunkwise call and a decode step (outputs and new state, gathered),
+    the new ``C``'s placements, and the shapes of every all-gather the
+    two calls ask for."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist.sharding import (arch_rules, logical_sharding,
+                                           param_shardings, use_mesh_rules)
+    from repro_torch.launch.specs import cache_logical_axes
+    from repro_torch.launch.trainer import distribute
+    from repro_torch.models.xlstm import mlstm_block, mlstm_param_specs
+    from repro_torch.roofline.ops import analyze_ops
+
+    torch.set_num_threads(1)
+    d = _load(inputs)
+    mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    out = {}
+    for case, arch in MLSTM_CASES.items():
+        cfg = _cfg(arch)
+        rules = arch_rules(cfg, mesh)
+        pre = f"mlstm/{case}/"
+        pl = param_shardings(mesh, rules, mlstm_param_specs(cfg))
+        params = {k: distribute(torch.from_numpy(d[pre + "p/" + k]), mesh,
+                                pl[k]).requires_grad_(True) for k in pl}
+        x = torch.from_numpy(d[pre + "x"]).requires_grad_(True)
+        xd = distribute(x, mesh, logical_sharding(
+            mesh, rules, ("batch", None, None), x.shape, "act"))
+        box = {}
+
+        def run():
+            with use_mesh_rules(mesh, rules):
+                box["y"], _ = mlstm_block(params, xd, cfg, None, MLSTM_CHUNK)
+            (box["y"].full_tensor() * torch.from_numpy(d[pre + "seed"])
+             ).sum().backward()
+
+        ops = analyze_ops(run)
+        out[pre + "flops"] = np.array(ops.flops)
+        out[pre + "cell_flops"] = np.array(ops.flops_by_op.get("bmm", 0.0))
+        out[pre + "y"] = _np(box["y"])
+        out[pre + "dx"] = _np(x.grad)
+        for k, v in params.items():
+            out[pre + "d/" + k] = _np(v.grad)
+        stack = {k: torch.from_numpy(d[pre + "c/" + k])[None]
+                 for k in ("conv", "C", "n", "m")}
+        axes = cache_logical_axes(cfg, stack, False)
+        cache = {k: distribute(v, mesh, logical_sharding(
+            mesh, rules, axes[k], v.shape, "act"))[0]
+            for k, v in stack.items()}
+        xs = [distribute(torch.from_numpy(d[pre + k]), mesh,
+                         xd.placements) for k in ("x_chunk", "x_step")]
+        box = {}
+
+        def serve():
+            with torch.no_grad(), use_mesh_rules(mesh, rules):
+                box["chunk"] = mlstm_block(params, xs[0], cfg, cache,
+                                           MLSTM_CHUNK)
+                box["step"] = mlstm_block(params, xs[1], cfg,
+                                          box["chunk"][1], MLSTM_CHUNK)
+
+        ops = analyze_ops(serve)
+        for call in ("chunk", "step"):
+            y, new = box[call]
+            out[f"{pre}{call}/y"] = _np(y)
+            for k, v in new.items():
+                out[f"{pre}{call}/c/{k}"] = _np(v)
+        out[pre + "C_placements"] = np.array(
+            [str(p) for p in box["step"][1]["C"].placements])
+        out[pre + "serve_gathers"] = [
+            tuple(s) for k, shapes in ops.collectives if k == "all-gather"
+            for s in shapes]
+    return out
+
+
+def embed_world(rank: int, inputs: str) -> dict:
+    """``layers.embed_tokens`` on (2, 2): the table's vocab over "model"
+    with its columns replicated and, as FSDP places it, sharded over
+    "data"; the ids' rows over "data".  The rows and the table's gradient
+    of ``<rows, seed>`` (gathered), and the shapes of every all-gather the
+    forward and backward ask for."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.trainer import distribute
+    from repro_torch.models.layers import embed_tokens
+    from repro_torch.roofline.ops import analyze_ops
+
+    torch.set_num_threads(1)
+    d = _load(inputs)
+    mesh = make_host_mesh(model_axis=2, device="cpu")
+    ids = distribute(torch.from_numpy(d["embed/ids"]), mesh,
+                     (Shard(0), Replicate()))
+    out = {}
+    for name, place in (("replicated", (Replicate(), Shard(0))),
+                        ("fsdp", (Shard(1), Shard(0)))):
+        table = distribute(torch.from_numpy(d["embed/table"]), mesh,
+                           place).requires_grad_(True)
+        box = {}
+
+        def run():
+            box["rows"] = embed_tokens({"embedding": table}, ids,
+                                       torch.float32)
+            (box["rows"].full_tensor() * torch.from_numpy(d["embed/seed"])
+             ).sum().backward()
+
+        ops = analyze_ops(run)
+        out[f"embed/{name}/rows"] = _np(box["rows"])
+        out[f"embed/{name}/grad"] = _np(table.grad)
+        out[f"embed/{name}/grad_placements"] = np.array(
+            [str(p) for p in table.grad.placements])
+        out[f"embed/{name}/gathers"] = [
+            tuple(s) for k, shapes in ops.collectives if k == "all-gather"
+            for s in shapes]
+    return out
+
+
 def repairs_world(rank: int, inputs: str, steps: list) -> dict:
-    """``row_parallel_world``, ``loss_world`` and ``step_world`` in one
-    world: ``steps`` holds ``(npz, archs, seq_len, batch)`` groups, a
-    ``step_world`` call each."""
+    """``row_parallel_world``, ``loss_world``, ``embed_world``,
+    ``mlstm_world`` and ``step_world`` in one world: ``steps`` holds
+    ``(npz, archs, seq_len, batch)`` groups, a ``step_world`` call each."""
     out = row_parallel_world(rank, inputs)
     out.update(loss_world(rank, inputs))
+    out.update(embed_world(rank, inputs))
+    out.update(mlstm_world(rank, inputs))
     for group in steps:
         out.update(step_world(rank, *group))
     return out

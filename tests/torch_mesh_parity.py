@@ -1,5 +1,7 @@
 """The sharded training parity runs shared by ``tests/test_torch_train_mesh*.py``:
 the port against the JAX package on 4 ranks in float32, on the same inputs.
+An arch is a registered name or one of ``torch_dist_workers.VARIANTS``
+(a reduced config with fields replaced), reduced alike on both sides.
 
 The test process draws each arch's parameters (the port's seeded
 ``Model.init``) and batch (``launch.specs.make_batch``) into one npz.
@@ -57,6 +59,10 @@ spec = json.loads(sys.argv[3])
 with np.load(sys.argv[1]) as z:
     inputs = {k: z[k] for k in z.files}
 
+def reduced(arch):
+    base, over = spec["variants"].get(arch, (arch, {}))
+    return dataclasses.replace(get_model_config(base).reduced(), **over)
+
 def nested(pre):
     out = {}
     for key, v in inputs.items():
@@ -97,7 +103,7 @@ def step(name, arch, cfg, train, rules=None):
         out[f"{name}/ref/m/{k}"] = np.asarray(m[k], dtype=np.float32)
 
 for arch in spec["archs"]:
-    cfg = get_model_config(arch).reduced()
+    cfg = reduced(arch)
     model = build_model(cfg, remat="none")
     logits, aux = model.forward(nested(f"{arch}/p/"), nested(f"{arch}/bt/"),
                                 dtype=jnp.float32)
@@ -143,7 +149,7 @@ def _inputs(archs, path: str, shape: ShapeConfig = SHAPE) -> None:
     both sides read."""
     out = {}
     for i, arch in enumerate(archs):
-        cfg = get_model_config(arch).reduced()
+        cfg = W._cfg(arch)
         for k, v in tree_flatten_with_paths(Model(cfg).init(i, device="cpu")).items():
             out[f"{arch}/p/{k}"] = v.numpy()
         batch = make_batch(cfg, shape, np.random.default_rng(i),
@@ -159,6 +165,7 @@ def run(tmp, archs, fsdp=None):
     (``fsdp`` must be one of ``archs``)."""
     spec = json.dumps({"archs": list(archs), "seq_len": SHAPE.seq_len,
                        "batch": SHAPE.global_batch,
+                       "variants": W.VARIANTS,
                        "fsdp": fsdp_spec(fsdp) if fsdp else None})
     inputs, ref_path = str(tmp / "inputs.npz"), str(tmp / "ref.npz")
     _inputs(archs, inputs)
